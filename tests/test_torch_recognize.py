@@ -1,0 +1,222 @@
+"""The port's serving slice end to end against the JAX pipeline, the port's
+independence from JAX, and its copies of the JAX package's host modules.
+
+- ``recognize`` on a tiny synthetic corpus (fbank kernel and fused
+  attention selected, as on the flagship) gives the same n-best text as
+  JAX's ``batched`` -> ``parse_batch`` -> ``encode`` -> ``beam_search`` on
+  the same weights, scores within 1e-4.
+- Every port module imports with jax, flax, optax and orbax blocked, and
+  the JAX package never enters ``sys.modules``; an AST scan of the
+  sources backs that up.
+- The copied host modules (vocab, manifest, CER, CLI parsing, config, wav
+  reading, synthetic corpus) agree with their originals on the same
+  inputs.
+"""
+
+import ast
+import json
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+import recognize as jax_recognize
+from asr_chinese_e2e_tpu.core.config import Config as JaxConfig
+from asr_chinese_e2e_tpu.data.batching import load_wav as jax_load_wav
+from asr_chinese_e2e_tpu.data.features import parse_batch as jax_parse_batch
+from asr_chinese_e2e_tpu.data.manifest import read_manifest as jax_read_manifest
+from asr_chinese_e2e_tpu.data.vocab import Vocab as JaxVocab
+from asr_chinese_e2e_tpu.decode.beam import beam_search as jax_beam_search
+from asr_chinese_e2e_tpu.decode.cer import corpus_cer as jax_corpus_cer
+from asr_chinese_e2e_tpu.utils.cli import parse_kwargs as jax_parse_kwargs
+from asr_chinese_e2e_tpu.utils.experiment import (
+    feature_config_from as jax_feature_config_from,
+)
+from asr_chinese_e2e_tpu.utils.synth import make_synth_corpus as jax_make_synth_corpus
+from asr_chinese_e2e_tpu_torch.core.config import Config
+from asr_chinese_e2e_tpu_torch.data.io import load_wav
+from asr_chinese_e2e_tpu_torch.data.manifest import read_manifest
+from asr_chinese_e2e_tpu_torch.data.vocab import Vocab
+from asr_chinese_e2e_tpu_torch.decode.cer import corpus_cer
+from asr_chinese_e2e_tpu_torch.recognize import recognize
+from asr_chinese_e2e_tpu_torch.utils.cli import parse_kwargs
+from asr_chinese_e2e_tpu_torch.utils.experiment import save_torch_checkpoint
+from asr_chinese_e2e_tpu_torch.utils.synth import make_synth_corpus
+from tests.test_torch_model import model_pair, tiny_config
+
+torch.set_num_threads(2)
+
+REPO = Path(__file__).resolve().parents[1]
+PKG = REPO / "asr_chinese_e2e_tpu_torch"
+CORPUS_KW = dict(
+    n_train=0, n_dev=0, n_test=6, n_tone_chars=6, vocab_size=20,
+    seconds_range=(0.6, 2.4), tone_sec=0.3, seed=0,
+)
+
+
+def _slice_config():
+    """Tiny model with the flagship's kernel selections."""
+    return tiny_config(
+        input_dim=80, n_mels=20, fbank_impl="pallas", attn_impl="fused"
+    )
+
+
+@pytest.fixture(scope="module")
+def experiment(tmp_path_factory):
+    """(exp dir, corpus paths, jax model, flax params): a port checkpoint
+    saved as ``latest`` only, so loading ``best`` exercises the fallback."""
+    root = tmp_path_factory.mktemp("torch_recognize")
+    corpus = make_synth_corpus(str(root / "corpus"), **CORPUS_KW)
+    vocab = Vocab.load(corpus["vocab"])
+    jcfg = _slice_config()
+    jm, params, tm = model_pair(jcfg, vocab_size=vocab.vocab_size, seed=2)
+    exp = root / "exp"
+    exp.mkdir()
+    Config(**jcfg.to_dict()).save(str(exp / "config.json"))
+    save_torch_checkpoint(str(exp), tm.state_dict(), vocab.fingerprint(), "latest")
+    return str(exp), corpus, jm, params, jcfg
+
+
+def test_recognize_matches_jax_pipeline(experiment, tmp_path):
+    exp, corpus, jm, params, jcfg = experiment
+    kw = dict(beam_size=3, batch_size=4, max_decode_len=8, nbest=2)
+    out = tmp_path / "res.json"
+    res = recognize(exp, corpus["vocab"], manifest=corpus["test"], device="cpu",
+                    out=str(out), **kw)
+
+    voc = JaxVocab.load(corpus["vocab"])
+    feat_cfg = jax_feature_config_from(jcfg)
+    records = jax_read_manifest(corpus["test"])
+    want, n_batches = {}, 0
+    for chunk, wave, lengths in jax_recognize.batched(
+        records, kw["batch_size"], int(15.0 * 16000), 16000
+    ):
+        feats, fl = jax_parse_batch(jnp.asarray(wave), jnp.asarray(lengths), feat_cfg)
+        enc, enc_len = jm.apply(params, feats, fl, method="encode")
+        r = jax_beam_search(
+            jm, params, enc, enc_len, kw["beam_size"], kw["max_decode_len"]
+        )
+        ids = r.nbest_ids(kw["nbest"])
+        n_batches += 1
+        for b, rec in enumerate(chunk):
+            utt = rec["wave"].rsplit("/", 1)[-1].rsplit(".", 1)[0]
+            want[utt] = [
+                ("".join(voc.ids_to_tokens(h)), float(r.scores[b, k]))
+                for k, h in enumerate(ids[b])
+            ]
+
+    assert set(res["utts"]) == set(want)
+    for utt, hyps in want.items():
+        got = res["utts"][utt]["output"]
+        assert [g["rec_text"] for g in got] == [h[0] for h in hyps]
+        np.testing.assert_allclose(
+            [g["score"] for g in got], [h[1] for h in hyps], atol=1e-4, rtol=0
+        )
+        assert all("text" in g for g in got)
+    hyps = [res["utts"][u]["output"][0]["rec_text"] for u in want]
+    refs = [res["utts"][u]["output"][0]["text"] for u in want]
+    assert res["cer"] == pytest.approx(jax_corpus_cer(hyps, refs))
+    written = json.loads(out.read_text(encoding="utf-8"))
+    assert set(written) == {"utts", "cer"}
+    assert res["timing"]["batches"] == n_batches
+
+
+def test_recognize_other_modes_raise(experiment):
+    exp, corpus, *_ = experiment
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        recognize(exp, corpus["vocab"], manifest=corpus["test"], mode="joint",
+                  device="cpu")
+
+
+_IMPORT_ALL = """
+import importlib, pkgutil, sys
+for blocked in ("jax", "flax", "optax", "orbax"):
+    sys.modules[blocked] = None
+import asr_chinese_e2e_tpu_torch as pkg
+names = [m.name for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + ".")]
+for name in names:
+    importlib.import_module(name)
+leaked = sorted(
+    m for m in sys.modules
+    if m == "asr_chinese_e2e_tpu" or m.startswith("asr_chinese_e2e_tpu.")
+)
+assert not leaked, leaked
+print(len(names))
+"""
+
+
+def test_port_imports_with_jax_blocked():
+    """The test environment may import jax before a test starts, so the
+    subprocess blocks the import rather than checking jax is absent."""
+    proc = subprocess.run(
+        [sys.executable, "-c", _IMPORT_ALL], cwd=REPO, capture_output=True,
+        text=True, timeout=300,
+    )
+    assert proc.returncode == 0, proc.stderr
+    assert int(proc.stdout.strip().splitlines()[-1]) >= 20
+
+
+def _imported_modules(path: Path):
+    tree = ast.parse(path.read_text(), filename=str(path))
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            yield from (a.name for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.level == 0 and node.module:
+            yield node.module
+
+
+@pytest.mark.parametrize(
+    "path",
+    sorted(PKG.rglob("*.py")) + [REPO / "chip_smoke.py"],
+    ids=lambda p: str(p.relative_to(REPO)),
+)
+def test_sources_import_no_jax(path):
+    forbidden = {"jax", "flax", "optax", "orbax", "asr_chinese_e2e_tpu"}
+    bad = [m for m in _imported_modules(path) if m.split(".")[0] in forbidden]
+    assert not bad, bad
+
+
+# -- host-module copies against their originals ------------------------------
+
+
+def test_vocab_copy_matches_original(experiment):
+    _, corpus, *_ = experiment
+    ours, theirs = Vocab.load(corpus["vocab"]), JaxVocab.load(corpus["vocab"])
+    assert ours.fingerprint() == theirs.fingerprint()
+    assert ours.vocab_size == theirs.vocab_size
+    text = "一丁七x"
+    assert ours.str_to_ids(text, True, True) == theirs.str_to_ids(text, True, True)
+    ids = list(range(ours.vocab_size))
+    assert ours.ids_to_tokens(ids) == theirs.ids_to_tokens(ids)
+    assert ours.ids_to_str(ids) == theirs.ids_to_str(ids)
+
+
+def test_manifest_wav_and_corpus_copies_match_originals(experiment, tmp_path):
+    _, corpus, *_ = experiment
+    theirs = jax_make_synth_corpus(str(tmp_path / "jax_corpus"), **CORPUS_KW)
+    assert Path(corpus["vocab"]).read_bytes() == Path(theirs["vocab"]).read_bytes()
+    ours_recs, their_recs = read_manifest(corpus["test"]), jax_read_manifest(theirs["test"])
+    assert len(ours_recs) == len(their_recs) == CORPUS_KW["n_test"]
+    for a, b in zip(ours_recs, their_recs):
+        assert (a["tgt"], a["frames"]) == (b["tgt"], b["frames"])
+        for dtype in (np.int16, np.float32):
+            np.testing.assert_array_equal(
+                load_wav(a["wave"], dtype=dtype), jax_load_wav(b["wave"], dtype=dtype)
+            )
+
+
+def test_cer_cli_and_config_copies_match_originals(tmp_path):
+    hyps, refs = ["今天天气", "你好", ""], ["今天天气好", "您好", "空"]
+    assert corpus_cer(hyps, refs) == jax_corpus_cer(hyps, refs)
+    argv = ["pos", "--a", "3", "--b=0.5", "--flag", "--lst", "[1, 2]", "--s", "x"]
+    assert parse_kwargs(argv) == jax_parse_kwargs(argv)
+    c = Config(a=1, b="x")
+    c.combine({"b": "y"}).build(c=[1, 2])
+    c.save(str(tmp_path / "c.json"))
+    assert JaxConfig.load(str(tmp_path / "c.json")).to_dict() == c.to_dict()
+    assert os.path.getsize(tmp_path / "c.json") > 0
