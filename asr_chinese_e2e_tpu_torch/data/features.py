@@ -1,12 +1,13 @@
 """Batched feature pipeline in torch: log-mel fbank -> [MFCC] -> [delta] ->
-CMVN -> LFR frame stacking.
+CMVN -> [SpecAugment] -> LFR frame stacking.
 
-Counterpart of ``asr_chinese_e2e_tpu/data/features.py`` for everything
-``parse_batch(augment=False)`` runs. The STFT is the same pair of
-windowed-DFT matmuls (periodic Hann, power 2), the mel bank the same HTK
-triangles, CMVN the same masked per-utterance statistics (ddof=1), and LFR
-the same clipped gather. SpecAugment and time-warp belong to training and
-are not ported yet (ROADMAP §1, item 1: training).
+Counterpart of ``asr_chinese_e2e_tpu/data/features.py``. The STFT is the
+same pair of windowed-DFT matmuls (periodic Hann, power 2), the mel bank
+the same HTK triangles, CMVN the same masked per-utterance statistics
+(ddof=1), SpecAugment the same two-stage mask draw filled with the
+utterance mean, and LFR the same clipped gather. The masks are drawn from
+an explicit ``torch.Generator`` (jax.random's bits cannot be reproduced).
+Time-warp is not ported yet (ROADMAP §1, item 1: training, time-warp).
 
 Shapes are static per bucket; variable length rides in ``lengths``
 tensors, as in the JAX package.
@@ -229,19 +230,73 @@ def lfr_stack(feats: torch.Tensor, feat_lengths: torch.Tensor, cfg: FeatureConfi
     return stacked * valid.to(feats.dtype)[..., None], out_lengths
 
 
+def _uniform_int(generator: torch.Generator, hi: torch.Tensor) -> torch.Tensor:
+    """One draw per row, uniform on [0, hi) (hi >= 1, int64)."""
+    u = torch.rand(hi.shape, generator=generator, dtype=torch.float64)
+    return torch.minimum((u * hi).floor().long(), hi - 1)
+
+
+def _spec_mask(generator, b: int, dim: int, param: int, lengths=None):
+    """One batch of SpecAugment masks by the reference's two-stage draw:
+    width_cap ~ U[0, P), start ~ U[0, dim - width_cap) (dim bounded by
+    ``lengths`` when given), width ~ U[0, width_cap). (B, dim) bool, on
+    the CPU."""
+    cap = _uniform_int(generator, torch.full((b,), param, dtype=torch.int64))
+    max_dim = lengths.cpu().long() if lengths is not None else torch.full((b,), dim)
+    start = _uniform_int(generator, (max_dim - cap).clamp(min=1))
+    width = _uniform_int(generator, cap.clamp(min=1))
+    width = torch.where(cap == 0, torch.zeros_like(width), width)
+    pos = torch.arange(dim)[None, :]
+    return (pos >= start[:, None]) & (pos < (start + width)[:, None])
+
+
+def apply_spec_masks(feats, feat_lengths, freq_masks, time_masks):
+    """Fill each (B, D) freq mask and (B, T) time mask with the utterance's
+    mean over valid frames; zero past the length."""
+    b, t, d = feats.shape
+    valid = _frame_mask(feats, feat_lengths)
+    n_valid = (feat_lengths.to(feats.dtype) * d).clamp(min=1.0)
+    fill = (feats * valid).sum(dim=(1, 2)) / n_valid
+    fill = fill[:, None, None].to(feats.dtype)
+    masked = feats
+    for fm in freq_masks:
+        masked = torch.where(fm.to(feats.device)[:, None, :], fill, masked)
+    for tm in time_masks:
+        masked = torch.where(tm.to(feats.device)[:, :, None], fill, masked)
+    return masked * valid
+
+
+def spec_augment(feats, feat_lengths, cfg: FeatureConfig, generator: torch.Generator):
+    """SpecAugment (``augments.py:4-42``): ``num_freq_masks`` masks of width
+    < ``freq_mask_param`` and ``num_time_masks`` masks of width <
+    ``time_mask_param`` inside each utterance's length, independent per
+    utterance, drawn from ``generator`` (a CPU generator)."""
+    if cfg.num_time_warps > 0:
+        raise NotImplementedError(
+            "time-warp is not ported yet (ROADMAP §1, item 1: training, time-warp)"
+        )
+    b, t, d = feats.shape
+    freq = [_spec_mask(generator, b, d, cfg.freq_mask_param)
+            for _ in range(cfg.num_freq_masks)]
+    time = [_spec_mask(generator, b, t, cfg.time_mask_param, feat_lengths)
+            for _ in range(cfg.num_time_masks)]
+    return apply_spec_masks(feats, feat_lengths, freq, time)
+
+
 def parse_batch(
     wave: torch.Tensor,
     wave_lengths: torch.Tensor,
     cfg: FeatureConfig,
     augment: bool = False,
+    generator: torch.Generator | None = None,
 ):
     """(B, S) waveforms + sample lengths -> (B, T_lfr, feature_dim) features
     + frame lengths. int16 input is scaled by 1/32768 first (the wire
-    format); ``cfg.fbank_impl == "pallas"`` selects the fbank kernel."""
-    if augment:
-        raise NotImplementedError(
-            "SpecAugment is not ported yet (ROADMAP §1, item 1: training)"
-        )
+    format); ``cfg.fbank_impl == "pallas"`` selects the fbank kernel.
+    ``augment`` applies SpecAugment after CMVN, with masks drawn from
+    ``generator``."""
+    if augment and generator is None:
+        raise ValueError("augment=True requires a generator")
     if not torch.is_floating_point(wave):
         wave = wave.to(torch.float32) * (1.0 / 32768.0)
     if cfg.fbank_impl == "pallas":
@@ -272,4 +327,6 @@ def parse_batch(
         feats = ((feats - cfg.cmvn_mean) / cfg.cmvn_std) * mask
     else:
         feats = cmvn(feats, feat_lengths)
+    if augment:
+        feats = spec_augment(feats, feat_lengths, cfg, generator)
     return lfr_stack(feats, feat_lengths, cfg)

@@ -1,10 +1,22 @@
-"""Shared torch layers: sinusoidal PE, multi-head attention with an explicit
-KV cache for decoding, position-wise FFN, residual + LayerNorm sublayer.
+"""Shared torch layers: dropout, sinusoidal PE, multi-head attention with an
+explicit KV cache for decoding, position-wise FFN, residual + LayerNorm
+sublayer.
 
-Counterparts of ``asr_chinese_e2e_tpu/models/layers.py``. Dropout is the
-identity at inference and is not ported yet (it comes with training), nor
-are ``ConvModule`` and ``ConvSubsampler`` (ROADMAP §1). Attention logits
-and softmax are f32 whatever the compute dtype, as in the JAX package.
+Counterparts of ``asr_chinese_e2e_tpu/models/layers.py``; ``ConvModule``
+and ``ConvSubsampler`` are not ported yet (ROADMAP §1, item 4).
+
+Precision follows flax's ``dtype`` / ``param_dtype`` split: parameters
+stay float32 (the optimizer's master weights) and each layer casts them
+to its compute dtype where it uses them (``Dense``, ``Embedding``);
+LayerNorm statistics are f32 and its output is in the compute dtype.
+Attention logits and softmax are f32 whatever the compute dtype. A model
+moved to bf16 with ``.to(dtype=...)`` (the serving path) computes the
+same way, with casts that are no-ops.
+
+Randomness is explicit: every ``forward`` that can drop takes ``rng``, a
+CPU ``torch.Generator`` from which each dropout call draws its own seed
+(the counterpart of flax's ``rngs={"dropout": key}``); None is the
+deterministic, inference path.
 
 The decode caches are updated IN PLACE (the JAX package returns new
 arrays): a step writes position ``index`` of the caches it was given and
@@ -21,10 +33,121 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from ..ops.fused_attention import fused_attention_general
+from ..ops.fused_attention import _mul32, _keep_threshold, fused_attention_general
 
 LN_EPS = 1e-6  # flax nn.LayerNorm's epsilon (torch's default is 1e-5)
 PE_MAX_LEN = 5000
+_SEED_HI = 2**31 - 1  # seeds drawn in [0, 2**31 - 1), as jax.random.randint
+
+
+def draw_seed(rng: torch.Generator) -> int:
+    """One dropout call's 31-bit seed, drawn on the CPU (no device sync)."""
+    return int(torch.randint(0, _SEED_HI, (), generator=rng))
+
+
+def hash_keep_mask(seed: int, shape, rate: float, dtype, device) -> torch.Tensor:
+    """Keep mask scaled by 1/(1-rate) in ``dtype``: the murmur finalizer of
+    (flat element index, seed), bit-exact with the JAX package's
+    ``ConfigurableDropout(impl="hash")`` (uint32 arithmetic emulated in
+    int64 with ``_mul32``)."""
+    n = int(np.prod(shape))
+    h = _index_term(n, torch.device(device)) ^ _mul32(
+        torch.tensor(int(seed) & 0xFFFFFFFF, dtype=torch.int64, device=device),
+        0xC2B2AE35,
+    )
+    h = h ^ (h >> 16)
+    h = _mul32(h, 0x85EBCA6B)
+    h = h ^ (h >> 13)
+    h = _mul32(h, 0xC2B2AE35)
+    h = h ^ (h >> 16)
+    keep = (h >= _keep_threshold(rate)).to(dtype).reshape(shape)
+    return keep / torch.tensor(1.0 - rate, dtype=dtype, device=device)
+
+
+@functools.lru_cache(maxsize=8)
+def _index_term(n: int, device: torch.device) -> torch.Tensor:
+    """(i * 0x9E3779B9) mod 2**32 for i < n, built once per size."""
+    return _mul32(torch.arange(n, dtype=torch.int64, device=device), 0x9E3779B9)
+
+
+class ConfigurableDropout(nn.Module):
+    """Dropout with a selectable mask generator (``impl``): ``"rng"``
+    draws a Bernoulli mask from a generator seeded per call, ``"hash"``
+    hashes the flat element index with a per-call seed exactly as the JAX
+    package does. Identity when ``rng`` is None or the rate is 0."""
+
+    def __init__(self, rate: float, impl: str = "rng"):
+        super().__init__()
+        if impl not in ("rng", "hash"):
+            raise ValueError(f"unknown dropout_impl {impl!r}")
+        self.rate, self.impl = float(rate), impl
+
+    def forward(self, x: torch.Tensor, rng) -> torch.Tensor:
+        if rng is None or self.rate == 0.0:
+            return x
+        seed = draw_seed(rng)
+        if self.impl == "hash":
+            return x * hash_keep_mask(seed, x.shape, self.rate, x.dtype, x.device)
+        gen = torch.Generator(device=x.device).manual_seed(seed)
+        keep = torch.rand(x.shape, generator=gen, device=x.device) >= self.rate
+        return x * keep.to(x.dtype) / torch.tensor(1.0 - self.rate, dtype=x.dtype,
+                                                   device=x.device)
+
+
+class Dense(nn.Linear):
+    """``nn.Linear`` that computes in ``dtype``: input, weight and bias are
+    cast at use (flax ``nn.Dense(dtype=...)`` with float32 parameters)."""
+
+    def __init__(self, in_features: int, out_features: int, dtype=torch.float32):
+        super().__init__(in_features, out_features)
+        self.compute_dtype = dtype
+
+    def forward(self, x):
+        dt = self.compute_dtype
+        if x.dtype == self.weight.dtype == dt:
+            # weights already cast (the serving path): no cast calls on the
+            # host-bound decode step
+            return F.linear(x, self.weight, self.bias)
+        return F.linear(x.to(dt), self.weight.to(dt), self.bias.to(dt))
+
+
+class LayerNorm(nn.LayerNorm):
+    """flax ``nn.LayerNorm(dtype=...)``: statistics and affine in f32,
+    output in ``dtype``; epsilon 1e-6."""
+
+    def __init__(self, d_model: int, dtype=torch.float32):
+        super().__init__(d_model, eps=LN_EPS)
+        self.compute_dtype = dtype
+
+    def forward(self, x):
+        dt = self.compute_dtype
+        if x.dtype == self.weight.dtype == dt:
+            # one launch (the host-bound decode step has many LayerNorms);
+            # torch accumulates in f32 here too
+            return F.layer_norm(x, self.normalized_shape, self.weight, self.bias, self.eps)
+        y = F.layer_norm(
+            x.float(), self.normalized_shape, self.weight.float(), self.bias.float(),
+            self.eps,
+        )
+        return y.to(dt)
+
+
+class Embedding(nn.Embedding):
+    """Embedding table cast to ``dtype`` at lookup (flax ``nn.Embed``)."""
+
+    def __init__(self, num: int, dim: int, dtype=torch.float32):
+        super().__init__(num, dim)
+        self.compute_dtype = dtype
+
+    def forward(self, ids):
+        return F.embedding(ids, self.weight.to(self.compute_dtype))
+
+    def attend(self, x):
+        """Tied output projection: x @ table^T in the compute dtype."""
+        dt = self.compute_dtype
+        if x.dtype == self.weight.dtype == dt:
+            return x @ self.weight.t()
+        return x.to(dt) @ self.weight.to(dt).t()
 
 
 def sinusoid_table(max_len: int, d_model: int) -> np.ndarray:
@@ -57,16 +180,24 @@ class PositionalEncoding(nn.Module):
 
 class MultiHeadAttention(nn.Module):
     """Scaled dot-product MHA with additive-bias masking and explicit cache
-    (temperature sqrt(d_k); residual + LN is the caller's)."""
+    (temperature sqrt(d_k); residual + LN is the caller's). Dropout on the
+    attention weights (``weight_dropout``) and on the output."""
 
-    def __init__(self, num_heads: int, d_model: int, head_dim: int):
+    def __init__(
+        self, num_heads: int, d_model: int, head_dim: int,
+        dropout_rate: float = 0.0, weight_dropout: bool = True,
+        dropout_impl: str = "rng", dtype=torch.float32,
+    ):
         super().__init__()
         self.num_heads, self.d_model, self.head_dim = num_heads, d_model, head_dim
+        self.dropout_rate, self.weight_dropout = float(dropout_rate), weight_dropout
         inner = num_heads * head_dim
-        self.q_proj = nn.Linear(d_model, inner)
-        self.k_proj = nn.Linear(d_model, inner)
-        self.v_proj = nn.Linear(d_model, inner)
-        self.out_proj = nn.Linear(inner, d_model)
+        self.q_proj = Dense(d_model, inner, dtype)
+        self.k_proj = Dense(d_model, inner, dtype)
+        self.v_proj = Dense(d_model, inner, dtype)
+        self.out_proj = Dense(inner, d_model, dtype)
+        self.attn_drop = ConfigurableDropout(dropout_rate, dropout_impl)
+        self.out_drop = ConfigurableDropout(dropout_rate, dropout_impl)
 
     @property
     def scale(self) -> float:
@@ -84,39 +215,54 @@ class MultiHeadAttention(nn.Module):
         """Project keys/values once (cross-attention caches)."""
         return self._split(self.k_proj(kv_in)), self._split(self.v_proj(kv_in))
 
-    def _attend(self, q, k, v, bias):
+    def _attend(self, q, k, v, bias, rng=None):
         logits = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) * self.scale
         if bias is not None:
             logits = logits + bias
         weights = torch.softmax(logits, dim=-1).to(v.dtype)
+        if self.weight_dropout:
+            weights = self.attn_drop(weights, rng)
         out = torch.einsum("bhqk,bkhd->bqhd", weights, v)
-        return self._merge_out(out)
+        return self.out_drop(self._merge_out(out), rng)
 
-    def forward(self, q_in, kv_in, bias):
+    def forward(self, q_in, kv_in, bias, rng=None):
         q = self._split(self.q_proj(q_in))
         k, v = self.kv(kv_in)
-        return self._attend(q, k, v, bias)
+        return self._attend(q, k, v, bias, rng)
 
-    def _fused_general(self, q_in, kv_in, q_lengths, k_lengths, causal, band=0):
-        """Project, run the fused attention kernel on (B, H, T, d), project
-        out. Inference only: dropout rate 0."""
+    def _fused_general(self, q_in, kv_in, q_lengths, k_lengths, causal, rng, band=0):
+        """Project, run the fused attention kernels on (B, H, T, d) with the
+        weight dropout in the kernel, project out, output dropout."""
         q = self._split(self.q_proj(q_in))
         k, v = self.kv(kv_in)
         to_bhtd = lambda a: a.transpose(1, 2).contiguous()
+        rate, seed = 0.0, 0
+        if rng is not None and self.weight_dropout and self.dropout_rate > 0.0:
+            rate, seed = self.dropout_rate, draw_seed(rng)
         out = fused_attention_general(
             to_bhtd(q), to_bhtd(k), to_bhtd(v), q_lengths, k_lengths,
-            0, self.scale, 0.0, causal, band,
+            seed, self.scale, rate, causal, band,
         )
-        return self._merge_out(out.transpose(1, 2))
+        return self.out_drop(self._merge_out(out.transpose(1, 2)), rng)
 
-    def fused(self, x, lengths):
+    def fused(self, x, lengths, rng=None):
         """Self-attention through the fused kernel (``attn_impl='fused'``)."""
-        return self._fused_general(x, x, lengths, lengths, False)
+        return self._fused_general(x, x, lengths, lengths, False, rng)
 
-    def fused_pattern(self, x, lengths, causal: bool, band: int):
+    def fused_pattern(self, x, lengths, causal: bool, band: int, rng=None):
         """Self-attention through the fused kernel with the banded /
         causal(-banded) pattern applied in the kernel."""
-        return self._fused_general(x, x, lengths, lengths, causal, band=band)
+        return self._fused_general(x, x, lengths, lengths, causal, rng, band=band)
+
+    def fused_causal(self, x, lengths, rng=None):
+        """Decoder causal self-attention through the fused kernel (kpos <=
+        qpos plus the target-length mask)."""
+        return self._fused_general(x, x, lengths, lengths, True, rng)
+
+    def fused_cross(self, q_in, kv_in, q_lengths, k_lengths, rng=None):
+        """Decoder cross-attention through the fused kernel: rectangular
+        tiles, queries masked by target length, keys by encoder length."""
+        return self._fused_general(q_in, kv_in, q_lengths, k_lengths, False, rng)
 
     def step_self(self, x, cache: dict, index: int, bias):
         """Cached self-attention decode step. x: (B, 1, D); cache holds
@@ -191,26 +337,32 @@ class MultiHeadAttention(nn.Module):
 
 
 class PositionwiseFFN(nn.Module):
-    """d_model -> d_ff -> d_model with ReLU."""
+    """d_model -> d_ff -> d_model with ReLU, then dropout."""
 
-    def __init__(self, d_model: int, d_ff: int):
+    def __init__(
+        self, d_model: int, d_ff: int, dropout_rate: float = 0.0,
+        dropout_impl: str = "rng", dtype=torch.float32,
+    ):
         super().__init__()
-        self.w1 = nn.Linear(d_model, d_ff)
-        self.w2 = nn.Linear(d_ff, d_model)
+        self.w1 = Dense(d_model, d_ff, dtype)
+        self.w2 = Dense(d_ff, d_model, dtype)
+        self.drop = ConfigurableDropout(dropout_rate, dropout_impl)
 
-    def forward(self, x):
-        return self.w2(torch.relu(self.w1(x)))
+    def forward(self, x, rng=None):
+        return self.drop(self.w2(torch.relu(self.w1(x))), rng)
 
 
 class SubLayer(nn.Module):
     """Residual + LayerNorm: ``pre`` is x + f(norm(x)); ``post`` is
     norm(alpha*x + f(x)) (alpha > 1 is DeepNorm's residual scaling)."""
 
-    def __init__(self, norm_type: str, d_model: int, alpha: float = 1.0):
+    def __init__(
+        self, norm_type: str, d_model: int, alpha: float = 1.0, dtype=torch.float32
+    ):
         super().__init__()
         self.norm_type = norm_type
         self.alpha = alpha
-        self.norm = nn.LayerNorm(d_model, eps=LN_EPS)
+        self.norm = LayerNorm(d_model, dtype)
 
     def forward(self, x, fn, has_aux: bool = False):
         norm = self.norm

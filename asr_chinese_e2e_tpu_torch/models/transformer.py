@@ -1,10 +1,12 @@
 """Speech-Transformer encoder/decoder with optional CTC head, in torch.
 
-Counterpart of ``asr_chinese_e2e_tpu/models/transformer.py`` for the
-serving path: encode, the uncached and KV-cached decoder, and the CTC
-head. The teacher-forced training forward, the conformer encoder, the
-conv2d frontend, streaming chunk encoding and the flash / ring / fused
-decoder attention paths are not ported yet; asking for them raises
+Counterpart of ``asr_chinese_e2e_tpu/models/transformer.py``: the
+teacher-forced training forward (with dropout), encode, the uncached and
+KV-cached decoder, and the CTC head; the encoder's and the decoder's
+attention through the fused kernels (``attn_impl`` / ``decoder_attn_impl``
+= "fused") or plain products ("xla"). The conformer encoder, the conv2d
+frontend, streaming chunk encoding, ``remat`` and the flash / ring
+attention paths are not ported yet; asking for them raises
 ``NotImplementedError`` naming the ROADMAP item.
 
 Weights are created from an explicit ``torch.Generator`` (the JAX
@@ -19,6 +21,7 @@ import torch
 from torch import nn
 
 from ..core.config import Config
+from ..data.vocab import BOS_ID, EOS_ID, PAD_ID
 from ..ops.masks import (
     NEG_INF,
     banded_bias,
@@ -28,7 +31,10 @@ from ..ops.masks import (
     padding_bias,
 )
 from .layers import (
-    LN_EPS,
+    ConfigurableDropout,
+    Dense,
+    Embedding,
+    LayerNorm,
     MultiHeadAttention,
     PositionalEncoding,
     PositionwiseFFN,
@@ -85,7 +91,7 @@ def check_supported(cfg) -> None:
     run yet, naming the ROADMAP item that brings them."""
     unsupported = [
         (cfg.get("attn_impl", "xla") == "flash",
-         "attn_impl='flash' (ROADMAP §1, item 1: training, with K2)"),
+         "attn_impl='flash' (ROADMAP §1, item 1: training, the flash path)"),
         (cfg.get("attn_impl", "xla") == "ring",
          "attn_impl='ring' (ROADMAP §1, item 7: parallelism)"),
         (cfg.get("frontend", "linear") == "conv2d",
@@ -93,28 +99,49 @@ def check_supported(cfg) -> None:
         (cfg.get("encoder_type", "transformer") == "conformer",
          "encoder_type='conformer' (ROADMAP §1, item 4: conformer and conv2d "
          "frontend)"),
-        (cfg.get("decoder_attn_impl", "xla") == "fused",
-         "decoder_attn_impl='fused' (ROADMAP §1, item 1: training, with K2)"),
+        (cfg.get("remat", False),
+         "remat (ROADMAP §1, item 1: training, remat)"),
     ]
     for bad, what in unsupported:
         if bad:
             raise NotImplementedError(f"{what} is not ported yet")
     if cfg.get("attn_impl", "xla") not in ("xla", "fused"):
         raise ValueError(f"unknown attn_impl {cfg.attn_impl!r}")
+    if cfg.get("decoder_attn_impl", "xla") not in ("xla", "fused"):
+        raise ValueError(f"unknown decoder_attn_impl {cfg.decoder_attn_impl!r}")
 
 
-def _encoder_self_attention(cfg, attn, x, bias, lengths):
+def compute_dtype_of(cfg) -> torch.dtype:
+    return torch.bfloat16 if cfg.get("dtype") == "bfloat16" else torch.float32
+
+
+def _attention(cfg) -> MultiHeadAttention:
+    return MultiHeadAttention(
+        cfg.num_heads, cfg.d_model, cfg.head_dim, cfg.dropout_rate,
+        weight_dropout=cfg.get("attn_weight_dropout", True),
+        dropout_impl=cfg.get("dropout_impl", "rng"), dtype=compute_dtype_of(cfg),
+    )
+
+
+def _ffn(cfg) -> PositionwiseFFN:
+    return PositionwiseFFN(
+        cfg.d_model, cfg.d_ff, cfg.dropout_rate,
+        dropout_impl=cfg.get("dropout_impl", "rng"), dtype=compute_dtype_of(cfg),
+    )
+
+
+def _encoder_self_attention(cfg, attn, x, bias, lengths, rng):
     """Encoder self-attention dispatch on ``attn_impl``: "fused" runs the
-    attention kernel (band / causal patterns in the kernel), "xla" the
+    attention kernels (band / causal patterns in the kernel), "xla" the
     plain masked products."""
     impl = cfg.get("attn_impl", "xla")
     band = cfg.get("attention_band", 0)
     causal = cfg.get("causal_encoder", False)
     if impl == "fused" and lengths is not None:
         if band or causal:
-            return attn.fused_pattern(x, lengths, causal, band)
-        return attn.fused(x, lengths)
-    return attn(x, x, bias)
+            return attn.fused_pattern(x, lengths, causal, band, rng)
+        return attn.fused(x, lengths, rng)
+    return attn(x, x, bias, rng)
 
 
 class EncoderLayer(nn.Module):
@@ -122,36 +149,38 @@ class EncoderLayer(nn.Module):
         super().__init__()
         self.cfg = cfg
         (alpha, _), _ = deepnorm_coeffs(cfg)
-        self.attn = MultiHeadAttention(cfg.num_heads, cfg.d_model, cfg.head_dim)
-        self.ffn = PositionwiseFFN(cfg.d_model, cfg.d_ff)
-        self.sub1 = SubLayer(cfg.norm_type, cfg.d_model, alpha=alpha)
-        self.sub2 = SubLayer(cfg.norm_type, cfg.d_model, alpha=alpha)
+        dt = compute_dtype_of(cfg)
+        self.attn = _attention(cfg)
+        self.ffn = _ffn(cfg)
+        self.sub1 = SubLayer(cfg.norm_type, cfg.d_model, alpha=alpha, dtype=dt)
+        self.sub2 = SubLayer(cfg.norm_type, cfg.d_model, alpha=alpha, dtype=dt)
 
-    def forward(self, x, bias, lengths=None):
+    def forward(self, x, bias, lengths=None, rng=None):
         x = self.sub1(
-            x, lambda y: _encoder_self_attention(self.cfg, self.attn, y, bias, lengths)
+            x,
+            lambda y: _encoder_self_attention(self.cfg, self.attn, y, bias, lengths, rng),
         )
-        return self.sub2(x, self.ffn)
+        return self.sub2(x, lambda y: self.ffn(y, rng))
 
 
 class Encoder(nn.Module):
     def __init__(self, cfg: Config):
         super().__init__()
         self.cfg = cfg
-        self.input_proj = nn.Linear(cfg.input_dim, cfg.d_model)
-        self.input_norm = nn.LayerNorm(cfg.d_model, eps=LN_EPS)
+        dt = compute_dtype_of(cfg)
+        self.input_proj = Dense(cfg.input_dim, cfg.d_model, dt)
+        self.input_norm = LayerNorm(cfg.d_model, dt)
         self.pe = PositionalEncoding(cfg.d_model)
+        self.dropout = ConfigurableDropout(cfg.dropout_rate, cfg.get("dropout_impl", "rng"))
         self.layers = nn.ModuleList(
             EncoderLayer(cfg) for _ in range(cfg.num_encoder_layers)
         )
-        self.final_norm = (
-            nn.LayerNorm(cfg.d_model, eps=LN_EPS) if cfg.norm_type == "pre" else None
-        )
+        self.final_norm = LayerNorm(cfg.d_model, dt) if cfg.norm_type == "pre" else None
 
-    def forward(self, feats, feat_lengths):
+    def forward(self, feats, feat_lengths, rng=None):
         c = self.cfg
-        x = self.input_norm(self.input_proj(feats.to(self.input_proj.weight.dtype)))
-        x = self.pe(x)
+        x = self.pe(self.input_norm(self.input_proj(feats)))
+        x = self.dropout(x, rng)
         t, dev = x.shape[1], x.device
         bias = padding_bias(feat_lengths, t)
         band = c.get("attention_band", 0)
@@ -162,7 +191,7 @@ class Encoder(nn.Module):
         elif band:
             bias = bias + banded_bias(t, band, dev)
         for layer in self.layers:
-            x = layer(x, bias, feat_lengths)
+            x = layer(x, bias, feat_lengths, rng)
         if self.final_norm is not None:
             x = self.final_norm(x)
         return x, feat_lengths
@@ -171,18 +200,36 @@ class Encoder(nn.Module):
 class DecoderLayer(nn.Module):
     def __init__(self, cfg: Config):
         super().__init__()
+        self.cfg = cfg
         _, (alpha, _) = deepnorm_coeffs(cfg)
-        self.self_attn = MultiHeadAttention(cfg.num_heads, cfg.d_model, cfg.head_dim)
-        self.cross_attn = MultiHeadAttention(cfg.num_heads, cfg.d_model, cfg.head_dim)
-        self.ffn = PositionwiseFFN(cfg.d_model, cfg.d_ff)
-        self.sub1 = SubLayer(cfg.norm_type, cfg.d_model, alpha=alpha)
-        self.sub2 = SubLayer(cfg.norm_type, cfg.d_model, alpha=alpha)
-        self.sub3 = SubLayer(cfg.norm_type, cfg.d_model, alpha=alpha)
+        dt = compute_dtype_of(cfg)
+        self.self_attn = _attention(cfg)
+        self.cross_attn = _attention(cfg)
+        self.ffn = _ffn(cfg)
+        self.sub1 = SubLayer(cfg.norm_type, cfg.d_model, alpha=alpha, dtype=dt)
+        self.sub2 = SubLayer(cfg.norm_type, cfg.d_model, alpha=alpha, dtype=dt)
+        self.sub3 = SubLayer(cfg.norm_type, cfg.d_model, alpha=alpha, dtype=dt)
 
-    def forward(self, x, enc_out, self_bias, cross_bias):
-        x = self.sub1(x, lambda y: self.self_attn(y, y, self_bias))
-        x = self.sub2(x, lambda y: self.cross_attn(y, enc_out, cross_bias))
-        return self.sub3(x, self.ffn)
+    def forward(
+        self, x, enc_out, self_bias, cross_bias, ys_lengths=None, enc_lengths=None,
+        rng=None,
+    ):
+        fused = (
+            self.cfg.get("decoder_attn_impl", "xla") == "fused"
+            and ys_lengths is not None and enc_lengths is not None
+        )
+        if fused:  # causal self-attention + rectangular cross-attention kernels
+            x = self.sub1(x, lambda y: self.self_attn.fused_causal(y, ys_lengths, rng))
+            x = self.sub2(
+                x,
+                lambda y: self.cross_attn.fused_cross(
+                    y, enc_out, ys_lengths, enc_lengths, rng
+                ),
+            )
+        else:
+            x = self.sub1(x, lambda y: self.self_attn(y, y, self_bias, rng))
+            x = self.sub2(x, lambda y: self.cross_attn(y, enc_out, cross_bias, rng))
+        return self.sub3(x, lambda y: self.ffn(y, rng))
 
     def step(self, x, self_cache, cross_cache, index, self_bias, cross_bias):
         """Cached single-token decode step. x: (B, 1, D)."""
@@ -215,30 +262,33 @@ class Decoder(nn.Module):
     def __init__(self, cfg: Config, vocab_size: int):
         super().__init__()
         self.cfg = cfg
-        self.embed = nn.Embedding(vocab_size, cfg.d_model)
+        dt = compute_dtype_of(cfg)
+        self.embed = Embedding(vocab_size, cfg.d_model, dt)
         self.pe = PositionalEncoding(cfg.d_model)
+        self.dropout = ConfigurableDropout(cfg.dropout_rate, cfg.get("dropout_impl", "rng"))
         self.layers = nn.ModuleList(
             DecoderLayer(cfg) for _ in range(cfg.num_decoder_layers)
         )
-        self.final_norm = (
-            nn.LayerNorm(cfg.d_model, eps=LN_EPS) if cfg.norm_type == "pre" else None
-        )
+        self.final_norm = LayerNorm(cfg.d_model, dt) if cfg.norm_type == "pre" else None
 
     def _embed_scaled(self, ys):
-        return self.embed(ys) * float(np.float32(np.sqrt(self.cfg.d_model)))
+        # the JAX package scales by a float32 numpy scalar, which promotes a
+        # bf16 embedding to f32
+        return self.embed(ys).float() * float(np.float32(np.sqrt(self.cfg.d_model)))
 
     def _project(self, x):
         # tied output projection (transformer_official.py:253-258)
-        w = self.embed.weight
-        return (x.to(w.dtype) @ w.t()).float()
+        return self.embed.attend(x).float()
 
-    def forward(self, ys_in, ys_in_lengths, enc_out, enc_lengths):
+    def forward(self, ys_in, ys_in_lengths, enc_out, enc_lengths, rng=None):
         t = ys_in.shape[1]
-        x = self.pe(self._embed_scaled(ys_in))
+        x = self.dropout(self.pe(self._embed_scaled(ys_in)), rng)
         self_bias = causal_padding_bias(ys_in_lengths, t)
         cross_bias = padding_bias(enc_lengths, enc_out.shape[1])
         for layer in self.layers:
-            x = layer(x, enc_out, self_bias, cross_bias)
+            x = layer(
+                x, enc_out, self_bias, cross_bias, ys_in_lengths, enc_lengths, rng
+            )
         if self.final_norm is not None:
             x = self.final_norm(x)
         return self._project(x)
@@ -301,12 +351,28 @@ class Decoder(nn.Module):
         return self._step_output(x, new_self, state)
 
 
+def preprocess_targets(labels: torch.Tensor, label_lengths: torch.Tensor):
+    """labels (B, L) PAD-padded -> (ys_in (B, L+1), ys_out (B, L+1)):
+    ys_in = [sos, labels...], ys_out = [labels..., eos], PAD elsewhere
+    (``Decoder.preprocess``, ``transformer_official.py:260-275``)."""
+    b, l = labels.shape
+    dev = labels.device
+    bos = torch.full((b, 1), BOS_ID, dtype=labels.dtype, device=dev)
+    ys_in = torch.cat([bos, labels], dim=1)
+    pad_col = torch.full((b, 1), PAD_ID, dtype=labels.dtype, device=dev)
+    base = torch.cat([labels, pad_col], dim=1)
+    eos_at = torch.arange(l + 1, device=dev)[None, :] == label_lengths.to(dev)[:, None]
+    return ys_in, base + EOS_ID * eos_at.to(labels.dtype)
+
+
 class SpeechTransformer(nn.Module):
     """Hybrid CTC/attention Speech-Transformer (flagship model).
 
     ``generator`` seeds the weight init (default: seed 0); the weights are
-    made in float32 on the CPU. Move the model with ``.to(device, dtype)``
-    (``compute_dtype`` gives the configured dtype)."""
+    made in float32 on the CPU. Each layer computes in the configured dtype
+    (``compute_dtype``) from float32 weights, so the model trains in bf16
+    with f32 master weights as it is; the serving path may also cast the
+    weights with ``.to(device, dtype)``."""
 
     # beam search may keep cross K/V at one row per utterance and fold the
     # beam dim into queries (see MultiHeadAttention.step_cross)
@@ -321,7 +387,8 @@ class SpeechTransformer(nn.Module):
             self.encoder = Encoder(cfg)
             self.decoder = Decoder(cfg, vocab_size)
             self.ctc_head = (
-                nn.Linear(cfg.d_model, vocab_size) if cfg.ctc_weight > 0.0 else None
+                Dense(cfg.d_model, vocab_size, compute_dtype_of(cfg))
+                if cfg.ctc_weight > 0.0 else None
             )
         self.to_empty(device="cpu")
         if generator is None:
@@ -330,7 +397,26 @@ class SpeechTransformer(nn.Module):
 
     @property
     def compute_dtype(self) -> torch.dtype:
-        return torch.bfloat16 if self.cfg.get("dtype") == "bfloat16" else torch.float32
+        return compute_dtype_of(self.cfg)
+
+    def forward(self, feats, feat_lengths, labels, label_lengths, rng=None):
+        """Teacher-forced forward (``rng``: a dropout generator for training,
+        None for evaluation). Returns {"logits" (B, L+1, V) f32, "gold"
+        (B, L+1), "enc_out", "enc_lengths"} and, with a CTC head,
+        "ctc_logits" (B, T, V) in the compute dtype (the CTC loss upcasts
+        inside)."""
+        enc_out, enc_lengths = self.encoder(feats, feat_lengths, rng)
+        ys_in, ys_out = preprocess_targets(labels, label_lengths)
+        logits = self.decoder(ys_in, label_lengths + 1, enc_out, enc_lengths, rng)
+        out = {
+            "logits": logits,
+            "gold": ys_out,
+            "enc_out": enc_out,
+            "enc_lengths": enc_lengths,
+        }
+        if self.ctc_head is not None:
+            out["ctc_logits"] = self.ctc_head(enc_out)
+        return out
 
     def encode(self, feats, feat_lengths):
         return self.encoder(feats, feat_lengths)

@@ -1,7 +1,9 @@
 """Build and load the port's CUDA kernels.
 
-All ``csrc/*.cu`` sources compile, with ``nvcc`` and no PyTorch headers,
-into one shared library with a plain C interface, loaded with ``ctypes``.
+All ``csrc/*.cu`` sources (with the shared ``csrc/*.cuh`` headers)
+compile with ``nvcc`` and no PyTorch headers, one ``nvcc`` process per
+source, all started together, then link into one shared library with a
+plain C interface, loaded with ``ctypes``.
 The library lands in ``build/kernels/<hash>/`` at the repository root,
 keyed by a hash of the sources and flags, so a fresh checkout builds it at
 first use and an edited source rebuilds it. Nothing here runs at import
@@ -23,7 +25,7 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parents[2] / "build" / "kernels"
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+    "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
 ]
 LIB_NAME = "libasr_kernels.so"
 
@@ -35,14 +37,26 @@ _U = ctypes.c_uint
 SIGNATURES = {
     "asr_fbank": [_P, _I, _I, _I, _P, _P, _P, _P, _I, _I, _I, _I, _P],
     "asr_attention_fwd": [
-        _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _U, _U, _F,
+        _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _U, _U, _F,
         _I, _I, _I, _P,
+    ],
+    "asr_attention_bwd": [
+        _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+        _I, _F, _U, _U, _F, _I, _I, _I, _P,
+    ],
+    "asr_ctc_alpha": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
+    "asr_ctc_beta": [
+        _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P,
     ],
 }
 
 
 def _sources() -> list[Path]:
     return sorted(CSRC.glob("*.cu"))
+
+
+def _headers() -> list[Path]:
+    return sorted(CSRC.glob("*.cuh"))
 
 
 def _nvcc() -> str:
@@ -54,10 +68,29 @@ def _nvcc() -> str:
 
 def library_path() -> Path:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in _sources():
+    for src in _sources() + _headers():
         h.update(src.name.encode())
         h.update(src.read_bytes())
     return BUILD_ROOT / h.hexdigest()[:16] / LIB_NAME
+
+
+def _run(cmds: list[list[str]]) -> None:
+    """Run the commands in parallel; raise with the output of the first
+    that failed."""
+    procs = [
+        subprocess.Popen(c, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        for c in cmds
+    ]
+    done = []
+    for cmd, proc in zip(cmds, procs):
+        out, err = proc.communicate()
+        done.append(subprocess.CompletedProcess(cmd, proc.returncode, out, err))
+    for res in done:
+        if res.returncode != 0:
+            raise RuntimeError(
+                f"nvcc failed ({res.returncode}):\n{' '.join(res.args)}\n"
+                f"{res.stdout}\n{res.stderr}"
+            )
 
 
 def build() -> Path:
@@ -66,19 +99,18 @@ def build() -> Path:
     if path.exists():
         return path
     path.parent.mkdir(parents=True, exist_ok=True)
-    # compile to a temp name and rename, so a concurrent build never
-    # loads a half-written library
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=path.parent)
-    os.close(fd)
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, *map(str, _sources())]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        os.unlink(tmp)
-        raise RuntimeError(
-            f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n"
-            f"{proc.stdout}\n{proc.stderr}"
-        )
-    os.replace(tmp, path)
+    nvcc = _nvcc()
+    # objects and the library go to temp names, and the library is renamed
+    # into place, so a concurrent build never loads a half-written file
+    with tempfile.TemporaryDirectory(dir=path.parent) as tmpdir:
+        objs = [str(Path(tmpdir) / (src.stem + ".o")) for src in _sources()]
+        _run([
+            [nvcc, *NVCC_FLAGS, "-c", str(src), "-o", obj]
+            for src, obj in zip(_sources(), objs)
+        ])
+        lib = str(Path(tmpdir) / LIB_NAME)
+        _run([[nvcc, *NVCC_FLAGS, "-shared", "-o", lib, *objs]])
+        os.replace(lib, path)
     return path
 
 

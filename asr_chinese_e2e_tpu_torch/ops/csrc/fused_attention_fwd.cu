@@ -29,11 +29,16 @@
 // TPU kernel does, so a row whose keys are all masked averages over Tk.
 // Without causal/band, key tiles wholly past k_len are skipped: with
 // k_len >= 1 (the wrapper requires it) their weights are exactly 0.
+// For training, the kernel also writes each query row's log-sum-exp of
+// its masked scores (``lse``, when the pointer is not null), which the
+// backward kernels (fused_attention_bwd.cu) use to recompute the weights.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
+
+#include "common.cuh"
 
 namespace {
 
@@ -42,38 +47,16 @@ constexpr int KT = 32;       // keys per tile
 constexpr int THREADS = 256; // 4 threads per query row
 constexpr float NEG_BIAS = -1e9f;
 
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
-template <typename T>
-__device__ __forceinline__ T from_f32(float x);
-template <>
-__device__ __forceinline__ float from_f32<float>(float x) { return x; }
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
-  return __float2bfloat16(x);
-}
-
-// murmur3-style finalizer over (i, j, seed, cell): ops/fused_attention.py
-// _keep_mask, in the natural uint32 wrap-around arithmetic
-__device__ __forceinline__ uint32_t keep_hash(uint32_t i, uint32_t j,
-                                              uint32_t seed, uint32_t cell) {
-  uint32_t x = (i * 0x9E3779B9u) ^ (j * 0x85EBCA6Bu) ^
-               (seed * 0xC2B2AE35u + cell * 0x27D4EB2Fu);
-  x ^= x >> 16;
-  x *= 0x85EBCA6Bu;
-  x ^= x >> 13;
-  x *= 0xC2B2AE35u;
-  x ^= x >> 16;
-  return x;
-}
+using asr::from_f32;
+using asr::keep_hash;
+using asr::to_f32;
 
 template <typename T, int D>
 __global__ void __launch_bounds__(THREADS)
 attention_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
                      const T* __restrict__ v, const int* __restrict__ q_len,
                      const int* __restrict__ k_len, T* __restrict__ out,
+                     float* __restrict__ lse,
                      int H, int Tq, int Tk, float scale, uint32_t seed,
                      uint32_t threshold, float keep_prob, int dropout,
                      int causal, int band) {
@@ -137,13 +120,7 @@ attention_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
       if (j >= Tk) {
         sc = -INFINITY;  // past the key axis: not a key at all
       } else {
-        bool keep = j < kn;
-        if (causal) {
-          keep = keep && (j <= i);
-          if (band > 0) keep = keep && (i - j <= band);
-        } else if (band > 0) {
-          keep = keep && (abs(i - j) <= band);
-        }
+        const bool keep = asr::key_visible(i, j, kn, causal, band);
         sc = acc * scale + (keep ? 0.0f : NEG_BIAS);
       }
       s[u] = sc;
@@ -186,37 +163,39 @@ attention_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
     T* orow = out + (bh * Tq + i) * D;
 #pragma unroll
     for (int dd = 0; dd < DR; ++dd) orow[r + 4 * dd] = from_f32<T>(o[dd] * norm);
+    if (lse != nullptr && r == 0) lse[bh * Tq + i] = m_run + logf(l_run);
   }
 }
 
 template <typename T, int D>
 void launch(const void* q, const void* k, const void* v, const int* q_len,
-            const int* k_len, void* out, int B, int H, int Tq, int Tk,
-            float scale, uint32_t seed, uint32_t threshold, float keep_prob,
+            const int* k_len, void* out, float* lse, int B, int H, int Tq,
+            int Tk, float scale, uint32_t seed, uint32_t threshold, float keep_prob,
             int dropout, int causal, int band, cudaStream_t stream) {
   dim3 grid((Tq + QT - 1) / QT, H, B);
   attention_fwd_kernel<T, D><<<grid, THREADS, 0, stream>>>(
-      (const T*)q, (const T*)k, (const T*)v, q_len, k_len, (T*)out, H, Tq, Tk,
-      scale, seed, threshold, keep_prob, dropout, causal, band);
+      (const T*)q, (const T*)k, (const T*)v, q_len, k_len, (T*)out, lse, H, Tq,
+      Tk, scale, seed, threshold, keep_prob, dropout, causal, band);
 }
 
 }  // namespace
 
 // q: (B, H, Tq, D), k/v: (B, H, Tk, D), out: (B, H, Tq, D), all contiguous,
-// bf16 (is_bf16=1) or f32; q_len/k_len: (B,) int32 on the device.
+// bf16 (is_bf16=1) or f32; q_len/k_len: (B,) int32 on the device; lse:
+// (B, H, Tq) f32 row log-sum-exp output, or null.
 // Returns cudaGetLastError() after the launch, or cudaErrorInvalidValue
 // for a head dim without an instantiation.
 extern "C" int asr_attention_fwd(const void* q, const void* k, const void* v,
                                  const int* q_len, const int* k_len, void* out,
-                                 int B, int H, int Tq, int Tk, int D,
+                                 float* lse, int B, int H, int Tq, int Tk, int D,
                                  int is_bf16, float scale, unsigned int seed,
                                  unsigned int threshold, float keep_prob,
                                  int dropout, int causal, int band,
                                  void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
-#define ASR_ATTN_CASE(TYPE, DIM)                                             \
-  launch<TYPE, DIM>(q, k, v, q_len, k_len, out, B, H, Tq, Tk, scale, seed,   \
-                    threshold, keep_prob, dropout, causal, band, st)
+#define ASR_ATTN_CASE(TYPE, DIM)                                            \
+  launch<TYPE, DIM>(q, k, v, q_len, k_len, out, lse, B, H, Tq, Tk, scale,    \
+                    seed, threshold, keep_prob, dropout, causal, band, st)
   if (D == 64) {
     if (is_bf16) ASR_ATTN_CASE(__nv_bfloat16, 64); else ASR_ATTN_CASE(float, 64);
   } else if (D == 32) {

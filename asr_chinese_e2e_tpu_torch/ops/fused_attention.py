@@ -1,11 +1,15 @@
-"""Fused masked attention with in-kernel index-hash weight dropout
-(``csrc/fused_attention_fwd.cu``): the port of the TPU kernel
-``asr_chinese_e2e_tpu/ops/fused_attention.py::_fwd_kernel``.
+"""Fused masked attention with in-kernel index-hash weight dropout, forward
+(K1, ``csrc/fused_attention_fwd.cu``) and backward (K2,
+``csrc/fused_attention_bwd.cu``): the port of the TPU kernels
+``asr_chinese_e2e_tpu/ops/fused_attention.py::_fwd_kernel`` and
+``_bwd_kernel``.
 
-``fused_attention_general`` takes (B, H, T, D) tensors. On a CPU tensor it
-runs the plain version ``attention_reference`` (the counterpart of the JAX
-package's ``_xla_attention``); on a CUDA tensor it launches the kernel or
-raises. Forward only: the backward kernel (K2) is still to be ported.
+``fused_attention_general`` takes (B, H, T, D) tensors and is
+differentiable (a ``torch.autograd.Function``). On CPU tensors it runs the
+plain versions, ``attention_reference`` (the counterpart of the JAX
+package's ``_xla_attention``) and ``attention_backward_reference`` (the
+formula of ``_bwd_kernel``); on CUDA tensors it launches the kernels or
+raises.
 """
 
 from __future__ import annotations
@@ -54,13 +58,16 @@ def keep_mask_reference(seed, bsz, heads, tq, tk, rate, device=None):
     return keep / np.float32(1.0 - rate)
 
 
-def attention_reference(
-    q, k, v, q_lengths, k_lengths, seed, scale, rate, causal, band=0
-):
-    """Plain torch version of the kernel: f32 scores, -1e9 on masked keys,
-    f32 softmax, padded query rows zeroed, hash keep mask, (W o M) V with
-    W cast to the value dtype."""
-    s = torch.einsum("bhqd,bhkd->bhqk", q.float(), k.float()) * scale
+def _compute_dtype(dtype: torch.dtype) -> torch.dtype:
+    """f32 for bf16/f32 inputs; f64 inputs stay f64 (gradcheck)."""
+    return torch.promote_types(dtype, torch.float32)
+
+
+def attention_weights(q, k, q_lengths, k_lengths, scale, causal, band=0):
+    """The kernel's weights W: f32 scores with -1e9 on masked keys, row
+    softmax, padded query rows zeroed. (B, H, Tq, Tk)."""
+    ct = _compute_dtype(q.dtype)
+    s = torch.einsum("bhqd,bhkd->bhqk", q.to(ct), k.to(ct)) * scale
     tq, tk = q.shape[2], k.shape[2]
     dev = q.device
     kpos = torch.arange(tk, device=dev)[None, None, None, :]
@@ -72,32 +79,57 @@ def attention_reference(
             mask = mask & (qpos - kpos <= band)
     elif band > 0:
         mask = mask & ((qpos - kpos).abs() <= band)
-    zero = torch.zeros((), dtype=torch.float32, device=dev)
+    zero = torch.zeros((), dtype=ct, device=dev)
     s = s + torch.where(mask, zero, NEG_INF)
     w = torch.softmax(s, dim=-1)
-    w = w * (qpos < q_lengths.to(dev)[:, None, None, None]).to(w.dtype)
+    return w * (qpos < q_lengths.to(dev)[:, None, None, None]).to(w.dtype)
+
+
+def attention_reference(
+    q, k, v, q_lengths, k_lengths, seed, scale, rate, causal, band=0
+):
+    """Plain torch version of the forward kernel: ``attention_weights``,
+    hash keep mask, (W o M) V with W cast to the value dtype."""
+    w = attention_weights(q, k, q_lengths, k_lengths, scale, causal, band)
     if rate > 0.0:
-        w = w * keep_mask_reference(seed, q.shape[0], q.shape[1], tq, tk, rate, dev)
+        bsz, heads, tq, tk = w.shape
+        w = w * keep_mask_reference(seed, bsz, heads, tq, tk, rate, q.device).to(w.dtype)
     return torch.einsum("bhqk,bhkd->bhqd", w.to(v.dtype), v)
+
+
+def attention_backward_reference(
+    q, k, v, q_lengths, k_lengths, seed, scale, rate, causal, band, dout
+):
+    """Plain torch version of the backward kernel, the explicit formula of
+    the TPU kernel ``_bwd_kernel``: recompute W and M, then dV = (W o M)^T
+    dO, dW = (dO V^T) o M, dS = W o (dW - rowsum(dW o W)), dQ = dS K scale,
+    dK = dS^T Q scale. Arithmetic in f32 (f64 for f64 inputs); returns
+    (dq, dk, dv) in the inputs' dtypes."""
+    w = attention_weights(q, k, q_lengths, k_lengths, scale, causal, band)
+    ct = w.dtype
+    g = dout.to(ct)
+    keep = None
+    if rate > 0.0:
+        bsz, heads, tq, tk = w.shape
+        keep = keep_mask_reference(seed, bsz, heads, tq, tk, rate, q.device).to(ct)
+    wd = w * keep if keep is not None else w
+    dv = torch.einsum("bhqk,bhqd->bhkd", wd, g)
+    dw = torch.einsum("bhqd,bhkd->bhqk", g, v.to(ct))
+    if keep is not None:
+        dw = dw * keep
+    ds = w * (dw - (dw * w).sum(-1, keepdim=True))
+    dq = torch.einsum("bhqk,bhkd->bhqd", ds, k.to(ct)) * scale
+    dk = torch.einsum("bhqk,bhqd->bhkd", ds, q.to(ct)) * scale
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
 
 
 _KERNEL_DTYPES = (torch.float32, torch.bfloat16)
 _KERNEL_HEAD_DIMS = (32, 64)
 
 
-def fused_attention_general(
-    q, k, v, q_lengths, k_lengths, seed,
-    scale: float, dropout_rate: float, causal: bool, band: int = 0,
-):
-    """q: (B, H, Tq, D); k/v: (B, H, Tk, D); q_lengths/k_lengths: (B,)
-    valid query/key counts; seed: int (dropout stream). Returns (B, H, Tq,
-    D) in q's dtype with padded query rows zeroed. ``causal`` masks kpos >
-    qpos; ``band`` > 0 restricts keys to [q-band, q] (causal) or |q-k| <=
-    band. Every k_length must be >= 1."""
-    if q.device.type == "cpu":
-        return attention_reference(
-            q, k, v, q_lengths, k_lengths, seed, scale, dropout_rate, causal, band
-        )
+def _check_kernel_inputs(q, k, v, q_lengths, k_lengths):
+    """Validate inputs for the kernels; returns (q_len, k_len) as int32 on
+    q's device."""
     if q.device.type != "cuda":
         raise ValueError(f"attention kernel: unsupported device {q.device}")
     if q.dim() != 4 or k.dim() != 4 or k.shape != v.shape:
@@ -122,30 +154,127 @@ def fused_attention_general(
         raise ValueError("attention kernel: lengths must be (B,)")
     if int(k_len.min()) < 1:  # host sync: an empty key row has no defined output
         raise ValueError("attention kernel: every k_length must be >= 1")
-    out = _launch(q, k, v, q_len, k_len, seed, scale, dropout_rate, causal, band)
-    fused_attention_general.launches += 1
-    return out
+    return q_len, k_len
 
 
-def _launch(q, k, v, q_len, k_len, seed, scale, rate, causal, band):
-    """Launch the kernel on tensors that ``fused_attention_general`` has
-    checked (lengths int32 on q's device); returns the new output."""
+def _dropout_args(seed, rate):
+    rate = float(rate)
+    return (
+        int(seed) & _M32, _keep_threshold(rate), float(np.float32(1.0 - rate)),
+        int(rate > 0.0),
+    )
+
+
+def _launch(q, k, v, q_len, k_len, seed, scale, rate, causal, band, lse=None):
+    """Launch the forward kernel on tensors that ``_check_kernel_inputs``
+    has checked; returns the new output. ``lse``, when given, is a (B, H,
+    Tq) f32 tensor that receives each row's log-sum-exp."""
     bsz, heads, tq, d = q.shape
     out = torch.empty_like(q)
-    rate = float(rate)
     lib = load_library()
     with torch.cuda.device(q.device):
         err = lib.asr_attention_fwd(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), q_len.data_ptr(),
-            k_len.data_ptr(), out.data_ptr(), bsz, heads, tq, k.shape[2], d,
-            int(q.dtype == torch.bfloat16), float(scale), int(seed) & _M32,
-            _keep_threshold(rate), float(np.float32(1.0 - rate)),
-            int(rate > 0.0), int(bool(causal)), int(band),
+            k_len.data_ptr(), out.data_ptr(),
+            None if lse is None else lse.data_ptr(),
+            bsz, heads, tq, k.shape[2], d, int(q.dtype == torch.bfloat16),
+            float(scale), *_dropout_args(seed, rate), int(bool(causal)), int(band),
             torch.cuda.current_stream().cuda_stream,
         )
     check(err, "asr_attention_fwd")
+    fused_attention_general.launches += 1
     return out
+
+
+def attention_backward_kernel(
+    q, k, v, out, lse, q_lengths, k_lengths, seed, scale, rate, causal, band, dout
+):
+    """K2: (dq, dk, dv) in the inputs' dtype, from the forward's output and
+    row log-sum-exp (``lse``, (B, H, Tq) f32). CUDA tensors only."""
+    q_len, k_len = _check_kernel_inputs(q, k, v, q_lengths, k_lengths)
+    bsz, heads, tq, d = q.shape
+    dout = dout.to(q.dtype).contiguous()
+    if out.shape != q.shape or dout.shape != q.shape or lse.shape != (bsz, heads, tq):
+        raise ValueError("attention backward kernel: out/dout/lse shapes")
+    if lse.dtype != torch.float32 or not (out.is_contiguous() and lse.is_contiguous()):
+        raise ValueError("attention backward kernel: lse f32, out/lse contiguous")
+    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+    delta = torch.empty((bsz, heads, tq), dtype=torch.float32, device=q.device)
+    lib = load_library()
+    with torch.cuda.device(q.device):
+        err = lib.asr_attention_bwd(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+            dout.data_ptr(), lse.data_ptr(), q_len.data_ptr(), k_len.data_ptr(),
+            delta.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+            bsz, heads, tq, k.shape[2], d, int(q.dtype == torch.bfloat16),
+            float(scale), *_dropout_args(seed, rate), int(bool(causal)), int(band),
+            torch.cuda.current_stream().cuda_stream,
+        )
+    check(err, "asr_attention_bwd")
+    attention_backward_kernel.launches += 1
+    return dq, dk, dv
+
+
+class _FusedAttention(torch.autograd.Function):
+    """Forward K1 and backward K2 (plain versions on the CPU). Saves q, k,
+    v, the output and, on the card, the row log-sum-exp: no (Tq, Tk)
+    tensor is kept for the backward."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, q_lengths, k_lengths, seed, scale, rate, causal, band):
+        ctx.args = (seed, scale, rate, causal, band)
+        needs_grad = any(ctx.needs_input_grad[:3])
+        if q.device.type == "cpu":
+            out = attention_reference(
+                q, k, v, q_lengths, k_lengths, seed, scale, rate, causal, band
+            )
+            if needs_grad:
+                ctx.save_for_backward(q, k, v, q_lengths, k_lengths)
+            return out
+        q_len, k_len = _check_kernel_inputs(q, k, v, q_lengths, k_lengths)
+        lse = None
+        if needs_grad:
+            lse = torch.empty(q.shape[:3], dtype=torch.float32, device=q.device)
+        out = _launch(q, k, v, q_len, k_len, seed, scale, rate, causal, band, lse)
+        if needs_grad:
+            ctx.save_for_backward(q, k, v, q_len, k_len, out, lse)
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        seed, scale, rate, causal, band = ctx.args
+        saved = ctx.saved_tensors
+        if saved[0].device.type == "cpu":
+            q, k, v, q_lengths, k_lengths = saved
+            grads = attention_backward_reference(
+                q, k, v, q_lengths, k_lengths, seed, scale, rate, causal, band, dout
+            )
+        else:
+            q, k, v, q_len, k_len, out, lse = saved
+            grads = attention_backward_kernel(
+                q, k, v, out, lse, q_len, k_len, seed, scale, rate, causal, band,
+                dout,
+            )
+        return (*grads, None, None, None, None, None, None, None)
+
+
+def fused_attention_general(
+    q, k, v, q_lengths, k_lengths, seed,
+    scale: float, dropout_rate: float, causal: bool, band: int = 0,
+):
+    """q: (B, H, Tq, D); k/v: (B, H, Tk, D); q_lengths/k_lengths: (B,)
+    valid query/key counts; seed: int (dropout stream). Returns (B, H, Tq,
+    D) in q's dtype with padded query rows zeroed; differentiable in q, k
+    and v. ``causal`` masks kpos > qpos; ``band`` > 0 restricts keys to
+    [q-band, q] (causal) or |q-k| <= band. Every k_length must be >= 1."""
+    if q.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"attention kernel: unsupported device {q.device}")
+    return _FusedAttention.apply(
+        q, k, v, q_lengths, k_lengths, int(seed), float(scale),
+        float(dropout_rate), bool(causal), int(band),
+    )
 
 
 # kernel launches so far (the CPU path does not count)
 fused_attention_general.launches = 0
+attention_backward_kernel.launches = 0

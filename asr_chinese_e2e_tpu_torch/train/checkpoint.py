@@ -1,0 +1,139 @@
+"""Checkpoint / resume with best-pointer tracking
+(``asr_chinese_e2e_tpu/train/checkpoint.py``, with ``torch.save`` in place
+of orbax).
+
+Layout under ``directory``:
+
+    e{E}_s{S}/state.pt   {model, optimizer, step, epoch, metric_sums}
+    e{E}_s{S}/meta.json  {epoch, step, vocab_fingerprint, config, metric}
+    index.json           {latest, best, best_metric, all}
+
+``reference='-loss'`` picks the best checkpoint ('-' = lower is better).
+Saves are synchronous and crash-consistent: ``state.pt`` is written to a
+temporary name and renamed, and ``index.json`` (also renamed into place)
+moves its pointers only after the checkpoint is complete, so ``latest``
+never points at a torn checkpoint. ``max_to_keep`` bounds the number kept
+(latest and best are never removed). When ``export_dir`` is given, the
+best checkpoint's weights are also written as
+``export_dir/torch_checkpoints/best.pt``, the file
+``utils/experiment.py::load_experiment`` serves from.
+"""
+
+from __future__ import annotations
+
+import json
+import os
+import shutil
+from typing import Optional
+
+import torch
+
+from ..core.config import Config
+from ..utils.experiment import save_torch_checkpoint
+
+
+def _metric_better(reference: str, new: float, old: Optional[float]) -> bool:
+    if old is None:
+        return True
+    return new < old if reference.startswith("-") else new > old
+
+
+def _atomic_json(path: str, obj) -> None:
+    tmp = path + ".tmp"
+    with open(tmp, "w") as f:
+        json.dump(obj, f, indent=2, default=str)
+    os.replace(tmp, path)
+
+
+class CheckpointManager:
+    def __init__(self, directory: str, reference: str = "-loss",
+                 max_to_keep: int = 5, export_dir: Optional[str] = None):
+        self.directory = os.path.abspath(directory)
+        os.makedirs(self.directory, exist_ok=True)
+        self.reference = reference
+        self.max_to_keep = max_to_keep
+        self.export_dir = export_dir
+        self._index_path = os.path.join(self.directory, "index.json")
+        self._index = self._load_index()
+
+    def _load_index(self) -> dict:
+        if os.path.exists(self._index_path):
+            with open(self._index_path) as f:
+                return json.load(f)
+        return {"latest": None, "best": None, "best_metric": None, "all": []}
+
+    def _step_dir(self, name: str) -> str:
+        return os.path.join(self.directory, name)
+
+    def save(self, state, epoch: int, config: Config | None = None,
+             vocab_fingerprint: str | None = None,
+             metric: float | None = None) -> str:
+        """Write checkpoint ``e{epoch}_s{step}`` of ``state`` (a
+        ``train_step.TrainState``), then publish it in the index."""
+        step = state.step
+        name = f"e{epoch}_s{step}"
+        path = self._step_dir(name)
+        os.makedirs(path, exist_ok=True)
+        blob = {
+            "model": state.model.state_dict(),
+            "optimizer": state.optimizer.state_dict(),
+            "step": step,
+            "epoch": int(epoch),
+            "metric_sums": {k: v.detach().cpu() for k, v in state.metric_sums.items()},
+        }
+        tmp = os.path.join(path, "state.pt.tmp")
+        torch.save(blob, tmp)
+        os.replace(tmp, os.path.join(path, "state.pt"))
+        _atomic_json(os.path.join(path, "meta.json"), {
+            "epoch": epoch,
+            "step": step,
+            "vocab_fingerprint": vocab_fingerprint,
+            "config": config.to_dict() if config is not None else None,
+            "metric": metric,
+        })
+        self._index["latest"] = name
+        if name not in self._index["all"]:
+            self._index["all"].append(name)
+        if metric is not None and _metric_better(
+            self.reference, metric, self._index["best_metric"]
+        ):
+            self._index["best"] = name
+            self._index["best_metric"] = metric
+            if self.export_dir is not None:
+                save_torch_checkpoint(
+                    self.export_dir, state.model.state_dict(), vocab_fingerprint, "best"
+                )
+        self._gc()
+        _atomic_json(self._index_path, self._index)
+        return path
+
+    def _gc(self) -> None:
+        keep = {n for n in (self._index["latest"], self._index["best"]) if n}
+        extra = [n for n in self._index["all"] if n not in keep]
+        while len(extra) + len(keep) > self.max_to_keep and extra:
+            victim = extra.pop(0)
+            self._index["all"].remove(victim)
+            shutil.rmtree(self._step_dir(victim), ignore_errors=True)
+
+    def restore(self, which: str, state) -> dict:
+        """Load 'latest' | 'best' | an explicit 'e{E}_s{S}' into ``state``
+        (model, optimizer, step, metric sums, in place); returns the meta
+        dict."""
+        if which in ("latest", "best"):
+            self._index = self._load_index()
+            name = self._index.get(which)
+        else:
+            name = which
+        if name is None or not os.path.exists(self._step_dir(name)):
+            raise FileNotFoundError(f"no '{which}' checkpoint in {self.directory}")
+        path = self._step_dir(name)
+        dev = next(state.model.parameters()).device
+        blob = torch.load(os.path.join(path, "state.pt"), map_location=dev,
+                          weights_only=True)
+        state.model.load_state_dict(blob["model"])
+        state.optimizer.load_state_dict(blob["optimizer"])
+        state.step = int(blob["step"])
+        for k, v in blob["metric_sums"].items():
+            state.metric_sums[k] = v.to(dev)
+        with open(os.path.join(path, "meta.json")) as f:
+            return json.load(f)

@@ -1,30 +1,59 @@
 #!/usr/bin/env python
 """Smoke test of the PyTorch/CUDA port on one GPU: builds the CUDA kernels,
 holds each against its plain PyTorch version on the card, then drives the
-serving path (``asr_chinese_e2e_tpu_torch.recognize``, beam mode) on the
-flagship configuration with random weights and checks that it went through
-the kernels. Run from the repository root:
+serving path (``asr_chinese_e2e_tpu_torch.recognize``, beam mode) and the
+training path (``asr_chinese_e2e_tpu_torch.main.train``) on the flagship
+configuration with random weights, and checks that both went through the
+kernels. Run from the repository root:
 
     python3 chip_smoke.py
 
 Phases (any failure raises, so the exit code is non-zero):
 
 1. require CUDA; print the card (``nvidia-smi``); TF32 off;
-2. build the kernels (``ops/_build.py``) and print the build time;
-3. K5 fbank kernel vs ``log_mel_spectrogram``: abs and rel diff <= 1e-3;
+2. build the kernels (``ops/_build.py``, one nvcc per source in parallel)
+   and print the build time;
+3. K5 fbank kernel vs ``log_mel_spectrogram``: log-mel abs diff and mel
+   energy rel diff <= 1e-3, at the serving batch (8, 128000), the
+   training batch (64, 128000) and an odd length;
 4. K1 attention kernel vs ``attention_reference``: f32 <= 1e-4 abs, bf16
    vs the f32 reference of the same bf16 inputs <= 2e-2 abs, at the
-   encoder shapes and the causal / band / rectangular / dropout cases;
-   median CUDA-event times of kernel and plain version;
-5. the serving path: a 512-wide, 6+6-layer, bf16 SpeechTransformer with a
+   serving encoder shapes (8, 8, 267|501, 64), the causal / band /
+   rectangular / dropout cases, and the training encoder shape (64, 8,
+   267, 64) with hash dropout 0.1; median CUDA-event times of kernel and
+   plain version;
+5. K2 attention backward (through the autograd Function, after K1 saved
+   the row log-sum-exp) vs ``attention_backward_reference``: dq, dk, dv
+   f32 <= 1e-4 abs, bf16 <= 2e-2 abs of the f32 reference, same cases;
+   times;
+6. K3/K4 CTC vs ``ctc_alpha_reference`` / ``ctc_beta_reference`` and the
+   loss vs ``F.ctc_loss`` at (64, 267, 4233), ragged lengths, label pad
+   32, f32 and bf16: loss rel <= 1e-4, gradient abs <= 1e-3 (f32; 1e-2
+   in bf16, where both sides round the gradient to bf16); times;
+7. the serving path: a 512-wide, 6+6-layer, bf16 SpeechTransformer with a
    4233-token vocabulary decodes 16 synthetic utterances of 2-8 s (beam
    10, batches of 8); every utterance needs a finite-scored hypothesis,
    the fbank kernel must run once and the attention kernel 6 times per
    batch, and the kernel path's f32 encoder output must agree with the
    CPU run of the plain path (which the CPU tests hold to the JAX
    package);
-6. print the kernels' JSON line, the card line, and last
-   ``{"ok": true, "device": {...}}``.
+8. the training path: ``main.train`` with the flagship recipe (bf16,
+   CTC 0.3 through K3/K4, fused attention with hash dropout 0.1,
+   SpecAugment, Noam + Adam, clip 5) on 128 synthetic 8 s utterances (2
+   batches of 64) and 16 dev utterances, 2 epochs; every logged loss
+   finite; per train step K5 1, K1 6, K2 6, K3 1, K4 1 launches (plus
+   K5 1, K1 6, K3 1 per dev batch); ``scalars.jsonl`` and ``index.json``
+   written; a second ``train(from_ckpt="latest", num_epoch=3)`` resumes
+   at the saved step and epoch; the best checkpoint decodes the dev set
+   through ``recognize`` on the card;
+9. one f32 flagship-width train step (2 utterances, no dropout, no
+   SpecAugment) on the card vs the same step on the CPU's plain path:
+   loss and gradient norm within 1e-3 relative;
+10. throughput: 20 timed flagship steps on one fixed batch of 64 x 8 s
+    after 3 warm-up steps: ms per step, steps/s, audio-s/s and MFU
+    against the H100 SXM dense bf16 peak;
+11. print the kernels' JSON line, the card line, and last
+    ``{"ok": true, "device": {...}}``.
 """
 
 import json
@@ -37,6 +66,7 @@ import time
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, ROOT)
@@ -50,14 +80,22 @@ from asr_chinese_e2e_tpu_torch.data.features import (  # noqa: E402
 from asr_chinese_e2e_tpu_torch.data.io import load_wav  # noqa: E402
 from asr_chinese_e2e_tpu_torch.data.manifest import read_manifest  # noqa: E402
 from asr_chinese_e2e_tpu_torch.data.vocab import Vocab  # noqa: E402
+from asr_chinese_e2e_tpu_torch.main import train as main_train  # noqa: E402
 from asr_chinese_e2e_tpu_torch.models.transformer import (  # noqa: E402
     SpeechTransformer,
     default_config,
 )
 from asr_chinese_e2e_tpu_torch.ops import _build  # noqa: E402
+from asr_chinese_e2e_tpu_torch.ops import ctc as ctc_ops  # noqa: E402
+from asr_chinese_e2e_tpu_torch.ops import ctc_kernel as ctc  # noqa: E402
 from asr_chinese_e2e_tpu_torch.ops import fused_attention as fa  # noqa: E402
 from asr_chinese_e2e_tpu_torch.ops.fbank import log_mel_spectrogram_kernel  # noqa: E402
 from asr_chinese_e2e_tpu_torch.recognize import recognize  # noqa: E402
+from asr_chinese_e2e_tpu_torch.train.optimizer import (  # noqa: E402
+    default_train_config,
+    make_optimizer,
+)
+from asr_chinese_e2e_tpu_torch.train.train_step import make_step_fns  # noqa: E402
 from asr_chinese_e2e_tpu_torch.utils.experiment import (  # noqa: E402
     save_torch_checkpoint,
 )
@@ -65,6 +103,27 @@ from asr_chinese_e2e_tpu_torch.utils.synth import make_synth_corpus  # noqa: E40
 
 WORK = os.path.join(ROOT, "build", "chip_smoke")
 N_TIMED = 30
+# NVIDIA H100 SXM datasheet: dense bf16 tensor-core peak, FLOP/s
+H100_SXM_BF16_PEAK = 989.4e12
+VOCAB = 4233
+
+# every kernel wrapper's launch counter, by the kernel's name
+COUNTERS = {
+    "fbank": log_mel_spectrogram_kernel,
+    "fused_attention_fwd": fa.fused_attention_general,
+    "fused_attention_bwd": fa.attention_backward_kernel,
+    "ctc_alpha": ctc.ctc_alpha_kernel,
+    "ctc_beta": ctc.ctc_beta_kernel,
+}
+
+
+def reset_counters() -> None:
+    for fn in COUNTERS.values():
+        fn.launches = 0
+
+
+def read_counters() -> dict:
+    return {name: fn.launches for name, fn in COUNTERS.items()}
 
 
 def card_line() -> str:
@@ -104,7 +163,7 @@ def check_fbank(dev) -> dict:
     cfg = FeatureConfig()
     rng = np.random.RandomState(0)
     worst, timing = 0.0, None
-    for shape in ((8, 128000), (3, 12345)):
+    for shape in ((8, 128000), (64, 128000), (3, 12345)):
         pcm = rng.randint(-32768, 32768, size=shape).astype(np.int16)
         wave = torch.from_numpy(pcm).to(dev).float() * (1.0 / 32768.0)
         got = log_mel_spectrogram_kernel(wave, cfg)
@@ -113,16 +172,21 @@ def check_fbank(dev) -> dict:
         require(got.shape == want.shape, f"fbank shape {got.shape} vs {want.shape}")
         diff = (got - want).abs()
         max_abs = diff.max().item()
-        max_rel = (diff / want.abs().clamp(min=1e-6)).max().item()
-        print(f"fbank {shape}: max_abs={max_abs:.3e} max_rel={max_rel:.3e}")
+        # relative error of the mel energies, exp(got) vs exp(want): a
+        # log-domain relative error is undefined where the log mel crosses 0
+        max_rel = torch.expm1(diff).max().item()
+        log_rel = (diff / want.abs().clamp(min=1e-6)).max().item()
+        print(f"fbank {shape}: max_abs={max_abs:.3e} energy max_rel={max_rel:.3e} "
+              f"(log-domain max_rel {log_rel:.3e}, not a bound)")
         require(max_abs <= 1e-3 and max_rel <= 1e-3, f"fbank {shape} disagrees")
         worst = max(worst, max_abs)
-        if timing is None:
+        if shape[1] == 128000:
             k_ms = median_ms(lambda: log_mel_spectrogram_kernel(wave, cfg))
             p_ms = median_ms(lambda: log_mel_spectrogram(wave, cfg))
-            timing = (k_ms, p_ms)
             print(f"fbank {shape} f32: kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms "
                   f"(median of {N_TIMED})")
+            if timing is None:
+                timing = (k_ms, p_ms)
     return {"max_abs_err": worst, "ms": timing[0], "plain_ms": timing[1]}
 
 
@@ -134,6 +198,10 @@ def _attn_inputs(b, h, tq, tk, d, dev, seed):
     q = torch.randn(b, h, tq, d, generator=g)
     k = torch.randn(b, h, tk, d, generator=g)
     v = torch.randn(b, h, tk, d, generator=g)
+    if b > 8:  # the training batch: 7.5-8 s utterances, the last 17 frames ragged
+        q_len = torch.tensor([tq - (7 * i) % 18 for i in range(b)], dtype=torch.int32)
+        k_len = torch.tensor([tk - (7 * i) % 18 for i in range(b)], dtype=torch.int32)
+        return [x.to(dev) for x in (q, k, v, q_len, k_len)]
     q_len = torch.tensor([max(1, tq - 37 * i) for i in range(b)], dtype=torch.int32)
     k_len = torch.tensor([max(1, tk - 37 * i) for i in range(b)], dtype=torch.int32)
     if tq != tk:  # cross-attention: queries by target length, keys by frames
@@ -141,21 +209,26 @@ def _attn_inputs(b, h, tq, tk, d, dev, seed):
     return [x.to(dev) for x in (q, k, v, q_len, k_len)]
 
 
+# (name, batch, tq, tk, causal, band, rate): the serving encoder at batch 8,
+# the masks K1/K2 take, and the training encoder (batch 64, dropout 0.1)
+ATTENTION_CASES = [
+    ("encoder-8s", 8, 267, 267, False, 0, 0.0),
+    ("encoder-15s", 8, 501, 501, False, 0, 0.0),
+    ("causal", 8, 267, 267, True, 0, 0.0),
+    ("band50", 8, 267, 267, False, 50, 0.0),
+    ("causal-band50", 8, 267, 267, True, 50, 0.0),
+    ("rectangular", 8, 21, 267, False, 0, 0.0),
+    ("dropout0.1", 8, 267, 267, False, 0, 0.1),
+    ("train-dropout0.1", 64, 267, 267, False, 0, 0.1),
+]
+TIMED_ATTENTION = ("encoder-8s", "encoder-15s", "train-dropout0.1")
+
+
 def check_attention(dev) -> dict:
-    b, h, d = 8, 8, 64
+    h, d = 8, 64
     scale = 1.0 / 8.0
-    cases = [
-        # (name, tq, tk, causal, band, rate)
-        ("encoder-8s", 267, 267, False, 0, 0.0),
-        ("encoder-15s", 501, 501, False, 0, 0.0),
-        ("causal", 267, 267, True, 0, 0.0),
-        ("band50", 267, 267, False, 50, 0.0),
-        ("causal-band50", 267, 267, True, 50, 0.0),
-        ("rectangular", 21, 267, False, 0, 0.0),
-        ("dropout0.1", 267, 267, False, 0, 0.1),
-    ]
     worst, slice_timing = 0.0, None
-    for i, (name, tq, tk, causal, band, rate) in enumerate(cases):
+    for i, (name, b, tq, tk, causal, band, rate) in enumerate(ATTENTION_CASES):
         q, k, v, q_len, k_len = _attn_inputs(b, h, tq, tk, d, dev, seed=i)
         args = (q_len, k_len, 1234, scale, rate, causal, band)
         got32 = fa.fused_attention_general(q, k, v, *args)
@@ -166,12 +239,12 @@ def check_attention(dev) -> dict:
         torch.cuda.synchronize()
         err32 = (got32 - want32).abs().max().item()
         err16 = (got16.float() - want16).abs().max().item()
-        print(f"attention {name} (8,8,{tq},{tk},64): f32 max_abs={err32:.3e} "
+        print(f"attention {name} ({b},8,{tq},{tk},64): f32 max_abs={err32:.3e} "
               f"bf16 max_abs={err16:.3e}")
         require(err32 <= 1e-4, f"attention {name} f32 disagrees")
         require(err16 <= 2e-2, f"attention {name} bf16 disagrees")
         worst = max(worst, err16)
-        if name.startswith("encoder"):
+        if name in TIMED_ATTENTION:
             k_ms = median_ms(lambda: fa._launch(qb, kb, vb, *args))
             p_ms = median_ms(lambda: fa.attention_reference(qb, kb, vb, *args))
             print(f"attention {name} bf16: kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms "
@@ -181,7 +254,123 @@ def check_attention(dev) -> dict:
     return {"max_abs_err": worst, "ms": slice_timing[0], "plain_ms": slice_timing[1]}
 
 
-# -- phase 5: the serving path -------------------------------------------------
+# -- phase 5: attention backward ----------------------------------------------
+
+
+def check_attention_bwd(dev) -> dict:
+    """K2 through the autograd Function (K1 forward saving the row
+    log-sum-exp, K2 backward) vs the plain backward on the same inputs."""
+    h, d = 8, 64
+    scale = 1.0 / 8.0
+    worst, slice_timing = 0.0, None
+    for i, (name, b, tq, tk, causal, band, rate) in enumerate(ATTENTION_CASES):
+        q, k, v, q_len, k_len = _attn_inputs(b, h, tq, tk, d, dev, seed=10 + i)
+        g = torch.randn(q.shape, generator=torch.Generator().manual_seed(i)).to(dev)
+        args = (q_len, k_len, 777, scale, rate, causal, band)
+        errs = {}
+        for dtype in (torch.float32, torch.bfloat16):
+            leaves = [x.detach().to(dtype).requires_grad_(True) for x in (q, k, v)]
+            out = fa.fused_attention_general(*leaves, *args)
+            out.backward(g.to(dtype))
+            want = fa.attention_backward_reference(
+                *(x.detach().float() for x in leaves), *args, g.to(dtype).float()
+            )
+            torch.cuda.synchronize()
+            got = [x.grad for x in leaves]
+            require(all(x.dtype == dtype for x in got), f"attention bwd {name}: dtype")
+            errs[dtype] = max((a.float() - w).abs().max().item() for a, w in zip(got, want))
+        print(f"attention bwd {name} ({b},8,{tq},{tk},64): f32 max_abs="
+              f"{errs[torch.float32]:.3e} bf16 max_abs={errs[torch.bfloat16]:.3e}")
+        require(errs[torch.float32] <= 1e-4, f"attention bwd {name} f32 disagrees")
+        require(errs[torch.bfloat16] <= 2e-2, f"attention bwd {name} bf16 disagrees")
+        worst = max(worst, errs[torch.bfloat16])
+        if name in TIMED_ATTENTION:
+            qb, kb, vb, gb = (x.to(torch.bfloat16) for x in (q, k, v, g))
+            lse = torch.empty(qb.shape[:3], dtype=torch.float32, device=dev)
+            out = fa._launch(qb, kb, vb, q_len, k_len, 777, scale, rate, causal, band, lse)
+            k_ms = median_ms(lambda: fa.attention_backward_kernel(
+                qb, kb, vb, out, lse, *args, gb))
+            p_ms = median_ms(lambda: fa.attention_backward_reference(
+                qb, kb, vb, *args, gb))
+            print(f"attention bwd {name} bf16: kernel {k_ms:.4f} ms, plain "
+                  f"{p_ms:.4f} ms (median of {N_TIMED})")
+            if slice_timing is None:
+                slice_timing = (k_ms, p_ms)
+    return {"max_abs_err": worst, "ms": slice_timing[0], "plain_ms": slice_timing[1]}
+
+
+# -- phase 6: CTC alpha / beta -------------------------------------------------
+
+
+def _ctc_inputs(dev, dtype, b=64, t=267, c=4233, label_pad=32, seed=0):
+    g = torch.Generator().manual_seed(seed)
+    logits = (torch.randn(b, t, c, generator=g) * 2.0).to(dtype)
+    lens = torch.tensor([t - (i * 7) % 120 for i in range(b)], dtype=torch.int32)
+    lab_lens = torch.tensor([1 + (i * 5) % label_pad for i in range(b)], dtype=torch.int32)
+    labels = torch.randint(1, c, (b, label_pad), generator=g, dtype=torch.int32)
+    labels = labels * (torch.arange(label_pad)[None, :] < lab_lens[:, None])
+    return [x.to(dev) for x in (logits, lens, labels, lab_lens)]
+
+
+def check_ctc(dev) -> tuple[dict, dict]:
+    """K3 and K4 vs their plain versions (and the loss vs F.ctc_loss) at the
+    flagship's CTC shapes, (64, 267, 4233), ragged lengths, label pad 32."""
+    worst = {"alpha": 0.0, "beta": 0.0}
+    timing = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        logits, lens, labels, lab_lens = _ctc_inputs(dev, dtype)
+        x = logits.clone().requires_grad_(True)
+        loss = ctc.ctc_loss_kernel(x, lens, labels, lab_lens)
+        g = torch.linspace(0.5, 1.5, loss.shape[0], device=dev)
+        loss.backward(g)
+        ext = ctc_ops.extend_labels(labels.long())
+        want_loss, alpha, lse = ctc.ctc_alpha_reference(logits, ext, lens, lab_lens)
+        want_grad = ctc.ctc_beta_reference(
+            logits, ext, lens, lab_lens, lse, alpha, want_loss, g)
+        oracle = F.ctc_loss(
+            torch.log_softmax(logits.float(), -1).transpose(0, 1), labels.long(),
+            lens.long(), lab_lens.long(), blank=0, reduction="none",
+            zero_infinity=False,
+        )
+        torch.cuda.synchronize()
+        rel = ((loss - want_loss).abs() / want_loss.abs()).max().item()
+        rel_oracle = ((loss - oracle).abs() / oracle.abs()).max().item()
+        g_err = (x.grad.float() - want_grad.float()).abs().max().item()
+        name = str(dtype).replace("torch.", "")
+        print(f"ctc {name} (64,267,4233) label pad 32: loss max_rel={rel:.3e} "
+              f"(F.ctc_loss {rel_oracle:.3e}) d_logits max_abs={g_err:.3e}")
+        require(x.grad.dtype == dtype, f"ctc {name}: gradient dtype {x.grad.dtype}")
+        require(rel <= 1e-4 and rel_oracle <= 1e-4, f"ctc {name} loss disagrees")
+        # f32: 1e-3; bf16: the gradient is rounded to bf16 on both sides
+        require(g_err <= (1e-3 if dtype == torch.float32 else 1e-2),
+                f"ctc {name} gradient disagrees")
+        worst["alpha"] = max(worst["alpha"], (loss - want_loss).abs().max().item())
+        worst["beta"] = max(worst["beta"], g_err)
+        if dtype == torch.bfloat16:
+            ext_i, lens_i, lab_i = ctc._check_kernel_inputs(logits, ext, lens, lab_lens)
+            k_loss, k_alpha, k_lse = ctc.ctc_alpha_kernel(logits, ext_i, lens_i, lab_i)
+            timing["alpha"] = (
+                median_ms(lambda: ctc.ctc_alpha_kernel(logits, ext_i, lens_i, lab_i)),
+                median_ms(lambda: ctc.ctc_alpha_reference(logits, ext, lens, lab_lens),
+                          n=5, warmup=1),
+            )
+            timing["beta"] = (
+                median_ms(lambda: ctc.ctc_beta_kernel(
+                    logits, ext_i, lens_i, lab_i, k_lse, k_alpha, k_loss, g)),
+                median_ms(lambda: ctc.ctc_beta_reference(
+                    logits, ext, lens, lab_lens, lse, alpha, want_loss, g),
+                    n=5, warmup=1),
+            )
+            for part in ("alpha", "beta"):
+                print(f"ctc {part} bf16 (64,267,4233): kernel {timing[part][0]:.4f} ms, "
+                      f"plain {timing[part][1]:.4f} ms")
+    return tuple(
+        {"max_abs_err": worst[p], "ms": timing[p][0], "plain_ms": timing[p][1]}
+        for p in ("alpha", "beta")
+    )
+
+
+# -- phase 7: the serving path -------------------------------------------------
 
 
 def flagship_config(dtype: str) -> Config:
@@ -238,8 +427,7 @@ def run_serving_path(dev) -> dict:
     print(f"encoder f32 kernels-on-card vs plain-on-cpu: max_abs={enc_err:.3e}")
     require(enc_err <= 1e-3, "encoder output disagrees with the CPU run")
 
-    log_mel_spectrogram_kernel.launches = 0
-    fa.fused_attention_general.launches = 0
+    reset_counters()
     t0 = time.perf_counter()
     res = recognize(
         exp, corpus["vocab"], manifest=corpus["test"], mode="beam", beam_size=10,
@@ -247,10 +435,8 @@ def run_serving_path(dev) -> dict:
         out=os.path.join(WORK, "results.json"),
     )
     wall = time.perf_counter() - t0
-    launches = {
-        "fbank": log_mel_spectrogram_kernel.launches,
-        "attention": fa.fused_attention_general.launches,
-    }
+    counts = read_counters()
+    launches = {"fbank": counts["fbank"], "attention": counts["fused_attention_fwd"]}
 
     records = read_manifest(corpus["test"])
     utts = res["utts"]
@@ -270,8 +456,225 @@ def run_serving_path(dev) -> dict:
           f"search {tm['search_s'] / n * 1e3:.3f} ms; wall {wall:.3f} s incl. model "
           f"load; audio-s/s {tm['audio_s'] / (tm['encode_s'] + tm['search_s']):.3f} "
           f"(encode+search), {tm['audio_s'] / wall:.3f} (wall)")
-    print(f"launches in the recognize run: {launches}")
-    return launches
+    print(f"launches in the recognize run: {counts}")
+    return counts
+
+
+# -- phase 8: the training path ------------------------------------------------
+
+
+def training_kwargs(corpus, exp_root, **extra) -> dict:
+    """``main.train`` kwargs for the flagship recipe of ``bench.py::main``."""
+    kw = dict(
+        vocab_path=corpus["vocab"], train_manifest=corpus["train"],
+        dev_manifest=corpus["dev"], test_manifest=None,
+        model_name="TransformerOffical", ctc_weight=0.3, dtype="bfloat16",
+        attn_impl="fused", fbank_impl="pallas", dropout_impl="hash",
+        ctc_impl="pallas", spec_augment=True, batch_size=64, num_epoch=2,
+        log_every_iter=1, eval_every_iter=0, save_every_iter=0, device="cuda",
+        use_native_io=False, exp_root=exp_root, exp_name="flagship", seed=0,
+    )
+    kw.update(extra)
+    return kw
+
+
+def _logged_losses(exp_dir):
+    with open(os.path.join(exp_dir, "scalars.jsonl")) as f:
+        rows = [json.loads(line) for line in f]
+    return [r for r in rows if "train/loss" in r]
+
+
+def run_training_path(dev):
+    corpus = make_synth_corpus(
+        os.path.join(WORK, "train_corpus"), n_train=128, n_dev=16, n_test=0,
+        n_tone_chars=40, vocab_size=VOCAB, seconds_range=(7.5, 8.0), seed=1,
+    )
+    exp_root = os.path.join(WORK, "train_exp")
+    shutil.rmtree(exp_root, ignore_errors=True)
+    reset_counters()
+    t0 = time.perf_counter()
+    trainer = main_train(**training_kwargs(corpus, exp_root))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = read_counters()
+    steps = trainer.state.step
+    n_eval = 2 * len(trainer.dev_loader)  # one dev pass per epoch
+    print(f"train: {steps} steps in 2 epochs, {n_eval} dev batches, wall {wall:.3f} s "
+          f"(incl. model build, evals, checkpoints); launches {counts}")
+    require(steps == 4, f"train ran {steps} steps, want 4 (2 epochs x 2 batches)")
+    want = {
+        "fbank": steps + n_eval, "fused_attention_fwd": 6 * (steps + n_eval),
+        "fused_attention_bwd": 6 * steps, "ctc_alpha": steps + n_eval,
+        "ctc_beta": steps,
+    }
+    require(counts == want, f"training launches {counts} != {want}")
+    rows = _logged_losses(trainer.exp_dir)
+    require(len(rows) == steps, f"{len(rows)} logged train rows")
+    require(all(np.isfinite(r["train/loss"]) for r in rows), "non-finite train loss")
+    for r in rows:
+        print(f"train step {r['step']}: loss {r['train/loss']:.4f} ctc "
+              f"{r['train/ctc_loss']:.4f} ce {r['train/ce_loss']:.4f} grad_norm "
+              f"{r['train/grad_norm']:.4f} lr {r['lr']:.3e}")
+    index_path = os.path.join(trainer.exp_dir, "checkpoints", "index.json")
+    with open(index_path) as f:
+        index = json.load(f)
+    require(index["latest"] == "e2_s4", f"index latest {index['latest']}")
+    exp_dir = trainer.exp_dir
+    del trainer
+    torch.cuda.empty_cache()
+
+    resumed = main_train(**training_kwargs(corpus, exp_root, from_ckpt="latest",
+                                           num_epoch=3))
+    torch.cuda.synchronize()
+    new_steps = [r["step"] for r in _logged_losses(exp_dir)][steps:]
+    print(f"resume: from e2_s4 to step {resumed.state.step}, logged steps {new_steps}")
+    require(resumed.state.step == 6 and new_steps == [5, 6], "resume did not continue")
+    require(resumed.optimizer.count == 6, "optimizer count not restored")
+    del resumed
+    torch.cuda.empty_cache()
+
+    res = recognize(
+        exp_dir, corpus["vocab"], manifest=corpus["dev"], mode="beam", beam_size=10,
+        batch_size=8, max_decode_len=32, device="cuda",
+        out=os.path.join(WORK, "train_decode.json"),
+    )
+    require(len(res["utts"]) == 16, f"{len(res['utts'])} of 16 dev utterances decoded")
+    for utt, entry in res["utts"].items():
+        require(entry["output"] and all(np.isfinite(o["score"]) for o in entry["output"]),
+                f"{utt}: no finite hypothesis")
+    print(f"best checkpoint decodes the dev set on the card: CER {res['cer']:.2f}% "
+          f"after 6 steps")
+    return counts, corpus
+
+
+# -- phase 9: one f32 step, card vs CPU ----------------------------------------
+
+
+def _recipe(dtype: str, **overrides) -> tuple:
+    """(model config, train config, feature config) of the flagship recipe."""
+    cfg = flagship_config(dtype).build(dropout_impl="hash", ctc_impl="pallas", **overrides)
+    return cfg, default_train_config().combine(cfg), FeatureConfig(fbank_impl="pallas")
+
+
+def _one_step(cfg, tcfg, feat, batch, device):
+    model = SpeechTransformer(cfg, VOCAB, torch.Generator().manual_seed(0)).to(device)
+    opt = make_optimizer(model.parameters(), tcfg, cfg.d_model)
+    init_fn, train_step, _ = make_step_fns(model, opt, feat, tcfg)
+    state, m = train_step(init_fn(), *(x.to(device) for x in batch), 0)
+    return float(m["loss"]), float(m["grad_norm"])
+
+
+def check_step_against_cpu(corpus, dev) -> None:
+    cfg, tcfg, feat = _recipe("float32", dropout_rate=0.0)
+    tcfg.build(spec_augment=False)
+    recs = read_manifest(corpus["train"])[:2]
+    waves = [load_wav(r["wave"], dtype=np.int16) for r in recs]
+    pcm = np.zeros((2, 128000), np.int16)
+    for i, w in enumerate(waves):
+        pcm[i, : len(w)] = w
+    vocab = Vocab.load(corpus["vocab"])
+    ids = [vocab.str_to_ids(r["tgt"]) for r in recs]
+    labels = np.zeros((2, 31), np.int32)
+    for i, x in enumerate(ids):
+        labels[i, : len(x)] = x
+    batch = (
+        torch.from_numpy(pcm), torch.tensor([len(w) for w in waves], dtype=torch.int32),
+        torch.from_numpy(labels), torch.tensor([len(x) for x in ids], dtype=torch.int32),
+    )
+    cpu = _one_step(cfg, tcfg, feat, batch, torch.device("cpu"))
+    card = _one_step(cfg, tcfg, feat, batch, dev)
+    rel = [abs(a - b) / abs(b) for a, b in zip(card, cpu)]
+    print(f"f32 step, card vs cpu: loss {card[0]:.6f} vs {cpu[0]:.6f} (rel {rel[0]:.2e}), "
+          f"grad_norm {card[1]:.6f} vs {cpu[1]:.6f} (rel {rel[1]:.2e})")
+    require(max(rel) <= 1e-3, "f32 train step on the card disagrees with the CPU")
+
+
+# -- phase 10: throughput ------------------------------------------------------
+
+
+def analytic_train_flops(cfg, feat_cfg, vocab_size: int, batch: int,
+                         n_samples: int, label_len: int) -> float:
+    """Matmul FLOPs of one train step (fwd + bwd = 3x fwd): a copy of the
+    JAX package's ``bench.py::analytic_train_flops`` (projections,
+    attention products, FFNs, vocabulary heads, the DFT-as-matmul fbank;
+    elementwise work excluded, as MFU accounting does)."""
+    d, ff = cfg.d_model, cfg.d_ff
+    le, ld = cfg.num_encoder_layers, cfg.num_decoder_layers
+    t_frames = feat_cfg.num_frames(n_samples)
+    t = feat_cfg.num_lfr_frames(t_frames)
+    l = label_len + 1  # decoder is BOS-prefixed
+    v = vocab_size
+    n_bins = feat_cfg.n_fft // 2 + 1
+    fwd = t_frames * feat_cfg.win_length * (2 * n_bins) * 2
+    fwd += t_frames * n_bins * feat_cfg.n_mels * 2
+    fwd += t * feat_cfg.feature_dim * d * 2
+    fwd += le * (4 * t * d * d * 2 + 2 * t * t * d * 2 + 2 * t * d * ff * 2)
+    if float(cfg.get("ctc_weight", 0.0)) > 0:
+        fwd += t * d * v * 2
+    fwd += ld * (4 * l * d * d * 2 + 2 * l * l * d * 2 + 2 * l * d * d * 2
+                 + 2 * t * d * d * 2 + 2 * l * t * d * 2 + 2 * l * d * ff * 2)
+    fwd += l * d * v * 2
+    return 3.0 * fwd * batch
+
+
+THROUGHPUT_BATCH, THROUGHPUT_SECONDS, THROUGHPUT_LABEL_LEN = 64, 8.0, 20
+
+
+def flagship_train_setup(dev) -> tuple:
+    """(train_step, state, batch, flops per step) of the flagship recipe
+    (bf16, hash dropout 0.1, SpecAugment, CTC 0.3 through the kernels) on
+    one fixed batch of 64 x 8 s with label length 20, as ``bench.py``."""
+    cfg, tcfg, feat = _recipe("bfloat16")
+    tcfg.build(spec_augment=True)
+    bsz, label_len = THROUGHPUT_BATCH, THROUGHPUT_LABEL_LEN
+    samples = int(THROUGHPUT_SECONDS * feat.sample_rate)
+    rng = np.random.RandomState(0)
+    batch = [
+        torch.from_numpy((rng.randn(bsz, samples) * 0.1 * 32767).astype(np.int16)),
+        torch.full((bsz,), samples, dtype=torch.int32),
+        torch.from_numpy(rng.randint(4, VOCAB, size=(bsz, label_len)).astype(np.int32)),
+        torch.full((bsz,), label_len, dtype=torch.int32),
+    ]
+    batch = [x.to(dev) for x in batch]
+    model = SpeechTransformer(cfg, VOCAB, torch.Generator().manual_seed(0)).to(dev)
+    opt = make_optimizer(model.parameters(), tcfg, cfg.d_model)
+    init_fn, train_step, _ = make_step_fns(model, opt, feat, tcfg)
+    flops = analytic_train_flops(cfg, feat, VOCAB, bsz, samples, label_len)
+    return train_step, init_fn(), batch, flops
+
+
+def measure_training_throughput(dev, n_warmup=3, n_timed=20) -> dict:
+    train_step, state, batch, flops = flagship_train_setup(dev)
+    bsz, seconds = THROUGHPUT_BATCH, THROUGHPUT_SECONDS
+    for _ in range(n_warmup):
+        state, m = train_step(state, *batch, 0)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counters()
+    t0 = time.perf_counter()
+    for _ in range(n_timed):
+        state, m = train_step(state, *batch, 0)
+    torch.cuda.synchronize()
+    step_s = (time.perf_counter() - t0) / n_timed
+    counts = read_counters()
+    require(np.isfinite(float(m["loss"])), "throughput loop loss not finite")
+    require(counts["fused_attention_bwd"] == 6 * n_timed and counts["ctc_beta"] == n_timed,
+            f"throughput loop launches {counts}")
+    out = {
+        "ms_per_step": step_s * 1e3,
+        "steps_per_s": 1.0 / step_s,
+        "audio_s_per_s": bsz * seconds / step_s,
+        "tflop_per_step": flops / 1e12,
+        "mfu": flops / step_s / H100_SXM_BF16_PEAK,
+        "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30,
+    }
+    print(f"train throughput, flagship bf16, batch 64 x 8 s, {n_timed} steps after "
+          f"{n_warmup} warm-up: {out['ms_per_step']:.3f} ms/step, "
+          f"{out['steps_per_s']:.4f} steps/s, {out['audio_s_per_s']:.1f} audio-s/s, "
+          f"{out['tflop_per_step']:.4f} TFLOP/step, MFU {out['mfu'] * 100:.3f} % of "
+          f"{H100_SXM_BF16_PEAK / 1e12:.1f} TFLOP/s, peak memory "
+          f"{out['peak_mem_gib']:.2f} GiB, final loss {float(m['loss']):.4f}")
+    return out
 
 
 def main() -> None:
@@ -292,17 +695,30 @@ def main() -> None:
 
     fbank = check_fbank(dev)
     attn = check_attention(dev)
-    launches = run_serving_path(dev)
+    attn_bwd = check_attention_bwd(dev)
+    ctc_alpha, ctc_beta = check_ctc(dev)
+    serve = run_serving_path(dev)
+    trained, corpus = run_training_path(dev)
+    check_step_against_cpu(corpus, dev)
+    measure_training_throughput(dev)
 
+    # launches: the serving run plus the training run (each counted from 0)
+    launches = {k: serve[k] + trained[k] for k in COUNTERS}
+    require(all(n > 0 for n in launches.values()), f"a kernel never launched: {launches}")
+    sources = {
+        "fbank": ("fbank.cu", "asr_chinese_e2e_tpu/ops/fbank_pallas.py:43", fbank),
+        "fused_attention_fwd": ("fused_attention_fwd.cu",
+                                "asr_chinese_e2e_tpu/ops/fused_attention.py:126", attn),
+        "fused_attention_bwd": ("fused_attention_bwd.cu",
+                                "asr_chinese_e2e_tpu/ops/fused_attention.py:157", attn_bwd),
+        "ctc_alpha": ("ctc.cu", "asr_chinese_e2e_tpu/ops/ctc_pallas.py:47", ctc_alpha),
+        "ctc_beta": ("ctc.cu", "asr_chinese_e2e_tpu/ops/ctc_pallas.py:75", ctc_beta),
+    }
     kernels = [
-        {"name": "fbank", "route": "cuda",
-         "source": "asr_chinese_e2e_tpu_torch/ops/csrc/fbank.cu",
-         "replaces": "asr_chinese_e2e_tpu/ops/fbank_pallas.py:43",
-         "launches": launches["fbank"], **fbank},
-        {"name": "fused_attention_fwd", "route": "cuda",
-         "source": "asr_chinese_e2e_tpu_torch/ops/csrc/fused_attention_fwd.cu",
-         "replaces": "asr_chinese_e2e_tpu/ops/fused_attention.py:126",
-         "launches": launches["attention"], **attn},
+        {"name": name, "route": "cuda",
+         "source": f"asr_chinese_e2e_tpu_torch/ops/csrc/{src}", "replaces": rep,
+         "launches": launches[name], **measured}
+        for name, (src, rep, measured) in sources.items()
     ]
     print(json.dumps({"kernels": kernels}))
     print(f"card: {card}")

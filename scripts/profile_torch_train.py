@@ -1,0 +1,81 @@
+#!/usr/bin/env python
+"""Device-time breakdown of the PyTorch port's flagship train step on one
+GPU: the recipe and fixed batch of ``chip_smoke.py``'s throughput phase
+(64 x 8 s, bf16, hash dropout 0.1, SpecAugment, CTC 0.3 through the
+kernels), 3 warm-up steps, then ``--steps`` steps under
+``torch.profiler``. Prints the card, the wall and device time per step,
+the operators with the most device time (self time, per step) and the
+kernels with the most device time.
+
+    python3 scripts/profile_torch_train.py [--steps 3] [--top 25]
+
+The kernels are built from the checkout at first use, as in
+``chip_smoke.py``.
+"""
+
+import argparse
+import os
+import sys
+import time
+
+import torch
+from torch.autograd import DeviceType
+from torch.profiler import ProfilerActivity, profile
+
+sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+
+import chip_smoke  # noqa: E402
+
+
+def _device_us(event) -> float:
+    # called self_cuda_time_total in older torch
+    if hasattr(event, "self_device_time_total"):
+        return event.self_device_time_total
+    return event.self_cuda_time_total
+
+
+def _print_rows(title, events, steps, total_ms, top) -> None:
+    print(f"{'device ms/step':>14} {'share':>6} {'calls/step':>10}  {title}")
+    for e in events[:top]:
+        ms = _device_us(e) / 1e3 / steps
+        print(f"{ms:14.3f} {ms / total_ms * 100:5.1f}% {e.count / steps:10.1f}  "
+              f"{e.key[:100]}")
+
+
+def main() -> None:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--steps", type=int, default=3)
+    ap.add_argument("--top", type=int, default=25)
+    args = ap.parse_args()
+    if not torch.cuda.is_available():
+        raise SystemExit("profile_torch_train: CUDA is not available")
+    print(f"card: {chip_smoke.card_line()}")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = torch.device("cuda", 0)
+    train_step, state, batch, _ = chip_smoke.flagship_train_setup(dev)
+    for _ in range(3):
+        state, _ = train_step(state, *batch, 0)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(args.steps):
+            state, _ = train_step(state, *batch, 0)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    events = [e for e in prof.key_averages() if _device_us(e) > 0]
+    events.sort(key=_device_us, reverse=True)
+    # device events are the kernels themselves; a host operator's self
+    # device time is that of the kernels it launched, so only the kernels
+    # are summed
+    kernels = [e for e in events if e.device_type != DeviceType.CPU]
+    ops = [e for e in events if e.device_type == DeviceType.CPU]
+    total_ms = sum(_device_us(e) for e in kernels) / 1e3 / args.steps
+    wall_ms = wall * 1e3 / args.steps
+    print(f"per step ({args.steps} profiled): wall {wall_ms:.3f} ms, device "
+          f"{total_ms:.3f} ms, device busy {total_ms / wall_ms * 100:.1f} % of wall")
+    _print_rows("operator", ops, args.steps, total_ms, args.top)
+    _print_rows("kernel", kernels, args.steps, total_ms, args.top)
+
+
+if __name__ == "__main__":
+    main()

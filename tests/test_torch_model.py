@@ -176,7 +176,7 @@ def test_decode_step_lazy_matches_jax(name):
         dict(attn_impl="ring"),
         dict(frontend="conv2d"),
         dict(encoder_type="conformer"),
-        dict(decoder_attn_impl="fused"),
+        dict(remat=True),
     ],
 )
 def test_unported_options_raise(overrides):

@@ -146,8 +146,17 @@ leaked = sorted(
     if m == "asr_chinese_e2e_tpu" or m.startswith("asr_chinese_e2e_tpu.")
 )
 assert not leaked, leaked
-print(len(names))
+print(" ".join(names))
 """
+
+# the training slice's modules, each of which must import without jax
+TRAINING_MODULES = {
+    "asr_chinese_e2e_tpu_torch." + m for m in (
+        "ops.ctc", "ops.ctc_kernel", "losses", "main", "core.registry",
+        "data.batching", "data.native", "train.optimizer", "train.train_step",
+        "train.metrics", "train.checkpoint", "train.trainer",
+    )
+}
 
 
 def test_port_imports_with_jax_blocked():
@@ -158,7 +167,9 @@ def test_port_imports_with_jax_blocked():
         text=True, timeout=300,
     )
     assert proc.returncode == 0, proc.stderr
-    assert int(proc.stdout.strip().splitlines()[-1]) >= 20
+    names = set(proc.stdout.strip().splitlines()[-1].split())
+    assert len(names) >= 37
+    assert TRAINING_MODULES <= names, TRAINING_MODULES - names
 
 
 def _imported_modules(path: Path):
@@ -170,15 +181,30 @@ def _imported_modules(path: Path):
             yield node.module
 
 
+CARD_SCRIPTS = [REPO / "chip_smoke.py", REPO / "scripts" / "profile_torch_train.py"]
+
+
 @pytest.mark.parametrize(
     "path",
-    sorted(PKG.rglob("*.py")) + [REPO / "chip_smoke.py"],
+    sorted(PKG.rglob("*.py")) + CARD_SCRIPTS,
     ids=lambda p: str(p.relative_to(REPO)),
 )
 def test_sources_import_no_jax(path):
     forbidden = {"jax", "flax", "optax", "orbax", "asr_chinese_e2e_tpu"}
     bad = [m for m in _imported_modules(path) if m.split(".")[0] in forbidden]
     assert not bad, bad
+
+
+@pytest.mark.skipif(torch.cuda.is_available(), reason="checks the no-CUDA exit")
+@pytest.mark.parametrize("path", CARD_SCRIPTS, ids=lambda p: p.name)
+def test_card_scripts_fail_without_cuda(path):
+    proc = subprocess.run(
+        [sys.executable, str(path)], cwd=REPO, capture_output=True, text=True,
+        timeout=300,
+    )
+    assert proc.returncode != 0
+    assert "CUDA is not available" in proc.stderr
+    assert '"ok"' not in proc.stdout
 
 
 # -- host-module copies against their originals ------------------------------

@@ -1,0 +1,132 @@
+"""The port's training slice end to end on the CPU: ``main.train`` on a tiny
+synthetic corpus with the flagship's selections (fbank kernel, fused
+attention, CTC kernel, hash dropout, SpecAugment; their plain versions run
+on the CPU) and Python wav reading, so the test counts the same on every
+machine. Checks that the loss falls, that checkpoints and ``index.json``
+are written, that a resumed run continues at the saved step and epoch, and
+that the best checkpoint decodes through the port's ``recognize``."""
+
+import json
+import os
+
+import numpy as np
+import pytest
+import torch
+
+from asr_chinese_e2e_tpu_torch.core.registry import get_model
+from asr_chinese_e2e_tpu_torch.main import train
+from asr_chinese_e2e_tpu_torch.recognize import recognize
+from asr_chinese_e2e_tpu_torch.utils.synth import make_synth_corpus
+
+torch.set_num_threads(2)
+
+CORPUS_KW = dict(
+    n_train=16, n_dev=4, n_test=4, n_tone_chars=6, vocab_size=20,
+    seconds_range=(0.6, 1.5), tone_sec=0.3, seed=0,
+)
+
+
+def _run_kwargs(corpus, exp_root, **extra):
+    kw = dict(
+        vocab_path=corpus["vocab"], train_manifest=corpus["train"],
+        dev_manifest=corpus["dev"], test_manifest=corpus["test"],
+        d_model=32, num_heads=4, head_dim=8, d_ff=64, num_encoder_layers=2,
+        num_decoder_layers=2, n_mels=20, ctc_weight=0.3, dropout_rate=0.1,
+        dropout_impl="hash", attn_impl="fused", fbank_impl="pallas",
+        ctc_impl="pallas", spec_augment=True, freq_mask_param=4,
+        time_mask_param=4, label_smoothing=0.1, batch_size=4, num_epoch=2,
+        lr_schedule="constant", lr=3e-3, log_every_iter=1, eval_every_iter=0,
+        save_every_iter=0, device="cpu", use_native_io=False, exp_root=exp_root,
+        exp_name="run", max_target_len=16, seed=3,
+    )
+    kw.update(extra)
+    return kw
+
+
+@pytest.fixture(scope="module")
+def run(tmp_path_factory):
+    root = tmp_path_factory.mktemp("torch_trainer")
+    corpus = make_synth_corpus(str(root / "corpus"), **CORPUS_KW)
+    trainer = train(**_run_kwargs(corpus, str(root / "exp")))
+    return corpus, trainer, str(root / "exp")
+
+
+def _scalars(exp_dir):
+    with open(os.path.join(exp_dir, "scalars.jsonl")) as f:
+        return [json.loads(line) for line in f]
+
+
+def test_loss_falls_and_scalars_are_logged(run):
+    _, trainer, _ = run
+    rows = _scalars(trainer.exp_dir)
+    losses = [r["train/loss"] for r in rows if "train/loss" in r]
+    assert len(losses) == trainer.state.step == 8  # 16 utterances / 4, 2 epochs
+    assert all(np.isfinite(losses))
+    assert np.mean(losses[-2:]) < np.mean(losses[:2])
+    train_rows = [r for r in rows if "train/loss" in r]
+    for key in ("train/ctc_loss", "train/ce_loss", "train/grad_norm", "lr",
+                "train/audio_s_per_s_per_chip", "train/steps_per_s"):
+        assert all(key in r for r in train_rows), key
+    assert any("dev/cer" in r for r in rows) and any("test/loss" in r for r in rows)
+
+
+def test_checkpoints_and_index_are_written(run):
+    _, trainer, _ = run
+    ckdir = os.path.join(trainer.exp_dir, "checkpoints")
+    with open(os.path.join(ckdir, "index.json")) as f:
+        index = json.load(f)
+    assert index["latest"] == "e2_s8"
+    assert index["best"] in index["all"] and index["best_metric"] is not None
+    for name in index["all"]:
+        assert os.path.exists(os.path.join(ckdir, name, "state.pt"))
+        with open(os.path.join(ckdir, name, "meta.json")) as f:
+            meta = json.load(f)
+        assert meta["config"]["d_model"] == 32
+    assert os.path.exists(os.path.join(trainer.exp_dir, "torch_checkpoints", "best.pt"))
+
+
+def test_resume_continues_at_the_saved_step(run):
+    corpus, trainer, exp_root = run
+    resumed = train(**_run_kwargs(corpus, exp_root, from_ckpt="latest", num_epoch=3))
+    assert resumed.optimizer.count == resumed.state.step == 12
+    rows = [r for r in _scalars(resumed.exp_dir) if "train/loss" in r]
+    steps = [r["step"] for r in rows]
+    assert steps[-4:] == [9, 10, 11, 12]
+    with open(os.path.join(resumed.exp_dir, "checkpoints", "index.json")) as f:
+        assert json.load(f)["latest"] == "e3_s12"
+
+
+def test_best_checkpoint_decodes_through_recognize(run, tmp_path):
+    corpus, trainer, _ = run
+    res = recognize(
+        trainer.exp_dir, corpus["vocab"], manifest=corpus["test"], mode="beam",
+        beam_size=2, batch_size=2, max_decode_len=6, device="cpu",
+        out=str(tmp_path / "res.json"),
+    )
+    assert len(res["utts"]) == CORPUS_KW["n_test"]
+    for entry in res["utts"].values():
+        assert entry["output"] and all(np.isfinite(o["score"]) for o in entry["output"])
+
+
+def test_rnn_names_raise_with_roadmap_item():
+    for name in ("BiLSTMCTC", "LAS", "ExampleModel"):
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            get_model(name)
+
+
+def test_cli_takes_key_value_words(monkeypatch, capsys):
+    import asr_chinese_e2e_tpu_torch.main as port_main
+
+    seen = {}
+    monkeypatch.setattr(port_main, "train", lambda **kw: seen.update(kw))
+    monkeypatch.setattr(
+        "sys.argv", ["main", "train", "lr=0.001", "--batch_size", "8", "spec_augment=true"]
+    )
+    port_main.main()
+    assert seen == {"lr": 0.001, "batch_size": 8, "spec_augment": True}
+    monkeypatch.setattr("sys.argv", ["main", "train", "oops"])
+    with pytest.raises(SystemExit, match="oops"):
+        port_main.main()
+    monkeypatch.setattr("sys.argv", ["main"])
+    port_main.main()
+    assert "Training CLI" in capsys.readouterr().out
