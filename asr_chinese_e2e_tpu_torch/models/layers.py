@@ -173,9 +173,14 @@ class PositionalEncoding(nn.Module):
         super().__init__()
         self.d_model = d_model
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, offset: int = 0) -> torch.Tensor:
+        """Add table rows [offset, offset + T). The start is clamped so the
+        rows fit the table, as ``jax.lax.dynamic_slice_in_dim`` clamps it
+        in the JAX package's ``Encoder.encode_chunk``."""
         table = pe_table(self.d_model, x.device)
-        return x + table[None, : x.shape[1]].to(x.dtype)
+        f = x.shape[1]
+        start = max(0, min(int(offset), PE_MAX_LEN - f))
+        return x + table[None, start : start + f].to(x.dtype)
 
 
 class MultiHeadAttention(nn.Module):

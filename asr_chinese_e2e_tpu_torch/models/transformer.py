@@ -1,13 +1,14 @@
 """Speech-Transformer encoder/decoder with optional CTC head, in torch.
 
 Counterpart of ``asr_chinese_e2e_tpu/models/transformer.py``: the
-teacher-forced training forward (with dropout), encode, the uncached and
+teacher-forced training forward (with dropout), encode, the exact chunked
+encode of the streaming (causal-banded) encoder, the uncached and
 KV-cached decoder, and the CTC head; the encoder's and the decoder's
 attention through the fused kernels (``attn_impl`` / ``decoder_attn_impl``
 = "fused") or plain products ("xla"). The conformer encoder, the conv2d
-frontend, streaming chunk encoding, ``remat`` and the flash / ring
-attention paths are not ported yet; asking for them raises
-``NotImplementedError`` naming the ROADMAP item.
+frontend, ``remat`` and the flash / ring attention paths are not ported
+yet; asking for them raises ``NotImplementedError`` naming the ROADMAP
+item.
 
 Weights are created from an explicit ``torch.Generator`` (the JAX
 package draws them from a PRNG key), or converted from flax with
@@ -162,6 +163,40 @@ class EncoderLayer(nn.Module):
         )
         return self.sub2(x, lambda y: self.ffn(y, rng))
 
+    def chunk_step(self, x, tail, bias):
+        """Incremental encode step of the streaming (causal-banded) mode.
+        ``x``: (B, F, D) the new chunk's layer input; ``tail``: (B, w, D)
+        this layer's input for the previous ``w`` frames; ``bias``: (1, 1,
+        F, w+F) from ``Encoder.encode_chunk``. Queries are the F new frames,
+        keys/values the tail + new frames: the offline causal-banded pass
+        restricted to the new rows."""
+        if self.cfg.norm_type == "pre":
+            qn = self.sub1.norm(x)
+            kv = torch.cat([self.sub1.norm(tail), qn], dim=1)
+            x = x + self.attn(qn, kv, bias)
+            return x + self.ffn(self.sub2.norm(x))
+        kv = torch.cat([tail, x], dim=1)
+        a1, a2 = self.sub1.alpha, self.sub2.alpha
+        x = self.sub1.norm(a1 * x + self.attn(x, kv, bias))
+        return self.sub2.norm(a2 * x + self.ffn(x))
+
+
+def init_chunk_state(cfg, batch: int, device=None):
+    """Zero left-context carries for ``Encoder.encode_chunk``: one (B,
+    band, d) input tail per layer, in the compute dtype (zero rows are
+    never attended: ``encode_chunk`` masks keys with a negative global
+    index)."""
+    if cfg.get("encoder_type", "transformer") == "conformer":
+        raise NotImplementedError(
+            "streaming the conformer (its causal-conv carry) is not ported yet "
+            "(ROADMAP §1, item 4: conformer and conv2d frontend)"
+        )
+    shape = (batch, cfg.attention_band, cfg.d_model)
+    return [
+        torch.zeros(shape, dtype=compute_dtype_of(cfg), device=device)
+        for _ in range(cfg.num_encoder_layers)
+    ]
+
 
 class Encoder(nn.Module):
     def __init__(self, cfg: Config):
@@ -195,6 +230,42 @@ class Encoder(nn.Module):
         if self.final_norm is not None:
             x = self.final_norm(x)
         return x, feat_lengths
+
+    # -- streaming: exact chunked incremental encoding ----------------------
+    def init_chunk_tails(self, batch: int):
+        """Zero left-context carries (see ``init_chunk_state``)."""
+        return init_chunk_state(self.cfg, batch, self.input_proj.weight.device)
+
+    def encode_chunk(self, feats_chunk, tails, offset: int):
+        """Encode F new frames given per-layer (B, w, d) input tails: the
+        exact chunked evaluation of the causal-banded encoder (the outputs
+        concatenated over chunks equal one full-sequence pass). Needs
+        ``causal_encoder=True`` and ``attention_band`` w > 0. feats_chunk:
+        (B, F, input_dim); offset: global frame index of the chunk's first
+        frame. Returns (enc_chunk (B, F, d), new_tails). All F frames are
+        treated as real; causality keeps a padded final chunk's padding out
+        of its valid rows."""
+        c = self.cfg
+        if not (c.get("causal_encoder", False) and c.get("attention_band", 0)):
+            raise ValueError("encode_chunk requires causal_encoder=True and attention_band>0")
+        w = c.attention_band
+        x = self.pe(self.input_norm(self.input_proj(feats_chunk)), offset)
+        f, dev = x.shape[1], x.device
+        # query i sits at global offset+i, key j at offset-w+j: allow
+        # 0 <= (global q - global k) <= w and global k >= 0
+        qi = torch.arange(f, device=dev)[:, None]
+        kj = torch.arange(w + f, device=dev)[None, :]
+        rel = (qi + w) - kj
+        allow = (rel >= 0) & (rel <= w) & (offset - w + kj >= 0)
+        zero = torch.zeros((), dtype=torch.float32, device=dev)
+        bias = torch.where(allow, zero, NEG_INF)[None, None]
+        new_tails = []
+        for layer, tail in zip(self.layers, tails):
+            new_tails.append(torch.cat([tail, x], dim=1)[:, -w:])
+            x = layer.chunk_step(x, tail, bias)
+        if self.final_norm is not None:
+            x = self.final_norm(x)
+        return x, new_tails
 
 
 class DecoderLayer(nn.Module):
@@ -420,6 +491,19 @@ class SpeechTransformer(nn.Module):
 
     def encode(self, feats, feat_lengths):
         return self.encoder(feats, feat_lengths)
+
+    # -- streaming entry points (see stream.py) -----------------------------
+    def init_chunk_tails(self, batch: int):
+        return self.encoder.init_chunk_tails(batch)
+
+    def encode_chunk(self, feats_chunk, tails, offset: int):
+        """Incremental encode of F new frames: (enc (B, F, d), new_tails,
+        CTC log-probs (B, F, V) in f32, or None without a CTC head)."""
+        enc, new_tails = self.encoder.encode_chunk(feats_chunk, tails, offset)
+        lp = None
+        if self.ctc_head is not None:
+            lp = torch.log_softmax(self.ctc_head(enc).float(), dim=-1)
+        return enc, new_tails, lp
 
     def decode_logits(self, ys_in, ys_in_lengths, enc_out, enc_lengths):
         """Uncached full-prefix decoder forward (rescoring and the oracle

@@ -44,6 +44,13 @@ SIGNATURES = {
         _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
         _I, _F, _U, _U, _F, _I, _I, _I, _P,
     ],
+    "asr_banded_attention_fwd": [
+        _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _U, _U, _F, _I, _I, _I, _P,
+    ],
+    "asr_banded_attention_bwd": [
+        _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _U, _U,
+        _F, _I, _I, _I, _P,
+    ],
     "asr_ctc_alpha": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
     "asr_ctc_beta": [
         _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P,

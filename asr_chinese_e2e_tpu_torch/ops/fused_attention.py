@@ -2,20 +2,30 @@
 (K1, ``csrc/fused_attention_fwd.cu``) and backward (K2,
 ``csrc/fused_attention_bwd.cu``): the port of the TPU kernels
 ``asr_chinese_e2e_tpu/ops/fused_attention.py::_fwd_kernel`` and
-``_bwd_kernel``.
+``_bwd_kernel``; and the windowed causal-band forward and backward (K6, K7,
+``csrc/banded_attention.cu``), the port of ``_banded_fwd_kernel`` and
+``_banded_bwd_kernel``.
 
 ``fused_attention_general`` takes (B, H, T, D) tensors and is
-differentiable (a ``torch.autograd.Function``). On CPU tensors it runs the
-plain versions, ``attention_reference`` (the counterpart of the JAX
-package's ``_xla_attention``) and ``attention_backward_reference`` (the
-formula of ``_bwd_kernel``); on CUDA tensors it launches the kernels or
-raises.
+differentiable (a ``torch.autograd.Function``). A causal, ``band > 0``,
+square call takes the windowed route when ``ASR_BANDED_WINDOW=1``, read at
+every call (the JAX package's own switch, ``_use_banded_window``); every
+other call takes the full-tile route. On CPU tensors it runs the plain
+versions: ``attention_reference`` (the counterpart of the JAX package's
+``_xla_attention``) and ``attention_backward_reference`` (the formula of
+``_bwd_kernel``), or ``banded_attention_reference`` and
+``banded_attention_backward_reference`` (the (BQ, 2 BQ) window tiles of
+``_banded_tile`` and the formula of ``_banded_bwd_kernel`` with its dK/dV
+shift-add); on CUDA tensors it launches the kernels or raises.
 """
 
 from __future__ import annotations
 
+import os
+
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 from ._build import check, load_library
 from .masks import NEG_INF
@@ -35,20 +45,19 @@ def _keep_threshold(rate: float) -> int:
     return min(int(rate * (1 << 32)), (1 << 32) - 1)
 
 
-def keep_mask_reference(seed, bsz, heads, tq, tk, rate, device=None):
-    """(B, H, Tq, Tk) float32 keep mask scaled by 1/(1-rate): the murmur
-    finalizer of (i, j, seed, b*H + h) in int64 arithmetic masked to 32
-    bits, bit-exact with the JAX package's ``_xla_keep_mask``."""
+def _keep_from_index(seed, bsz, heads, i, j, rate, device=None):
+    """(B, H, *broadcast(i, j)) float32 keep mask scaled by 1/(1-rate) at
+    the int64 query / key indices ``i`` and ``j`` (taken mod 2**32, as the
+    TPU kernels' uint32 casts do): the murmur finalizer of (i, j, seed,
+    b*H + h) in int64 arithmetic masked to 32 bits."""
     cell = (
         torch.arange(bsz, dtype=torch.int64, device=device)[:, None] * heads
         + torch.arange(heads, dtype=torch.int64, device=device)[None, :]
     )
-    i = torch.arange(tq, dtype=torch.int64, device=device)[:, None]
-    j = torch.arange(tk, dtype=torch.int64, device=device)[None, :]
     seed_t = torch.tensor(int(seed) & _M32, dtype=torch.int64, device=device)
     base = (_mul32(seed_t, 0xC2B2AE35) + _mul32(cell, 0x27D4EB2F)) & _M32
-    x = (_mul32(i, 0x9E3779B9) ^ _mul32(j, 0x85EBCA6B))[None, None]
-    x = x ^ base[:, :, None, None]
+    x = _mul32(i & _M32, 0x9E3779B9) ^ _mul32(j & _M32, 0x85EBCA6B)
+    x = x[None, None] ^ base.reshape(bsz, heads, *([1] * x.dim()))
     x = x ^ (x >> 16)
     x = _mul32(x, 0x85EBCA6B)
     x = x ^ (x >> 13)
@@ -56,6 +65,14 @@ def keep_mask_reference(seed, bsz, heads, tq, tk, rate, device=None):
     x = x ^ (x >> 16)
     keep = (x >= _keep_threshold(rate)).to(torch.float32)
     return keep / np.float32(1.0 - rate)
+
+
+def keep_mask_reference(seed, bsz, heads, tq, tk, rate, device=None):
+    """(B, H, Tq, Tk) float32 keep mask scaled by 1/(1-rate), bit-exact
+    with the JAX package's ``_xla_keep_mask``."""
+    i = torch.arange(tq, dtype=torch.int64, device=device)[:, None]
+    j = torch.arange(tk, dtype=torch.int64, device=device)[None, :]
+    return _keep_from_index(seed, bsz, heads, i, j, rate, device)
 
 
 def _compute_dtype(dtype: torch.dtype) -> torch.dtype:
@@ -121,6 +138,118 @@ def attention_backward_reference(
     dq = torch.einsum("bhqk,bhkd->bhqd", ds, k.to(ct)) * scale
     dk = torch.einsum("bhqk,bhqd->bhkd", ds, q.to(ct)) * scale
     return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+
+
+# -- the windowed causal-band route (K6 / K7) ----------------------------------
+
+
+def _banded_window_enabled() -> bool:
+    """``ASR_BANDED_WINDOW=1``, read at every call as the JAX package does."""
+    return os.environ.get("ASR_BANDED_WINDOW", "0") == "1"
+
+
+def _block_q(band: int) -> int:
+    """Query block BQ: the smallest multiple of 64 >= band."""
+    return 64 * max(1, -(-band // 64))
+
+
+def _use_banded_window(q, k, causal, band) -> bool:
+    """The JAX package's predicate: causal, band > 0, Tq == Tk, and the
+    switch on."""
+    return (
+        causal
+        and band > 0
+        and q.shape[2] == k.shape[2]
+        and _banded_window_enabled()
+    )
+
+
+def _query_blocks(x, bq, nc):
+    """(B, H, T, D) -> (B, H, nc, BQ, D), zero rows past T."""
+    b, h, t, d = x.shape
+    return F.pad(x, (0, 0, 0, nc * bq - t)).reshape(b, h, nc, bq, d)
+
+
+def _key_windows(x, bq, nc):
+    """(B, H, T, D) -> (B, H, nc, 2 BQ, D): key blocks c-1 and c of each
+    query block c (zero rows before key 0 and past T)."""
+    xp = F.pad(x, (0, 0, bq, nc * bq - x.shape[2]))
+    return xp.unfold(2, 2 * bq, bq).transpose(-1, -2)
+
+
+def _banded_weights(q, k, n, seed, scale, rate, band):
+    """The (BQ, 2 BQ) window tiles of ``_banded_tile``, all blocks at once:
+    (W, keep or None, BQ, nc). Query qg = c BQ + i, key kg = (c-1) BQ + j;
+    a key is visible when kg >= 0, kg < n, qg >= kg and qg - kg <= band;
+    masked scores get -1e9; rows with qg >= n are zeroed; the keep mask is
+    hashed at (qg, kg, seed, b*H + h). W and keep are (B, H, nc, BQ, 2 BQ)
+    in f32 (f64 for f64 inputs)."""
+    ct = _compute_dtype(q.dtype)
+    bsz, heads, t, _ = q.shape
+    bq = _block_q(band)
+    nc = -(-t // bq)
+    dev = q.device
+    s = torch.einsum(
+        "bhcid,bhcjd->bhcij",
+        _query_blocks(q.to(ct), bq, nc), _key_windows(k.to(ct), bq, nc),
+    ) * scale
+    c = torch.arange(nc, dtype=torch.int64, device=dev)[:, None, None]
+    qg = c * bq + torch.arange(bq, dtype=torch.int64, device=dev)[None, :, None]
+    kg = (c - 1) * bq + torch.arange(2 * bq, dtype=torch.int64, device=dev)[None, None, :]
+    nb = n.to(device=dev, dtype=torch.int64)[:, None, None, None, None]
+    mask = (kg >= 0) & (kg < nb) & (qg >= kg) & (qg - kg <= band)
+    zero = torch.zeros((), dtype=ct, device=dev)
+    w = torch.softmax(s + torch.where(mask, zero, NEG_INF), dim=-1)
+    w = w * (qg < nb).to(ct)
+    keep = None
+    if rate > 0.0:
+        keep = _keep_from_index(seed, bsz, heads, qg, kg, rate, dev).to(ct)
+    return w, keep, bq, nc
+
+
+def banded_attention_reference(q, k, v, lengths, seed, scale, rate, band):
+    """Plain torch version of K6 (``_banded_fwd_kernel``): causal band
+    attention over the (BQ, 2 BQ) window tiles, ``lengths`` masking keys
+    and zeroing query rows, hash keep mask at global indices, (W o M) V in
+    f32 (the TPU kernel rounds W o M to the value dtype first; K6 does
+    not, see ``csrc/banded_attention.cu``). (B, H, T, D) in v's dtype."""
+    t = q.shape[2]
+    w, keep, bq, nc = _banded_weights(q, k, lengths, seed, scale, rate, band)
+    if keep is not None:
+        w = w * keep
+    out = torch.einsum("bhcij,bhcjd->bhcid", w, _key_windows(v.to(w.dtype), bq, nc))
+    return out.reshape(*out.shape[:2], nc * bq, -1)[:, :, :t].to(v.dtype)
+
+
+def banded_attention_backward_reference(
+    q, k, v, lengths, seed, scale, rate, band, dout
+):
+    """Plain torch version of K7: the formula of ``_banded_bwd_kernel`` per
+    window tile (dV2 = (W o M)^T dO, dW = (dO V2^T) o M, dS = W o (dW -
+    rowsum(dW o W)), dQ = dS K2 scale, dK2 = dS^T Q scale), then the
+    shift-add of ``_banded_bwd``: a tile's first BQ key rows belong to key
+    block c-1. Arithmetic in f32 (f64 for f64 inputs); returns (dq, dk,
+    dv) in the inputs' dtypes."""
+    t = q.shape[2]
+    w, keep, bq, nc = _banded_weights(q, k, lengths, seed, scale, rate, band)
+    ct = w.dtype
+    g = _query_blocks(dout.to(ct), bq, nc)
+    wd = w * keep if keep is not None else w
+    dv2 = torch.einsum("bhcij,bhcid->bhcjd", wd, g)
+    dw = torch.einsum("bhcid,bhcjd->bhcij", g, _key_windows(v.to(ct), bq, nc))
+    if keep is not None:
+        dw = dw * keep
+    ds = w * (dw - (dw * w).sum(-1, keepdim=True))
+    dq = torch.einsum("bhcij,bhcjd->bhcid", ds, _key_windows(k.to(ct), bq, nc)) * scale
+    dk2 = torch.einsum("bhcij,bhcid->bhcjd", ds, _query_blocks(q.to(ct), bq, nc)) * scale
+
+    def shift_add(x2):
+        x = x2[:, :, :, bq:].clone()
+        x[:, :, :-1] += x2[:, :, 1:, :bq]
+        return x.reshape(*x.shape[:2], nc * bq, -1)[:, :, :t]
+
+    dq = dq.reshape(*dq.shape[:2], nc * bq, -1)[:, :, :t]
+    return dq.to(q.dtype), shift_add(dk2).to(k.dtype), shift_add(dv2).to(v.dtype)
 
 
 _KERNEL_DTYPES = (torch.float32, torch.bfloat16)
@@ -215,19 +344,77 @@ def attention_backward_kernel(
     return dq, dk, dv
 
 
+def banded_attention_kernel(q, k, v, n, seed, scale, rate, band, lse=None):
+    """K6: the windowed causal-band forward on tensors that
+    ``_check_kernel_inputs`` has checked (``n``: (B,) int32 lengths on the
+    card, masking keys and zeroing query rows); returns the new output.
+    ``lse``, when given, is a (B, H, T) f32 tensor that receives each
+    row's log-sum-exp."""
+    bsz, heads, t, d = q.shape
+    out = torch.empty_like(q)
+    lib = load_library()
+    with torch.cuda.device(q.device):
+        err = lib.asr_banded_attention_fwd(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), n.data_ptr(), out.data_ptr(),
+            None if lse is None else lse.data_ptr(),
+            bsz, heads, t, d, int(q.dtype == torch.bfloat16), float(scale),
+            *_dropout_args(seed, rate), int(band), _block_q(band),
+            torch.cuda.current_stream().cuda_stream,
+        )
+    check(err, "asr_banded_attention_fwd")
+    banded_attention_kernel.launches += 1
+    return out
+
+
+def banded_attention_backward_kernel(q, k, v, lse, lengths, seed, scale, rate, band, dout):
+    """K7: (dq, dk, dv) in the inputs' dtype, from K6's row log-sum-exp
+    (``lse``, (B, H, T) f32). CUDA tensors only."""
+    _, n = _check_kernel_inputs(q, k, v, lengths, lengths)
+    bsz, heads, t, d = q.shape
+    dout = dout.to(q.dtype).contiguous()
+    if k.shape != q.shape or dout.shape != q.shape:
+        raise ValueError("banded attention backward kernel: q/k/v/dout shapes")
+    if lse.shape != (bsz, heads, t) or lse.dtype != torch.float32 or not lse.is_contiguous():
+        raise ValueError("banded attention backward kernel: lse must be (B, H, T) f32")
+    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+    delta = torch.empty((bsz, heads, t), dtype=torch.float32, device=q.device)
+    lib = load_library()
+    with torch.cuda.device(q.device):
+        err = lib.asr_banded_attention_bwd(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(),
+            lse.data_ptr(), n.data_ptr(), delta.data_ptr(),
+            dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+            bsz, heads, t, d, int(q.dtype == torch.bfloat16), float(scale),
+            *_dropout_args(seed, rate), int(band), _block_q(band),
+            torch.cuda.current_stream().cuda_stream,
+        )
+    check(err, "asr_banded_attention_bwd")
+    banded_attention_backward_kernel.launches += 1
+    return dq, dk, dv
+
+
 class _FusedAttention(torch.autograd.Function):
-    """Forward K1 and backward K2 (plain versions on the CPU). Saves q, k,
-    v, the output and, on the card, the row log-sum-exp: no (Tq, Tk)
-    tensor is kept for the backward."""
+    """Forward K1 and backward K2, or K6 and K7 on the windowed route
+    (plain versions on the CPU). The route is chosen once, in ``forward``.
+    Saves q, k, v and, on the card, the row log-sum-exp (and the output,
+    which K2 needs and K7 does not): no
+    (Tq, Tk) tensor is kept for the backward. The windowed route passes
+    ``k_lengths`` as its one length, as the JAX package does."""
 
     @staticmethod
     def forward(ctx, q, k, v, q_lengths, k_lengths, seed, scale, rate, causal, band):
-        ctx.args = (seed, scale, rate, causal, band)
+        banded = _use_banded_window(q, k, causal, band)
+        ctx.args = (seed, scale, rate, causal, band, banded)
         needs_grad = any(ctx.needs_input_grad[:3])
         if q.device.type == "cpu":
-            out = attention_reference(
-                q, k, v, q_lengths, k_lengths, seed, scale, rate, causal, band
-            )
+            if banded:
+                out = banded_attention_reference(
+                    q, k, v, k_lengths, seed, scale, rate, band
+                )
+            else:
+                out = attention_reference(
+                    q, k, v, q_lengths, k_lengths, seed, scale, rate, causal, band
+                )
             if needs_grad:
                 ctx.save_for_backward(q, k, v, q_lengths, k_lengths)
             return out
@@ -235,26 +422,40 @@ class _FusedAttention(torch.autograd.Function):
         lse = None
         if needs_grad:
             lse = torch.empty(q.shape[:3], dtype=torch.float32, device=q.device)
-        out = _launch(q, k, v, q_len, k_len, seed, scale, rate, causal, band, lse)
-        if needs_grad:
-            ctx.save_for_backward(q, k, v, q_len, k_len, out, lse)
+        if banded:
+            out = banded_attention_kernel(q, k, v, k_len, seed, scale, rate, band, lse)
+        else:
+            out = _launch(q, k, v, q_len, k_len, seed, scale, rate, causal, band, lse)
+        if needs_grad:  # K7 needs no forward output
+            ctx.save_for_backward(q, k, v, q_len, k_len, None if banded else out, lse)
         return out
 
     @staticmethod
     def backward(ctx, dout):
-        seed, scale, rate, causal, band = ctx.args
+        seed, scale, rate, causal, band, banded = ctx.args
         saved = ctx.saved_tensors
         if saved[0].device.type == "cpu":
             q, k, v, q_lengths, k_lengths = saved
-            grads = attention_backward_reference(
-                q, k, v, q_lengths, k_lengths, seed, scale, rate, causal, band, dout
-            )
+            if banded:
+                grads = banded_attention_backward_reference(
+                    q, k, v, k_lengths, seed, scale, rate, band, dout
+                )
+            else:
+                grads = attention_backward_reference(
+                    q, k, v, q_lengths, k_lengths, seed, scale, rate, causal, band,
+                    dout,
+                )
         else:
             q, k, v, q_len, k_len, out, lse = saved
-            grads = attention_backward_kernel(
-                q, k, v, out, lse, q_len, k_len, seed, scale, rate, causal, band,
-                dout,
-            )
+            if banded:
+                grads = banded_attention_backward_kernel(
+                    q, k, v, lse, k_len, seed, scale, rate, band, dout
+                )
+            else:
+                grads = attention_backward_kernel(
+                    q, k, v, out, lse, q_len, k_len, seed, scale, rate, causal, band,
+                    dout,
+                )
         return (*grads, None, None, None, None, None, None, None)
 
 
@@ -266,7 +467,10 @@ def fused_attention_general(
     valid query/key counts; seed: int (dropout stream). Returns (B, H, Tq,
     D) in q's dtype with padded query rows zeroed; differentiable in q, k
     and v. ``causal`` masks kpos > qpos; ``band`` > 0 restricts keys to
-    [q-band, q] (causal) or |q-k| <= band. Every k_length must be >= 1."""
+    [q-band, q] (causal) or |q-k| <= band. Every k_length must be >= 1.
+    With ``ASR_BANDED_WINDOW=1`` a causal, banded, square call takes the
+    windowed route (K6/K7), where ``k_lengths`` masks keys and zeroes
+    query rows."""
     if q.device.type not in ("cpu", "cuda"):
         raise ValueError(f"attention kernel: unsupported device {q.device}")
     return _FusedAttention.apply(
@@ -278,3 +482,5 @@ def fused_attention_general(
 # kernel launches so far (the CPU path does not count)
 fused_attention_general.launches = 0
 attention_backward_kernel.launches = 0
+banded_attention_kernel.launches = 0
+banded_attention_backward_kernel.launches = 0

@@ -3,8 +3,10 @@
 holds each against its plain PyTorch version on the card, then drives the
 serving path (``asr_chinese_e2e_tpu_torch.recognize``, beam mode) and the
 training path (``asr_chinese_e2e_tpu_torch.main.train``) on the flagship
-configuration with random weights, and checks that both went through the
-kernels. Run from the repository root:
+configuration with random weights, then trains and serves the streaming
+model family (causal-banded encoder) through ``main.train`` and
+``asr_chinese_e2e_tpu_torch.stream``, and checks that every path went
+through its kernels. Run from the repository root:
 
     python3 chip_smoke.py
 
@@ -26,18 +28,27 @@ Phases (any failure raises, so the exit code is non-zero):
    the row log-sum-exp) vs ``attention_backward_reference``: dq, dk, dv
    f32 <= 1e-4 abs, bf16 <= 2e-2 abs of the f32 reference, same cases;
    times;
-6. K3/K4 CTC vs ``ctc_alpha_reference`` / ``ctc_beta_reference`` and the
+6. K6/K7 windowed causal-band attention (through the autograd Function
+   with ``ASR_BANDED_WINDOW=1``) vs ``banded_attention_reference`` and
+   ``banded_attention_backward_reference``, same bounds, at the streaming
+   training shape (64, 8, 267, 64) band 50 with and without hash dropout
+   0.1, the streaming serving shape (1, 8, 501, 64), (2, 8, 150, 64) band
+   30 with lengths [150, 97], and bands 64 and 65 at T = 501; K6 vs K1 on
+   the same f32 inputs with dropout 0.1 <= 1e-5 abs; median times of K6,
+   its plain version and K1, and of K7, its plain version and K2, at the
+   training shape;
+7. K3/K4 CTC vs ``ctc_alpha_reference`` / ``ctc_beta_reference`` and the
    loss vs ``F.ctc_loss`` at (64, 267, 4233), ragged lengths, label pad
    32, f32 and bf16: loss rel <= 1e-4, gradient abs <= 1e-3 (f32; 1e-2
    in bf16, where both sides round the gradient to bf16); times;
-7. the serving path: a 512-wide, 6+6-layer, bf16 SpeechTransformer with a
+8. the serving path: a 512-wide, 6+6-layer, bf16 SpeechTransformer with a
    4233-token vocabulary decodes 16 synthetic utterances of 2-8 s (beam
    10, batches of 8); every utterance needs a finite-scored hypothesis,
    the fbank kernel must run once and the attention kernel 6 times per
    batch, and the kernel path's f32 encoder output must agree with the
    CPU run of the plain path (which the CPU tests hold to the JAX
    package);
-8. the training path: ``main.train`` with the flagship recipe (bf16,
+9. the training path: ``main.train`` with the flagship recipe (bf16,
    CTC 0.3 through K3/K4, fused attention with hash dropout 0.1,
    SpecAugment, Noam + Adam, clip 5) on 128 synthetic 8 s utterances (2
    batches of 64) and 16 dev utterances, 2 epochs; every logged loss
@@ -46,16 +57,40 @@ Phases (any failure raises, so the exit code is non-zero):
    written; a second ``train(from_ckpt="latest", num_epoch=3)`` resumes
    at the saved step and epoch; the best checkpoint decodes the dev set
    through ``recognize`` on the card;
-9. one f32 flagship-width train step (2 utterances, no dropout, no
-   SpecAugment) on the card vs the same step on the CPU's plain path:
-   loss and gradient norm within 1e-3 relative;
-10. throughput: 20 timed flagship steps on one fixed batch of 64 x 8 s
+10. one f32 flagship-width train step (2 utterances, no dropout, no
+    SpecAugment) on the card vs the same step on the CPU's plain path:
+    loss and gradient norm within 1e-3 relative;
+11. streaming training: with ``ASR_BANDED_WINDOW=1``, ``main.train`` with
+    the streaming recipe of ``artifacts/r5_streaming/config.json``
+    (flagship widths, pre-LN, causal band 50, fixed CMVN, dropout 0, CTC
+    0.3, bf16, Noam factor 0.25 warmup 150) on the corpus of phase 9, 2
+    epochs; every logged loss finite; per train step K5 1, K6 6, K7 6,
+    K3 1, K4 1 and no K1/K2 launch (per dev batch K5 1, K6 6, K3 1); the
+    best checkpoint written;
+12. streaming serving: that checkpoint through ``load_experiment`` into
+    ``StreamingRecognizer``; 4 streams (``reset_stream`` between them) of
+    3 synthetic 2-4 s utterances, each padded to whole 125 ms chunks and
+    followed by 1 s of zeros, fed in 2000-sample chunks, partials every
+    1 s; prefix re-encode (``ASR_BANDED_WINDOW=1``: each encode launches
+    K5 1 and K6 6) and incremental (no kernel launch), each with
+    ``ctc_greedy`` and ``beam`` (10) finals, in bf16 and in f32 (the same
+    weights); in f32 the incremental finals must equal the prefix
+    re-encode finals and the accumulated incremental encoder output must
+    be within 1e-3 of the offline encode of the bucketed segment; in
+    bf16 the number of agreeing finals is printed; median and p90 ms of
+    a partial and of a final in each mode;
+13. throughput: 20 timed flagship steps on one fixed batch of 64 x 8 s
     after 3 warm-up steps: ms per step, steps/s, audio-s/s and MFU
     against the H100 SXM dense bf16 peak;
-11. print the kernels' JSON line, the card line, and last
+14. streaming throughput: the streaming recipe on one fixed batch of
+    64 x 8 s, 3 warm-up then 20 timed steps with ``ASR_BANDED_WINDOW=1``
+    (K6/K7) and then ``=0`` (K1/K2), back to back: ms per step and
+    audio-s/s of each;
+15. print the kernels' JSON line, the card line, and last
     ``{"ok": true, "device": {...}}``.
 """
 
+import contextlib
 import json
 import os
 import shutil
@@ -91,12 +126,15 @@ from asr_chinese_e2e_tpu_torch.ops import ctc_kernel as ctc  # noqa: E402
 from asr_chinese_e2e_tpu_torch.ops import fused_attention as fa  # noqa: E402
 from asr_chinese_e2e_tpu_torch.ops.fbank import log_mel_spectrogram_kernel  # noqa: E402
 from asr_chinese_e2e_tpu_torch.recognize import recognize  # noqa: E402
+from asr_chinese_e2e_tpu_torch.stream import StreamingRecognizer  # noqa: E402
 from asr_chinese_e2e_tpu_torch.train.optimizer import (  # noqa: E402
     default_train_config,
     make_optimizer,
 )
 from asr_chinese_e2e_tpu_torch.train.train_step import make_step_fns  # noqa: E402
 from asr_chinese_e2e_tpu_torch.utils.experiment import (  # noqa: E402
+    checkpoint_path,
+    load_experiment,
     save_torch_checkpoint,
 )
 from asr_chinese_e2e_tpu_torch.utils.synth import make_synth_corpus  # noqa: E402
@@ -112,6 +150,8 @@ COUNTERS = {
     "fbank": log_mel_spectrogram_kernel,
     "fused_attention_fwd": fa.fused_attention_general,
     "fused_attention_bwd": fa.attention_backward_kernel,
+    "banded_attention_fwd": fa.banded_attention_kernel,
+    "banded_attention_bwd": fa.banded_attention_backward_kernel,
     "ctc_alpha": ctc.ctc_alpha_kernel,
     "ctc_beta": ctc.ctc_beta_kernel,
 }
@@ -154,6 +194,21 @@ def median_ms(fn, n=N_TIMED, warmup=3) -> float:
 def require(cond: bool, what: str) -> None:
     if not cond:
         raise AssertionError(what)
+
+
+@contextlib.contextmanager
+def banded_window(value: str):
+    """Set ``ASR_BANDED_WINDOW`` for the phases of the streaming slice only,
+    and restore it after, so the other phases keep the full-tile route."""
+    old = os.environ.get("ASR_BANDED_WINDOW")
+    os.environ["ASR_BANDED_WINDOW"] = value
+    try:
+        yield
+    finally:
+        if old is None:
+            os.environ.pop("ASR_BANDED_WINDOW", None)
+        else:
+            os.environ["ASR_BANDED_WINDOW"] = old
 
 
 # -- phase 3: fbank ------------------------------------------------------------
@@ -299,7 +354,106 @@ def check_attention_bwd(dev) -> dict:
     return {"max_abs_err": worst, "ms": slice_timing[0], "plain_ms": slice_timing[1]}
 
 
-# -- phase 6: CTC alpha / beta -------------------------------------------------
+# -- phase 6: windowed causal-band attention (K6 / K7) --------------------------
+
+# (name, batch, T, band, rate, lengths or None for the training rows): the
+# streaming model's training and serving encoder shapes, a ragged case, and
+# the bands at either side of BQ = 64
+BANDED_CASES = [
+    ("train-band50", 64, 267, 50, 0.0, None),
+    ("train-band50-dropout0.1", 64, 267, 50, 0.1, None),
+    ("serve-501", 1, 501, 50, 0.0, [501]),
+    ("ragged-band30", 2, 150, 30, 0.0, [150, 97]),
+    ("band64-501", 2, 501, 64, 0.0, [501, 388]),
+    ("band65-501", 2, 501, 65, 0.0, [501, 388]),
+]
+
+
+def _banded_inputs(b, t, lengths, dev, seed):
+    q, k, v, q_len, _ = _attn_inputs(b, 8, t, t, 64, dev, seed)
+    if lengths is not None:
+        q_len = torch.tensor(lengths, dtype=torch.int32, device=dev)
+    return q, k, v, q_len
+
+
+def check_banded(dev) -> tuple[dict, dict]:
+    """K6 and K7 through the autograd Function with the window on (which
+    must route to them) vs their plain versions; K6 vs K1; times at the
+    training shape."""
+    scale = 1.0 / 8.0
+    worst = {"fwd": 0.0, "bwd": 0.0}
+    for i, (name, b, t, band, rate, lengths) in enumerate(BANDED_CASES):
+        q, k, v, n = _banded_inputs(b, t, lengths, dev, seed=20 + i)
+        g = torch.randn(q.shape, generator=torch.Generator().manual_seed(i)).to(dev)
+        args = (n, n, 4321, scale, rate, True, band)
+        errs = {}
+        for dtype in (torch.float32, torch.bfloat16):
+            leaves = [x.detach().to(dtype).requires_grad_(True) for x in (q, k, v)]
+            before = fa.banded_attention_kernel.launches, fa.fused_attention_general.launches
+            with banded_window("1"):
+                out = fa.fused_attention_general(*leaves, *args)
+                out.backward(g.to(dtype))
+            require((fa.banded_attention_kernel.launches - before[0],
+                     fa.fused_attention_general.launches - before[1]) == (1, 0),
+                    f"banded {name}: the window did not route to K6")
+            plain = [x.detach().float() for x in leaves]
+            want = fa.banded_attention_reference(*plain, n, 4321, scale, rate, band)
+            want_g = fa.banded_attention_backward_reference(
+                *plain, n, 4321, scale, rate, band, g.to(dtype).float())
+            torch.cuda.synchronize()
+            require(out.dtype == dtype and all(x.grad.dtype == dtype for x in leaves),
+                    f"banded {name}: dtype")
+            pairs = [(out, want)] + [(x.grad, w) for x, w in zip(leaves, want_g)]
+            errs[dtype] = [(got.float() - w).abs().max().item() for got, w in pairs]
+            largest = max(w.abs().max().item() for _, w in pairs[1:])
+        e32, e16 = errs[torch.float32], errs[torch.bfloat16]
+        print(f"banded {name} ({b},8,{t},64) band {band} rate {rate}: fwd f32 max_abs="
+              f"{e32[0]:.3e} bf16 {e16[0]:.3e}; bwd (dq, dk, dv) f32 "
+              f"{', '.join(f'{e:.3e}' for e in e32[1:])} bf16 "
+              f"{', '.join(f'{e:.3e}' for e in e16[1:])} (largest |grad| {largest:.3f})")
+        require(max(e32) <= 1e-4, f"banded {name} f32 disagrees")
+        require(max(e16) <= 2e-2, f"banded {name} bf16 disagrees")
+        worst["fwd"] = max(worst["fwd"], e16[0])
+        worst["bwd"] = max(worst["bwd"], *e16[1:])
+
+    # K6 and K1 interchangeable mid-training: the same weights dropped
+    q, k, v, n = _banded_inputs(64, 267, None, dev, seed=30)
+    k6 = fa.banded_attention_kernel(q, k, v, n, 99, scale, 0.1, 50)
+    k1 = fa._launch(q, k, v, n, n, 99, scale, 0.1, True, 50)
+    torch.cuda.synchronize()
+    k6_k1 = (k6 - k1).abs().max().item()
+    print(f"banded K6 vs K1, f32 (64,8,267,64) band 50 dropout 0.1: max_abs={k6_k1:.3e}")
+    require(k6_k1 <= 1e-5, "K6 and K1 disagree")
+
+    # times at the streaming training shape, bf16, hash dropout 0.1
+    qb, kb, vb = (x.to(torch.bfloat16) for x in (q, k, v))
+    gb = torch.randn(q.shape, generator=torch.Generator().manual_seed(3)).to(dev, torch.bfloat16)
+    lse6 = torch.empty(q.shape[:3], dtype=torch.float32, device=dev)
+    lse1 = torch.empty(q.shape[:3], dtype=torch.float32, device=dev)
+    fa.banded_attention_kernel(qb, kb, vb, n, 7, scale, 0.1, 50, lse6)
+    out1 = fa._launch(qb, kb, vb, n, n, 7, scale, 0.1, True, 50, lse1)
+    t = {
+        "K6": median_ms(lambda: fa.banded_attention_kernel(qb, kb, vb, n, 7, scale, 0.1, 50)),
+        "K6 plain": median_ms(lambda: fa.banded_attention_reference(
+            qb, kb, vb, n, 7, scale, 0.1, 50)),
+        "K1 (causal band 50)": median_ms(lambda: fa._launch(
+            qb, kb, vb, n, n, 7, scale, 0.1, True, 50)),
+        "K7": median_ms(lambda: fa.banded_attention_backward_kernel(
+            qb, kb, vb, lse6, n, 7, scale, 0.1, 50, gb)),
+        "K7 plain": median_ms(lambda: fa.banded_attention_backward_reference(
+            qb, kb, vb, n, 7, scale, 0.1, 50, gb)),
+        "K2 (causal band 50)": median_ms(lambda: fa.attention_backward_kernel(
+            qb, kb, vb, out1, lse1, n, n, 7, scale, 0.1, True, 50, gb)),
+    }
+    print("banded times, bf16 (64,8,267,64) band 50 dropout 0.1, median of "
+          f"{N_TIMED}: " + ", ".join(f"{k} {v:.4f} ms" for k, v in t.items()))
+    return (
+        {"max_abs_err": worst["fwd"], "ms": t["K6"], "plain_ms": t["K6 plain"]},
+        {"max_abs_err": worst["bwd"], "ms": t["K7"], "plain_ms": t["K7 plain"]},
+    )
+
+
+# -- phase 7: CTC alpha / beta -------------------------------------------------
 
 
 def _ctc_inputs(dev, dtype, b=64, t=267, c=4233, label_pad=32, seed=0):
@@ -370,7 +524,7 @@ def check_ctc(dev) -> tuple[dict, dict]:
     )
 
 
-# -- phase 7: the serving path -------------------------------------------------
+# -- phase 8: the serving path -------------------------------------------------
 
 
 def flagship_config(dtype: str) -> Config:
@@ -460,7 +614,7 @@ def run_serving_path(dev) -> dict:
     return counts
 
 
-# -- phase 8: the training path ------------------------------------------------
+# -- phase 9: the training path ------------------------------------------------
 
 
 def training_kwargs(corpus, exp_root, **extra) -> dict:
@@ -502,11 +656,12 @@ def run_training_path(dev):
     print(f"train: {steps} steps in 2 epochs, {n_eval} dev batches, wall {wall:.3f} s "
           f"(incl. model build, evals, checkpoints); launches {counts}")
     require(steps == 4, f"train ran {steps} steps, want 4 (2 epochs x 2 batches)")
-    want = {
+    want = {k: 0 for k in COUNTERS}
+    want.update({
         "fbank": steps + n_eval, "fused_attention_fwd": 6 * (steps + n_eval),
         "fused_attention_bwd": 6 * steps, "ctc_alpha": steps + n_eval,
         "ctc_beta": steps,
-    }
+    })
     require(counts == want, f"training launches {counts} != {want}")
     rows = _logged_losses(trainer.exp_dir)
     require(len(rows) == steps, f"{len(rows)} logged train rows")
@@ -547,7 +702,7 @@ def run_training_path(dev):
     return counts, corpus
 
 
-# -- phase 9: one f32 step, card vs CPU ----------------------------------------
+# -- phase 10: one f32 step, card vs CPU ----------------------------------------
 
 
 def _recipe(dtype: str, **overrides) -> tuple:
@@ -589,7 +744,200 @@ def check_step_against_cpu(corpus, dev) -> None:
     require(max(rel) <= 1e-3, "f32 train step on the card disagrees with the CPU")
 
 
-# -- phase 10: throughput ------------------------------------------------------
+# -- phase 11: streaming training ----------------------------------------------
+
+# the streaming recipe of artifacts/r5_streaming/config.json (its corpus
+# paths, joint evaluation and the JAX-only keys left out)
+STREAMING_RECIPE = dict(
+    model_name="TransformerOffical", norm_type="pre", causal_encoder=True,
+    attention_band=50, cmvn_mode="fixed", cmvn_mean=-24.004314, cmvn_std=2.375894,
+    dropout_rate=0.0, ctc_weight=0.3, dtype="bfloat16", attn_impl="fused",
+    decoder_attn_impl="xla", fbank_impl="pallas", ctc_impl="pallas",
+    lr_schedule="noam", noam_factor=0.25, warmup=150, spec_augment=False,
+    eval_decode="none",
+)
+
+
+def run_streaming_training(corpus) -> tuple[dict, str]:
+    """``main.train`` with the streaming recipe through K6/K7; returns the
+    launch counts and the experiment directory."""
+    exp_root = os.path.join(WORK, "stream_exp")
+    shutil.rmtree(exp_root, ignore_errors=True)
+    kw = dict(
+        STREAMING_RECIPE, vocab_path=corpus["vocab"], train_manifest=corpus["train"],
+        dev_manifest=corpus["dev"], test_manifest=None, batch_size=64, num_epoch=2,
+        log_every_iter=1, eval_every_iter=0, save_every_iter=0, device="cuda",
+        use_native_io=False, exp_root=exp_root, exp_name="streaming", seed=0,
+    )
+    with banded_window("1"):
+        reset_counters()
+        t0 = time.perf_counter()
+        trainer = main_train(**kw)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = read_counters()
+    steps = trainer.state.step
+    n_eval = 2 * len(trainer.dev_loader)
+    print(f"streaming train: {steps} steps in 2 epochs, {n_eval} dev batches, wall "
+          f"{wall:.3f} s; launches {counts}")
+    require(steps == 4, f"streaming train ran {steps} steps, want 4")
+    want = {
+        "fbank": steps + n_eval, "fused_attention_fwd": 0, "fused_attention_bwd": 0,
+        "banded_attention_fwd": 6 * (steps + n_eval), "banded_attention_bwd": 6 * steps,
+        "ctc_alpha": steps + n_eval, "ctc_beta": steps,
+    }
+    require(counts == want, f"streaming training launches {counts} != {want}")
+    rows = _logged_losses(trainer.exp_dir)
+    require(len(rows) == steps and all(np.isfinite(r["train/loss"]) for r in rows),
+            "streaming train: missing or non-finite losses")
+    for r in rows:
+        print(f"streaming train step {r['step']}: loss {r['train/loss']:.4f} ctc "
+              f"{r['train/ctc_loss']:.4f} ce {r['train/ce_loss']:.4f} grad_norm "
+              f"{r['train/grad_norm']:.4f} lr {r['lr']:.3e}")
+    exp_dir = trainer.exp_dir
+    require(os.path.exists(checkpoint_path(exp_dir, "best")), "no best checkpoint")
+    del trainer
+    torch.cuda.empty_cache()
+    return counts, exp_dir
+
+
+# -- phase 12: streaming serving -----------------------------------------------
+
+STREAM_CHUNK = 2000  # samples (125 ms)
+
+
+def make_streams(n_streams=4, per_stream=3) -> list:
+    """int16 streams of synthetic 2-4 s utterances, each padded to whole
+    chunks and followed by 1 s of zeros (so the energy gate's 1 s
+    hangover closes each utterance)."""
+    corpus = make_synth_corpus(
+        os.path.join(WORK, "stream_corpus"), n_train=0, n_dev=0,
+        n_test=n_streams * per_stream, n_tone_chars=40, vocab_size=VOCAB,
+        seconds_range=(2.0, 4.0), seed=2,
+    )
+    waves = [load_wav(r["wave"], dtype=np.int16) for r in read_manifest(corpus["test"])]
+    streams = []
+    for s in range(n_streams):
+        parts = []
+        for w in waves[s * per_stream : (s + 1) * per_stream]:
+            pad = -len(w) % STREAM_CHUNK
+            parts += [w, np.zeros(pad + 16000, np.int16)]
+        streams.append(np.concatenate(parts))
+    return streams
+
+
+def _pct(xs, p) -> float:
+    return float(np.percentile(xs, p)) if xs else float("nan")
+
+
+def serve_streams(rec, streams):
+    """Feed every stream in 2000-sample chunks (``reset_stream`` between
+    streams); returns (finals [(text, t0, t1)], partial ms, final ms,
+    incremental segments [(samples, accumulated encoder output)])."""
+    finals, t_partial, t_final, inc_segments = [], [], [], []
+    if rec.incremental:  # keep each final's accumulated encoder output
+        inner = rec._inc_final_text
+
+        def keep_segment(start, seg):
+            text = inner(start, seg)
+            inc_segments.append((seg, torch.cat(rec._inc_enc)))
+            return text
+
+        rec._inc_final_text = keep_segment
+    for x in streams:
+        rec.reset_stream()
+        chunks = [x[i : i + STREAM_CHUNK] for i in range(0, len(x), STREAM_CHUNK)]
+        for c in chunks + [None]:
+            t0 = time.perf_counter()
+            events = rec.feed(c) if c is not None else rec.finish()
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t0) * 1e3
+            kinds = {e.kind for e in events}
+            if "final" in kinds:
+                t_final.append(ms)
+            elif "partial" in kinds:
+                t_partial.append(ms)
+            finals += [(e.text, e.t0, e.t1) for e in events if e.kind == "final"]
+    return finals, t_partial, t_final, inc_segments
+
+
+def run_streaming_serving(exp_dir: str, vocab_path: str, dev) -> dict:
+    """The streaming checkpoint served in both encode modes and both final
+    modes, bf16 and f32; returns the launch counts of the bf16 prefix
+    re-encode runs."""
+    model, cfg, feat_cfg, vocab = load_experiment(exp_dir, vocab_path, "best", device=dev)
+    blob = torch.load(checkpoint_path(exp_dir, "best"), map_location="cpu",
+                      weights_only=True)
+    model32 = SpeechTransformer(Config(**{**cfg.to_dict(), "dtype": "float32"}),
+                                vocab.vocab_size)
+    model32.load_state_dict(blob["state_dict"])
+    model32 = model32.to(dev).eval()
+    streams = make_streams()
+    print(f"streaming serving: {len(streams)} streams of "
+          f"{', '.join(f'{len(x) / 16000:.3f}' for x in streams)} s")
+    launches = {k: 0 for k in COUNTERS}
+    finals = {}
+    for dtype, m in (("bfloat16", model), ("float32", model32)):
+        for mode in ("ctc_greedy", "beam"):
+            for inc in ("off", "on"):
+                rec = StreamingRecognizer(m, vocab, feat_cfg, mode=mode, beam_size=10,
+                                          partial_every_s=1.0, incremental=inc)
+                require(rec.incremental == (inc == "on"), "incremental mode not taken")
+                n_encodes = [0]
+                encode = rec._run_encode
+
+                def counted(samples, _encode=encode, _n=n_encodes):
+                    _n[0] += 1
+                    return _encode(samples)
+
+                rec._run_encode = counted
+                with banded_window("1"):
+                    reset_counters()
+                    out, t_p, t_f, segs = serve_streams(rec, streams)
+                    counts = read_counters()
+                n = n_encodes[0]
+                if inc == "off":
+                    want = {k: 0 for k in COUNTERS}
+                    want.update(fbank=n, banded_attention_fwd=6 * n)
+                    if dtype == "bfloat16":
+                        launches = {k: launches[k] + counts[k] for k in COUNTERS}
+                else:
+                    want = {k: 0 for k in COUNTERS}
+                    require(n == 0, "the incremental path re-encoded a prefix")
+                require(counts == want, f"stream {dtype} {mode} {inc}: launches "
+                        f"{counts} != {want}")
+                finals[dtype, mode, inc] = out
+                label = "incremental" if inc == "on" else "prefix re-encode"
+                print(f"stream {dtype} {mode} {label}: {len(out)} finals, {n} encodes; "
+                      f"partial ms median {_pct(t_p, 50):.3f} p90 {_pct(t_p, 90):.3f} "
+                      f"(n={len(t_p)}); final ms median {_pct(t_f, 50):.3f} p90 "
+                      f"{_pct(t_f, 90):.3f} (n={len(t_f)})")
+                if dtype == "float32" and inc == "on":
+                    err = 0.0
+                    for seg, enc_inc in segs:
+                        enc, enc_lens, _ = rec._run_encode(seg)
+                        t_valid = int(enc_lens[0])
+                        require(enc_inc.shape[0] == t_valid, "incremental frame count")
+                        err = max(err, (enc_inc - enc[0, :t_valid]).abs().max().item())
+                    print(f"stream f32 {mode}: accumulated incremental encoder output vs "
+                          f"offline encode of the bucketed segment, {len(segs)} segments: "
+                          f"max_abs={err:.3e}")
+                    require(err <= 1e-3, "incremental encoder output disagrees")
+    for dtype in ("bfloat16", "float32"):
+        for mode in ("ctc_greedy", "beam"):
+            a, b = finals[dtype, mode, "on"], finals[dtype, mode, "off"]
+            require([x[1:] for x in a] == [x[1:] for x in b], "final segment bounds differ")
+            same = sum(x[0] == y[0] for x, y in zip(a, b))
+            print(f"stream {dtype} {mode}: {same} of {len(a)} incremental finals equal "
+                  f"the prefix re-encode finals; first: {a[0][0][:40]!r}")
+            if dtype == "float32":
+                require(same == len(a), f"f32 {mode}: incremental finals differ")
+    require(len(finals["bfloat16", "beam", "off"]) == 3 * len(streams),
+            "want 3 finals per stream")
+    return launches
+
+
+# -- phase 13: throughput ------------------------------------------------------
 
 
 def analytic_train_flops(cfg, feat_cfg, vocab_size: int, batch: int,
@@ -677,6 +1025,70 @@ def measure_training_throughput(dev, n_warmup=3, n_timed=20) -> dict:
     return out
 
 
+# -- phase 14: streaming throughput, windowed vs full-tile ---------------------
+
+
+def streaming_train_setup(dev) -> tuple:
+    """(train_step, state, batch) of the streaming recipe (bf16, dropout 0,
+    no SpecAugment, CTC 0.3 through the kernels) on one fixed batch of 64
+    x 8 s with label length 20. The attention route is read at each call:
+    set ``ASR_BANDED_WINDOW`` around the steps."""
+    recipe = {k: v for k, v in STREAMING_RECIPE.items()
+              if k not in ("model_name", "cmvn_mode", "cmvn_mean", "cmvn_std",
+                           "lr_schedule", "noam_factor", "warmup", "spec_augment",
+                           "eval_decode")}
+    cfg = flagship_config("bfloat16").build(**recipe)
+    tcfg = default_train_config().combine(cfg).build(
+        lr_schedule="noam", noam_factor=0.25, warmup=150, spec_augment=False)
+    feat = FeatureConfig(fbank_impl="pallas", cmvn_mode="fixed",
+                         cmvn_mean=STREAMING_RECIPE["cmvn_mean"],
+                         cmvn_std=STREAMING_RECIPE["cmvn_std"])
+    bsz, samples = THROUGHPUT_BATCH, int(THROUGHPUT_SECONDS * 16000)
+    rng = np.random.RandomState(0)
+    batch = [
+        torch.from_numpy((rng.randn(bsz, samples) * 0.1 * 32767).astype(np.int16)),
+        torch.full((bsz,), samples, dtype=torch.int32),
+        torch.from_numpy(rng.randint(4, VOCAB, size=(bsz, THROUGHPUT_LABEL_LEN))
+                         .astype(np.int32)),
+        torch.full((bsz,), THROUGHPUT_LABEL_LEN, dtype=torch.int32),
+    ]
+    batch = [x.to(dev) for x in batch]
+    model = SpeechTransformer(cfg, VOCAB, torch.Generator().manual_seed(0)).to(dev)
+    opt = make_optimizer(model.parameters(), tcfg, cfg.d_model)
+    init_fn, train_step, _ = make_step_fns(model, opt, feat, tcfg)
+    return train_step, init_fn(), batch
+
+
+def measure_streaming_throughput(dev, n_warmup=3, n_timed=20) -> None:
+    """The streaming recipe's step on one fixed batch of 64 x 8 s with the
+    window on (K6/K7) and off (K1/K2), back to back in this process."""
+    for window in ("1", "0"):
+        train_step, state, batch = streaming_train_setup(dev)
+        with banded_window(window):
+            for _ in range(n_warmup):
+                state, m = train_step(state, *batch, 0)
+            torch.cuda.synchronize()
+            reset_counters()
+            t0 = time.perf_counter()
+            for _ in range(n_timed):
+                state, m = train_step(state, *batch, 0)
+            torch.cuda.synchronize()
+            step_s = (time.perf_counter() - t0) / n_timed
+            counts = read_counters()
+        fwd, bwd = (("banded_attention_fwd", "banded_attention_bwd") if window == "1"
+                    else ("fused_attention_fwd", "fused_attention_bwd"))
+        require(counts[fwd] == 6 * n_timed and counts[bwd] == 6 * n_timed,
+                f"streaming throughput launches {counts}")
+        require(np.isfinite(float(m["loss"])), "streaming throughput loss not finite")
+        route = "windowed K6/K7" if window == "1" else "full-tile K1/K2"
+        print(f"streaming train throughput, {route}, bf16, batch 64 x 8 s, {n_timed} "
+              f"steps after {n_warmup} warm-up: {step_s * 1e3:.3f} ms/step, "
+              f"{1.0 / step_s:.4f} steps/s, {THROUGHPUT_BATCH * THROUGHPUT_SECONDS / step_s:.1f} "
+              f"audio-s/s, final loss {float(m['loss']):.4f}")
+        del train_step, state
+        torch.cuda.empty_cache()
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: CUDA is not available")
@@ -696,14 +1108,20 @@ def main() -> None:
     fbank = check_fbank(dev)
     attn = check_attention(dev)
     attn_bwd = check_attention_bwd(dev)
+    banded_fwd, banded_bwd = check_banded(dev)
     ctc_alpha, ctc_beta = check_ctc(dev)
     serve = run_serving_path(dev)
     trained, corpus = run_training_path(dev)
     check_step_against_cpu(corpus, dev)
+    stream_trained, stream_exp = run_streaming_training(corpus)
+    stream_served = run_streaming_serving(stream_exp, corpus["vocab"], dev)
     measure_training_throughput(dev)
+    measure_streaming_throughput(dev)
 
-    # launches: the serving run plus the training run (each counted from 0)
-    launches = {k: serve[k] + trained[k] for k in COUNTERS}
+    # launches: the main paths' runs, each counted from 0
+    launches = {
+        k: serve[k] + trained[k] + stream_trained[k] + stream_served[k] for k in COUNTERS
+    }
     require(all(n > 0 for n in launches.values()), f"a kernel never launched: {launches}")
     sources = {
         "fbank": ("fbank.cu", "asr_chinese_e2e_tpu/ops/fbank_pallas.py:43", fbank),
@@ -711,6 +1129,10 @@ def main() -> None:
                                 "asr_chinese_e2e_tpu/ops/fused_attention.py:126", attn),
         "fused_attention_bwd": ("fused_attention_bwd.cu",
                                 "asr_chinese_e2e_tpu/ops/fused_attention.py:157", attn_bwd),
+        "banded_attention_fwd": ("banded_attention.cu",
+                                 "asr_chinese_e2e_tpu/ops/fused_attention.py:383", banded_fwd),
+        "banded_attention_bwd": ("banded_attention.cu",
+                                 "asr_chinese_e2e_tpu/ops/fused_attention.py:405", banded_bwd),
         "ctc_alpha": ("ctc.cu", "asr_chinese_e2e_tpu/ops/ctc_pallas.py:47", ctc_alpha),
         "ctc_beta": ("ctc.cu", "asr_chinese_e2e_tpu/ops/ctc_pallas.py:75", ctc_beta),
     }

@@ -1,13 +1,16 @@
 #!/usr/bin/env python
-"""Device-time breakdown of the PyTorch port's flagship train step on one
-GPU: the recipe and fixed batch of ``chip_smoke.py``'s throughput phase
-(64 x 8 s, bf16, hash dropout 0.1, SpecAugment, CTC 0.3 through the
-kernels), 3 warm-up steps, then ``--steps`` steps under
+"""Device-time breakdown of the PyTorch port's train step on one GPU: the
+recipe and fixed batch of ``chip_smoke.py``'s throughput phases (64 x 8
+s, bf16, CTC 0.3 through the kernels; ``flagship``: hash dropout 0.1 and
+SpecAugment; ``streaming``: the causal band-50 pre-LN recipe, whose
+encoder attention takes K6/K7 when ``ASR_BANDED_WINDOW=1`` and K1/K2
+otherwise), 3 warm-up steps, then ``--steps`` steps under
 ``torch.profiler``. Prints the card, the wall and device time per step,
 the operators with the most device time (self time, per step) and the
 kernels with the most device time.
 
-    python3 scripts/profile_torch_train.py [--steps 3] [--top 25]
+    python3 scripts/profile_torch_train.py [--recipe flagship] [--steps 3] [--top 25]
+    ASR_BANDED_WINDOW=1 python3 scripts/profile_torch_train.py --recipe streaming
 
 The kernels are built from the checkout at first use, as in
 ``chip_smoke.py``.
@@ -44,6 +47,7 @@ def _print_rows(title, events, steps, total_ms, top) -> None:
 
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--recipe", choices=("flagship", "streaming"), default="flagship")
     ap.add_argument("--steps", type=int, default=3)
     ap.add_argument("--top", type=int, default=25)
     args = ap.parse_args()
@@ -52,7 +56,12 @@ def main() -> None:
     print(f"card: {chip_smoke.card_line()}")
     torch.backends.cuda.matmul.allow_tf32 = False
     dev = torch.device("cuda", 0)
-    train_step, state, batch, _ = chip_smoke.flagship_train_setup(dev)
+    if args.recipe == "flagship":
+        train_step, state, batch, _ = chip_smoke.flagship_train_setup(dev)
+    else:
+        train_step, state, batch = chip_smoke.streaming_train_setup(dev)
+    print(f"recipe {args.recipe}, "
+          f"ASR_BANDED_WINDOW={os.environ.get('ASR_BANDED_WINDOW', 'unset')}")
     for _ in range(3):
         state, _ = train_step(state, *batch, 0)
     torch.cuda.synchronize()
