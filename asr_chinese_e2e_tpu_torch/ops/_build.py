@@ -56,6 +56,10 @@ SIGNATURES = {
         _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P,
     ],
 }
+# the scalar-FMA build of the bf16 attention kernels, which the package never
+# calls: same arguments as the entry points they were, for side-by-side timing
+SIGNATURES["asr_attention_fwd_fma"] = SIGNATURES["asr_attention_fwd"]
+SIGNATURES["asr_attention_bwd_fma"] = SIGNATURES["asr_attention_bwd"]
 
 
 def _sources() -> list[Path]:

@@ -4,7 +4,8 @@
 ``asr_chinese_e2e_tpu/ops/fused_attention.py::_fwd_kernel`` and
 ``_bwd_kernel``; and the windowed causal-band forward and backward (K6, K7,
 ``csrc/banded_attention.cu``), the port of ``_banded_fwd_kernel`` and
-``_banded_bwd_kernel``.
+``_banded_bwd_kernel``. K1 and K2 run bf16 inputs on the tensor cores
+(``mma.sync``, ``csrc/mma.cuh``) and f32 inputs on FMAs.
 
 ``fused_attention_general`` takes (B, H, T, D) tensors and is
 differentiable (a ``torch.autograd.Function``). A causal, ``band > 0``,
@@ -256,9 +257,20 @@ _KERNEL_DTYPES = (torch.float32, torch.bfloat16)
 _KERNEL_HEAD_DIMS = (32, 64)
 
 
-def _check_kernel_inputs(q, k, v, q_lengths, k_lengths):
+def keyless_row_gap(q_lengths, k_lengths, tq: int, tk: int):
+    """(B,) by how many rows the queries outlast the keys: under a band
+    (causal or not) query row i sees no key at all when i - band is past
+    the last key, so an utterance has such a row when its gap exceeds the
+    band."""
+    return q_lengths.clamp(max=tq) - k_lengths.clamp(max=tk)
+
+
+def _check_kernel_inputs(q, k, v, q_lengths, k_lengths, backward_band: int = 0):
     """Validate inputs for the kernels; returns (q_len, k_len) as int32 on
-    q's device."""
+    q's device. ``backward_band`` > 0: the call is a backward under that
+    band, which recomputes the weights from the row log-sum-exp and so
+    refuses a query row without a visible key (its scores are all -1e9,
+    where f32 absorbs the log Tk of its log-sum-exp)."""
     if q.device.type != "cuda":
         raise ValueError(f"attention kernel: unsupported device {q.device}")
     if q.dim() != 4 or k.dim() != 4 or k.shape != v.shape:
@@ -281,8 +293,19 @@ def _check_kernel_inputs(q, k, v, q_lengths, k_lengths):
     k_len = k_lengths.to(device=q.device, dtype=torch.int32).contiguous()
     if q_len.shape != (bsz,) or k_len.shape != (bsz,):
         raise ValueError("attention kernel: lengths must be (B,)")
-    if int(k_len.min()) < 1:  # host sync: an empty key row has no defined output
+    # host sync (one for both values): an empty key row has no defined output
+    if backward_band > 0:
+        gap = keyless_row_gap(q_len, k_len, tq, k.shape[2]).max()
+        k_min, gap = torch.stack([k_len.min(), gap]).tolist()
+    else:
+        k_min, gap = int(k_len.min()), 0
+    if k_min < 1:
         raise ValueError("attention kernel: every k_length must be >= 1")
+    if gap > backward_band:
+        raise ValueError(
+            f"attention backward kernel: a query row sees no key (q_length exceeds "
+            f"k_length by {gap} > band {backward_band})"
+        )
     return q_len, k_len
 
 
@@ -319,8 +342,10 @@ def attention_backward_kernel(
     q, k, v, out, lse, q_lengths, k_lengths, seed, scale, rate, causal, band, dout
 ):
     """K2: (dq, dk, dv) in the inputs' dtype, from the forward's output and
-    row log-sum-exp (``lse``, (B, H, Tq) f32). CUDA tensors only."""
-    q_len, k_len = _check_kernel_inputs(q, k, v, q_lengths, k_lengths)
+    row log-sum-exp (``lse``, (B, H, Tq) f32). CUDA tensors only. Under a
+    band every query row below its q_length must see a key: q_length <=
+    k_length + band, else ValueError."""
+    q_len, k_len = _check_kernel_inputs(q, k, v, q_lengths, k_lengths, int(band))
     bsz, heads, tq, d = q.shape
     dout = dout.to(q.dtype).contiguous()
     if out.shape != q.shape or dout.shape != q.shape or lse.shape != (bsz, heads, tq):
@@ -467,7 +492,9 @@ def fused_attention_general(
     valid query/key counts; seed: int (dropout stream). Returns (B, H, Tq,
     D) in q's dtype with padded query rows zeroed; differentiable in q, k
     and v. ``causal`` masks kpos > qpos; ``band`` > 0 restricts keys to
-    [q-band, q] (causal) or |q-k| <= band. Every k_length must be >= 1.
+    [q-band, q] (causal) or |q-k| <= band. Every k_length must be >= 1;
+    on the card the backward under a band also needs q_length <= k_length +
+    band (every query row sees a key), else it raises ValueError.
     With ``ASR_BANDED_WINDOW=1`` a causal, banded, square call takes the
     windowed route (K6/K7), where ``k_lengths`` masks keys and zeroes
     query rows."""

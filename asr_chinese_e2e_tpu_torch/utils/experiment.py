@@ -72,11 +72,16 @@ def save_torch_checkpoint(
 
 
 def load_experiment(
-    exp_dir: str, vocab_path: str, which: str = "best", device="cpu"
+    exp_dir: str, vocab_path: str, which: str = "best", device="cuda"
 ) -> Tuple[SpeechTransformer, Config, FeatureConfig, Vocab]:
     """Returns (model on ``device`` in its configured dtype, in eval mode,
-    cfg, feat_cfg, vocab). ``best`` falls back to ``latest`` when no best
-    checkpoint exists, as the JAX loader does."""
+    cfg, feat_cfg, vocab). ``device`` is the card unless the caller asks
+    for ``"cpu"`` (the plain versions); asking for the card without one
+    raises. ``best`` falls back to ``latest`` when no best checkpoint
+    exists, as the JAX loader does."""
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("device=cuda but CUDA is not available")
     cfg = Config.load(os.path.join(exp_dir, "config.json"))
     vocab = Vocab.load(vocab_path)
     name = cfg.get("model_name", "SpeechTransformer")

@@ -17,17 +17,31 @@ Phases (any failure raises, so the exit code is non-zero):
    and print the build time;
 3. K5 fbank kernel vs ``log_mel_spectrogram``: log-mel abs diff and mel
    energy rel diff <= 1e-3, at the serving batch (8, 128000), the
-   training batch (64, 128000) and an odd length;
+   training batch (64, 128000) and an odd length. Here and in phases 4-7
+   a kernel is timed in turns with its plain version and, where one
+   PyTorch call computes the same function, that call (``library_ms``:
+   ``F.scaled_dot_product_attention`` with a bool mask at dropout 0 for
+   the attention kernels, its forward+backward minus its forward for the
+   backward kernels; ``F.log_softmax`` + ``F.ctc_loss`` for CTC; none
+   for the fbank), medians of CUDA-event times, and printed beside
+   ``bound_ms``: the larger of the bytes it must move over 3.35 TB/s and
+   its operations over the peak of their type (989.4 TFLOP/s bf16 tensor
+   cores, 67 TFLOP/s f32), from this run's shapes;
 4. K1 attention kernel vs ``attention_reference``: f32 <= 1e-4 abs, bf16
-   vs the f32 reference of the same bf16 inputs <= 2e-2 abs, at the
-   serving encoder shapes (8, 8, 267|501, 64), the causal / band /
-   rectangular / dropout cases, and the training encoder shape (64, 8,
-   267, 64) with hash dropout 0.1; median CUDA-event times of kernel and
-   plain version;
+   (the tensor-core kernel) vs the f32 reference of the same bf16 inputs
+   <= 2e-2 abs, at the serving encoder shapes (8, 8, 267|501, 64), the
+   causal / band / rectangular / dropout cases, the training encoder
+   shape (64, 8, 267, 64) with hash dropout 0.1, head dim 32, a single
+   query row over 267 keys, and a causal band 50 whose keys end 50 rows
+   before the queries do; at the training and serving shapes
+   also the time of the scalar-FMA build of the bf16 kernel (the design
+   it replaced), in turns with the rest;
 5. K2 attention backward (through the autograd Function, after K1 saved
    the row log-sum-exp) vs ``attention_backward_reference``: dq, dk, dv
    f32 <= 1e-4 abs, bf16 <= 2e-2 abs of the f32 reference, same cases;
-   times;
+   the same times; with query rows that see no key at all (causal band
+   20, 267 rows over 100, 30 and 1 keys) K1 must still agree and K2,
+   which cannot recompute such a row's weights, must raise;
 6. K6/K7 windowed causal-band attention (through the autograd Function
    with ``ASR_BANDED_WINDOW=1``) vs ``banded_attention_reference`` and
    ``banded_attention_backward_reference``, same bounds, at the streaming
@@ -86,7 +100,12 @@ Phases (any failure raises, so the exit code is non-zero):
     64 x 8 s, 3 warm-up then 20 timed steps with ``ASR_BANDED_WINDOW=1``
     (K6/K7) and then ``=0`` (K1/K2), back to back: ms per step and
     audio-s/s of each;
-15. print the kernels' JSON line, the card line, and last
+15. print the kernels' JSON line (per kernel: route, source, the TPU
+    kernel it replaces, launches on the main paths and per flagship
+    train step, streaming train step and serving batch, and at the
+    training shape ``shape``, ``max_abs_err``, ``ms``, ``plain_ms``,
+    ``bound_ms``, ``bound_by``, ``library_ms``; ``other_shapes`` holds
+    the same for the serving shapes), the card line, and last
     ``{"ok": true, "device": {...}}``.
 """
 
@@ -110,6 +129,7 @@ from asr_chinese_e2e_tpu_torch.core.config import Config  # noqa: E402
 from asr_chinese_e2e_tpu_torch.data.features import (  # noqa: E402
     FeatureConfig,
     log_mel_spectrogram,
+    mel_filterbank,
     parse_batch,
 )
 from asr_chinese_e2e_tpu_torch.data.io import load_wav  # noqa: E402
@@ -143,6 +163,9 @@ WORK = os.path.join(ROOT, "build", "chip_smoke")
 N_TIMED = 30
 # NVIDIA H100 SXM datasheet: dense bf16 tensor-core peak, FLOP/s
 H100_SXM_BF16_PEAK = 989.4e12
+# same datasheet: f32 outside the tensor cores, FLOP/s; device memory, bytes/s
+H100_SXM_F32_PEAK = 67e12
+H100_SXM_BYTES_PER_S = 3.35e12
 VOCAB = 4233
 
 # every kernel wrapper's launch counter, by the kernel's name
@@ -174,8 +197,9 @@ def card_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def median_ms(fn, n=N_TIMED, warmup=3) -> float:
-    """Median of ``n`` CUDA-event-timed calls of ``fn``."""
+def _event_times(fn, n, warmup, reps=1) -> list:
+    """``n`` CUDA-event times of ``reps`` back-to-back calls of ``fn``, each
+    divided by ``reps``."""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
@@ -184,11 +208,142 @@ def median_ms(fn, n=N_TIMED, warmup=3) -> float:
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
-        fn()
+        for _ in range(reps):
+            fn()
         end.record()
         end.synchronize()
-        times.append(start.elapsed_time(end))
-    return statistics.median(times)
+        times.append(start.elapsed_time(end) / reps)
+    return times
+
+
+def median_ms(fn, n=N_TIMED, warmup=3) -> float:
+    """Median of ``n`` CUDA-event-timed calls of ``fn``."""
+    return statistics.median(_event_times(fn, n, warmup))
+
+
+def turns_ms(fns: dict, n=N_TIMED // 2, warmup=2, reps=1) -> dict:
+    """Median CUDA-event time of each function, timed in turns: a, b, ...,
+    z, z, ..., b, a, ``n`` samples a visit, so that a drift of the card's
+    clocks falls on all alike. With ``reps`` > 1 a sample is that many
+    back-to-back calls, which hides the host's time per call behind the
+    device's: the device time of a kernel shorter than its wrapper."""
+    samples = {k: [] for k in fns}
+    for name in list(fns) + list(fns)[::-1]:
+        samples[name] += _event_times(fns[name], n, warmup, reps)
+    return {k: statistics.median(v) for k, v in samples.items()}
+
+
+# -- the least time the card could take (``bound_ms``) ---------------------------
+
+
+def bound(n_bytes: float, flops: float, peak: float) -> dict:
+    """The larger of bytes over the memory rate and operations over the
+    peak rate of their type, in ms, and which of the two it was."""
+    by_bytes = n_bytes / H100_SXM_BYTES_PER_S * 1e3
+    by_ops = flops / peak * 1e3
+    return {
+        "bound_ms": max(by_bytes, by_ops),
+        "bound_by": "bytes" if by_bytes >= by_ops else "operations",
+        "bytes": n_bytes, "flops": flops,
+    }
+
+
+def band_pairs(lengths, heads: int, band: int) -> int:
+    """(query, key) pairs a causal band leaves visible: row i < n sees
+    min(i, band) + 1 keys."""
+    return heads * sum(
+        sum(min(i, band) + 1 for i in range(int(n))) for n in lengths
+    )
+
+
+def _attention_bound(q_side, k_side, n_products, b, h, tq, tk, d, itemsize, pairs):
+    """``q_side`` tensors of (B, H, Tq, D) and ``k_side`` of (B, H, Tk, D),
+    each moved once; ``n_products`` products over the (query, key) pairs.
+    The (B, H, Tq) f32 log-sum-exp, under 1 % of the bytes, is left out."""
+    pairs = b * h * tq * tk if pairs is None else pairs
+    peak = H100_SXM_BF16_PEAK if itemsize == 2 else H100_SXM_F32_PEAK
+    n_bytes = itemsize * b * h * d * (q_side * tq + k_side * tk)
+    return bound(n_bytes, n_products * 2.0 * pairs * d, peak)
+
+
+def attention_fwd_bound(b, h, tq, tk, d, itemsize=2, pairs=None) -> dict:
+    """K1, K6: q, k, v read and the output written once; the two products
+    Q K^T and W V over the (query, key) pairs (all of them, or ``pairs``
+    where a window leaves fewer). bf16 on the tensor cores, f32 on FMAs."""
+    return _attention_bound(2, 2, 2, b, h, tq, tk, d, itemsize, pairs)
+
+
+def attention_bwd_bound(b, h, tq, tk, d, itemsize=2, pairs=None) -> dict:
+    """K2: q, k, v, o, dO read and dq, dk, dv written once; the five
+    products S, dP, dV, dQ, dK."""
+    return _attention_bound(4, 4, 5, b, h, tq, tk, d, itemsize, pairs)
+
+
+def banded_attention_bwd_bound(b, h, t, d, itemsize=2, pairs=None) -> dict:
+    """K7: as K2 without the forward output, which it does not take: q, k,
+    v, dO read and dq, dk, dv written once."""
+    return _attention_bound(3, 4, 5, b, h, t, t, d, itemsize, pairs)
+
+
+def fbank_bound(b, n_samples, cfg=None) -> dict:
+    """K5: the waveform read, the log-mel written, f32; the operations the
+    function needs per frame, whatever the kernel does: the window, a real
+    FFT of n_fft points (2.5 n log2 n), the power of each bin, the non-zero
+    taps of the triangular mel filters, and the log."""
+    cfg = cfg or FeatureConfig()
+    frames = b * cfg.num_frames(n_samples)
+    n_bins = cfg.n_fft // 2 + 1
+    mel_taps = int(np.count_nonzero(mel_filterbank(cfg)))
+    per_frame = (cfg.win_length + 2.5 * cfg.n_fft * np.log2(cfg.n_fft) + 3.0 * n_bins
+                 + 2.0 * mel_taps + cfg.n_mels)
+    return bound(4.0 * (b * n_samples + frames * cfg.n_mels), float(frames * per_frame),
+                 H100_SXM_F32_PEAK)
+
+
+def ctc_alpha_bound(b, t, c, s, itemsize=2) -> dict:
+    """K3: the logits read; the (B, T, S) f32 alpha table, the (B, T) f32
+    log-sum-exp and the loss written; max, subtract, exp, add per logit and
+    the three-way log-add-exp per table cell, in f32."""
+    n_bytes = itemsize * b * t * c + 4.0 * (b * t * s + b * t + b)
+    return bound(n_bytes, 4.0 * b * t * c + 8.0 * b * t * s, H100_SXM_F32_PEAK)
+
+
+def ctc_beta_bound(b, t, c, s, itemsize=2) -> dict:
+    """K4: the logits, alpha, log-sum-exp and loss read; the gradient written
+    in the logits' type; softmax minus occupancy per logit, in f32."""
+    n_bytes = 2.0 * itemsize * b * t * c + 4.0 * (b * t * s + b * t + 2 * b)
+    return bound(n_bytes, 4.0 * b * t * c + 12.0 * b * t * s, H100_SXM_F32_PEAK)
+
+
+def _measured(shape, err, times: dict, limits: dict) -> dict:
+    """One shape's entry of the kernels' line: what was timed, beside the
+    bound computed from this run's inputs."""
+    return {
+        "shape": shape, "max_abs_err": err, "ms": times["kernel"],
+        "plain_ms": times["plain"], "bound_ms": limits["bound_ms"],
+        "bound_by": limits["bound_by"], "library_ms": times.get("library"),
+    }
+
+
+def _device_times(what, shape, device: dict, limits: dict) -> dict:
+    """Print and return the device times of the tensor-core kernel and of the
+    scalar-FMA design it replaced, launched back to back through their C
+    entry points, in turns."""
+    print(f"{what} {shape} bf16, device time of the entry point alone ({DEVICE_REPS} "
+          f"launches back to back, in turns, median of 10): tensor-core kernel "
+          f"{device['kernel']:.4f} ms ({limits['bound_ms'] / device['kernel'] * 100:.1f} % "
+          f"of the bound), scalar-FMA design {device['fma']:.4f} ms "
+          f"({device['fma'] / device['kernel']:.2f} x)")
+    return {"device_ms": device["kernel"], "fma_device_ms": device["fma"]}
+
+
+def _print_times(what, shape, times: dict, limits: dict) -> None:
+    parts = [f"{k} {v:.4f} ms" for k, v in times.items()]
+    print(f"{what} {shape}: " + ", ".join(parts) + f"; bound {limits['bound_ms']:.4f} ms "
+          f"by {limits['bound_by']} ({limits['bytes'] / 1e6:.1f} MB, "
+          f"{limits['flops'] / 1e9:.2f} GFLOP): kernel at "
+          f"{limits['bound_ms'] / times['kernel'] * 100:.1f} % of it (in turns, median of "
+          f"{2 * (N_TIMED // 2)})")
 
 
 def require(cond: bool, what: str) -> None:
@@ -217,7 +372,7 @@ def banded_window(value: str):
 def check_fbank(dev) -> dict:
     cfg = FeatureConfig()
     rng = np.random.RandomState(0)
-    worst, timing = 0.0, None
+    worst, timed = 0.0, {}
     for shape in ((8, 128000), (64, 128000), (3, 12345)):
         pcm = rng.randint(-32768, 32768, size=shape).astype(np.int16)
         wave = torch.from_numpy(pcm).to(dev).float() * (1.0 / 32768.0)
@@ -236,13 +391,15 @@ def check_fbank(dev) -> dict:
         require(max_abs <= 1e-3 and max_rel <= 1e-3, f"fbank {shape} disagrees")
         worst = max(worst, max_abs)
         if shape[1] == 128000:
-            k_ms = median_ms(lambda: log_mel_spectrogram_kernel(wave, cfg))
-            p_ms = median_ms(lambda: log_mel_spectrogram(wave, cfg))
-            print(f"fbank {shape} f32: kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms "
-                  f"(median of {N_TIMED})")
-            if timing is None:
-                timing = (k_ms, p_ms)
-    return {"max_abs_err": worst, "ms": timing[0], "plain_ms": timing[1]}
+            times = turns_ms({
+                "kernel": lambda: log_mel_spectrogram_kernel(wave, cfg),
+                "plain": lambda: log_mel_spectrogram(wave, cfg),
+            })
+            limits = fbank_bound(*shape, cfg)
+            _print_times("fbank f32", shape, times, limits)
+            timed[shape] = _measured(list(shape), max_abs, times, limits)
+    # no single PyTorch call computes framing + DFT + mel + log: no library time
+    return {**timed[64, 128000], "max_abs_err": worst, "other_shapes": [timed[8, 128000]]}
 
 
 # -- phase 4: attention --------------------------------------------------------
@@ -264,27 +421,131 @@ def _attn_inputs(b, h, tq, tk, d, dev, seed):
     return [x.to(dev) for x in (q, k, v, q_len, k_len)]
 
 
-# (name, batch, tq, tk, causal, band, rate): the serving encoder at batch 8,
-# the masks K1/K2 take, and the training encoder (batch 64, dropout 0.1)
+# (name, batch, tq, tk, causal, band, rate, head dim): the serving encoder at
+# batch 8, the masks K1/K2 take, the training encoder (batch 64, dropout
+# 0.1), the edges a 64-row tile gets wrong first, and a causal band whose keys
+# end ``band`` before the queries do (``short_keys``: the last row still sees
+# one key, and the tile ranges skip on both sides)
 ATTENTION_CASES = [
-    ("encoder-8s", 8, 267, 267, False, 0, 0.0),
-    ("encoder-15s", 8, 501, 501, False, 0, 0.0),
-    ("causal", 8, 267, 267, True, 0, 0.0),
-    ("band50", 8, 267, 267, False, 50, 0.0),
-    ("causal-band50", 8, 267, 267, True, 50, 0.0),
-    ("rectangular", 8, 21, 267, False, 0, 0.0),
-    ("dropout0.1", 8, 267, 267, False, 0, 0.1),
-    ("train-dropout0.1", 64, 267, 267, False, 0, 0.1),
+    ("encoder-8s", 8, 267, 267, False, 0, 0.0, 64),
+    ("encoder-15s", 8, 501, 501, False, 0, 0.0, 64),
+    ("causal", 8, 267, 267, True, 0, 0.0, 64),
+    ("band50", 8, 267, 267, False, 50, 0.0, 64),
+    ("causal-band50", 8, 267, 267, True, 50, 0.0, 64),
+    ("rectangular", 8, 21, 267, False, 0, 0.0, 64),
+    ("dropout0.1", 8, 267, 267, False, 0, 0.1, 64),
+    ("train-dropout0.1", 64, 267, 267, False, 0, 0.1, 64),
+    ("head-dim-32", 8, 267, 267, False, 0, 0.1, 32),
+    ("single-query", 8, 1, 267, False, 0, 0.0, 64),
+    ("causal-band50-short-keys", 8, 267, 267, True, 50, 0.0, 64),
 ]
-TIMED_ATTENTION = ("encoder-8s", "encoder-15s", "train-dropout0.1")
+# timed: the training shape first (the kernels' line reports it), then the
+# serving shapes
+TIMED_ATTENTION = ("train-dropout0.1", "encoder-8s", "encoder-15s")
+HEADS = 8
+
+
+def _attention_fwd_entry(symbol, q, k, v, q_len, k_len, seed, scale, rate, causal, band):
+    """A closure that launches the C entry point ``symbol`` (``asr_attention_fwd``,
+    or ``asr_attention_fwd_fma``: the scalar-FMA build of the bf16 kernel, what
+    K1 was before the tensor-core design) into buffers made once, which it
+    carries as ``launch.out`` and ``launch.lse``. For timing only: no
+    counter, no input checks, no allocation."""
+    fn = getattr(_build.load_library(), symbol)
+    out = torch.empty_like(q)
+    lse = torch.empty(q.shape[:3], dtype=torch.float32, device=q.device)
+    argv = (
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), q_len.data_ptr(), k_len.data_ptr(),
+        out.data_ptr(), lse.data_ptr(),
+        *q.shape[:3], k.shape[2], q.shape[3], int(q.dtype == torch.bfloat16),
+        float(scale), *fa._dropout_args(seed, rate), int(causal), int(band),
+    )
+
+    def launch():
+        _build.check(fn(*argv, torch.cuda.current_stream().cuda_stream), symbol)
+
+    # the pointers in argv stay valid as long as the closure lives
+    launch.inputs, launch.out, launch.lse = (q, k, v, q_len, k_len), out, lse
+    return launch
+
+
+def _attention_bwd_entry(symbol, q, k, v, out, lse, q_len, k_len, seed, scale, rate,
+                         causal, band, g):
+    """The same for ``asr_attention_bwd`` / ``asr_attention_bwd_fma``."""
+    fn = getattr(_build.load_library(), symbol)
+    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+    delta = torch.empty(q.shape[:3], dtype=torch.float32, device=q.device)
+    argv = (
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), g.data_ptr(),
+        lse.data_ptr(), q_len.data_ptr(), k_len.data_ptr(), delta.data_ptr(),
+        dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+        *q.shape[:3], k.shape[2], q.shape[3], int(q.dtype == torch.bfloat16),
+        float(scale), *fa._dropout_args(seed, rate), int(causal), int(band),
+    )
+
+    def launch():
+        _build.check(fn(*argv, torch.cuda.current_stream().cuda_stream), symbol)
+
+    launch.buffers = (q, k, v, out, lse, q_len, k_len, g, dq, dk, dv, delta)
+    return launch
+
+
+DEVICE_REPS = 20  # back-to-back launches per sample of a device time
+
+
+def _sdpa_mask(q_len, k_len, tq, tk, causal, band):
+    """Bool mask (True: take part) for ``F.scaled_dot_product_attention``
+    with the kernels' key visibility: (B, 1, 1, Tk) key padding, or (B, 1,
+    Tq, Tk) with the causal / band window."""
+    dev = k_len.device
+    kpos = torch.arange(tk, device=dev)[None, None, None, :]
+    mask = kpos < k_len[:, None, None, None]
+    qpos = torch.arange(tq, device=dev)[None, None, :, None]
+    if causal:
+        mask = mask & (kpos <= qpos)
+        if band > 0:
+            mask = mask & (qpos - kpos <= band)
+    elif band > 0:
+        mask = mask & ((qpos - kpos).abs() <= band)
+    return mask
+
+
+def _sdpa_library(q, k, v, mask, scale, g):
+    """(forward, forward + backward) closures of the one PyTorch call that
+    computes the kernels' function at dropout 0 (padded query rows not
+    zeroed, no hash dropout). The yardstick ``library_ms``: timed here and
+    called nowhere in the package."""
+    leaves = [x.detach().clone().requires_grad_(True) for x in (q, k, v)]
+
+    def forward():
+        return F.scaled_dot_product_attention(*leaves, attn_mask=mask, scale=scale)
+
+    def forward_backward():
+        torch.autograd.grad(forward(), leaves, g)
+
+    return forward, forward_backward
+
+
+def short_keys(q_len, band):
+    """Key lengths ``band`` under the query lengths, where that leaves more
+    keys than the band is wide (else the last key gathers every row, and the
+    bf16 rounding of so large a gradient alone passes the absolute bound)."""
+    return torch.where(q_len > 2 * band, q_len - band, q_len)
+
+
+def _attn_case(i, case, dev, seed0):
+    name, b, tq, tk, causal, band, rate, d = case
+    q, k, v, q_len, k_len = _attn_inputs(b, HEADS, tq, tk, d, dev, seed=seed0 + i)
+    if name.endswith("short-keys"):
+        k_len = short_keys(q_len, band)
+    return q, k, v, q_len, k_len, d ** -0.5
 
 
 def check_attention(dev) -> dict:
-    h, d = 8, 64
-    scale = 1.0 / 8.0
-    worst, slice_timing = 0.0, None
-    for i, (name, b, tq, tk, causal, band, rate) in enumerate(ATTENTION_CASES):
-        q, k, v, q_len, k_len = _attn_inputs(b, h, tq, tk, d, dev, seed=i)
+    worst, timed = 0.0, {}
+    for i, case in enumerate(ATTENTION_CASES):
+        name, b, tq, tk, causal, band, rate, d = case
+        q, k, v, q_len, k_len, scale = _attn_case(i, case, dev, 0)
         args = (q_len, k_len, 1234, scale, rate, causal, band)
         got32 = fa.fused_attention_general(q, k, v, *args)
         want32 = fa.attention_reference(q, k, v, *args)
@@ -294,32 +555,72 @@ def check_attention(dev) -> dict:
         torch.cuda.synchronize()
         err32 = (got32 - want32).abs().max().item()
         err16 = (got16.float() - want16).abs().max().item()
-        print(f"attention {name} ({b},8,{tq},{tk},64): f32 max_abs={err32:.3e} "
-              f"bf16 max_abs={err16:.3e}")
+        shape = [b, HEADS, tq, tk, d]
+        print(f"attention {name} {shape}: f32 max_abs={err32:.3e} bf16 max_abs={err16:.3e}")
         require(err32 <= 1e-4, f"attention {name} f32 disagrees")
-        require(err16 <= 2e-2, f"attention {name} bf16 disagrees")
+        require(err16 <= 2e-2 and bool(torch.isfinite(got16).all()),
+                f"attention {name} bf16 disagrees")
         worst = max(worst, err16)
         if name in TIMED_ATTENTION:
-            k_ms = median_ms(lambda: fa._launch(qb, kb, vb, *args))
-            p_ms = median_ms(lambda: fa.attention_reference(qb, kb, vb, *args))
-            print(f"attention {name} bf16: kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms "
-                  f"(median of {N_TIMED})")
-            if slice_timing is None:
-                slice_timing = (k_ms, p_ms)
-    return {"max_abs_err": worst, "ms": slice_timing[0], "plain_ms": slice_timing[1]}
+            mask = _sdpa_mask(q_len, k_len, tq, tk, causal, band)
+            library, _ = _sdpa_library(qb, kb, vb, mask, scale, None)
+            with torch.no_grad():
+                times = turns_ms({
+                    "kernel": lambda: fa._launch(qb, kb, vb, *args),
+                    "library": library,
+                    "plain": lambda: fa.attention_reference(qb, kb, vb, *args),
+                })
+            device = turns_ms({
+                "fma": _attention_fwd_entry("asr_attention_fwd_fma", qb, kb, vb, *args),
+                "kernel": _attention_fwd_entry("asr_attention_fwd", qb, kb, vb, *args),
+            }, n=5, reps=DEVICE_REPS)
+            limits = attention_fwd_bound(b, HEADS, tq, tk, d)
+            _print_times(f"attention {name} bf16 (library: SDPA, dropout 0)",
+                         shape, times, limits)
+            timed[name] = {**_measured(shape, err16, times, limits), **_device_times(
+                f"attention {name}", shape, device, limits)}
+    first, *others = (timed[n] for n in TIMED_ATTENTION)
+    return {**first, "max_abs_err": worst, "other_shapes": others}
 
 
 # -- phase 5: attention backward ----------------------------------------------
 
 
+def _check_keyless_rows(dev) -> None:
+    """Query rows more than the band past the key length see no key: K1
+    gives them the mean of all Tk values, as the plain version does; K2,
+    which recomputes the weights from the row log-sum-exp, must refuse."""
+    q, k, v, q_len, _ = _attn_inputs(4, HEADS, 267, 267, 64, dev, seed=40)
+    k_len = torch.tensor([267, 100, 30, 1], dtype=torch.int32, device=dev)
+    q_len = torch.full_like(k_len, 267)
+    args = (q_len, k_len, 5, 0.125, 0.1, True, 20)
+    errs = []
+    for dtype, limit in ((torch.float32, 1e-4), (torch.bfloat16, 2e-2)):
+        leaves = [x.to(dtype).requires_grad_(True) for x in (q, k, v)]
+        out = fa.fused_attention_general(*leaves, *args)
+        want = fa.attention_reference(*(x.detach().float() for x in leaves), *args)
+        errs.append((out.float() - want).abs().max().item())
+        require(errs[-1] <= limit, f"attention with keyless rows, {dtype}: {errs[-1]:.3e}")
+        before = fa.attention_backward_kernel.launches
+        try:
+            out.backward(torch.ones_like(out))
+        except ValueError as e:
+            require("sees no key" in str(e), f"attention bwd with keyless rows: {e}")
+        else:
+            raise AssertionError("attention bwd with keyless rows did not refuse")
+        require(fa.attention_backward_kernel.launches == before, "K2 launched all the same")
+    print("attention with keyless rows (4,8,267,267,64) causal band 20, k_len "
+          f"[267,100,30,1]: K1 f32 max_abs={errs[0]:.3e} bf16 max_abs={errs[1]:.3e}, "
+          "K2 refuses")
+
+
 def check_attention_bwd(dev) -> dict:
     """K2 through the autograd Function (K1 forward saving the row
     log-sum-exp, K2 backward) vs the plain backward on the same inputs."""
-    h, d = 8, 64
-    scale = 1.0 / 8.0
-    worst, slice_timing = 0.0, None
-    for i, (name, b, tq, tk, causal, band, rate) in enumerate(ATTENTION_CASES):
-        q, k, v, q_len, k_len = _attn_inputs(b, h, tq, tk, d, dev, seed=10 + i)
+    worst, timed = 0.0, {}
+    for i, case in enumerate(ATTENTION_CASES):
+        name, b, tq, tk, causal, band, rate, d = case
+        q, k, v, q_len, k_len, scale = _attn_case(i, case, dev, 10)
         g = torch.randn(q.shape, generator=torch.Generator().manual_seed(i)).to(dev)
         args = (q_len, k_len, 777, scale, rate, causal, band)
         errs = {}
@@ -332,9 +633,11 @@ def check_attention_bwd(dev) -> dict:
             )
             torch.cuda.synchronize()
             got = [x.grad for x in leaves]
-            require(all(x.dtype == dtype for x in got), f"attention bwd {name}: dtype")
+            require(all(x.dtype == dtype and bool(torch.isfinite(x).all()) for x in got),
+                    f"attention bwd {name}: dtype or non-finite")
             errs[dtype] = max((a.float() - w).abs().max().item() for a, w in zip(got, want))
-        print(f"attention bwd {name} ({b},8,{tq},{tk},64): f32 max_abs="
+        shape = [b, HEADS, tq, tk, d]
+        print(f"attention bwd {name} {shape}: f32 max_abs="
               f"{errs[torch.float32]:.3e} bf16 max_abs={errs[torch.bfloat16]:.3e}")
         require(errs[torch.float32] <= 1e-4, f"attention bwd {name} f32 disagrees")
         require(errs[torch.bfloat16] <= 2e-2, f"attention bwd {name} bf16 disagrees")
@@ -343,15 +646,30 @@ def check_attention_bwd(dev) -> dict:
             qb, kb, vb, gb = (x.to(torch.bfloat16) for x in (q, k, v, g))
             lse = torch.empty(qb.shape[:3], dtype=torch.float32, device=dev)
             out = fa._launch(qb, kb, vb, q_len, k_len, 777, scale, rate, causal, band, lse)
-            k_ms = median_ms(lambda: fa.attention_backward_kernel(
-                qb, kb, vb, out, lse, *args, gb))
-            p_ms = median_ms(lambda: fa.attention_backward_reference(
-                qb, kb, vb, *args, gb))
-            print(f"attention bwd {name} bf16: kernel {k_ms:.4f} ms, plain "
-                  f"{p_ms:.4f} ms (median of {N_TIMED})")
-            if slice_timing is None:
-                slice_timing = (k_ms, p_ms)
-    return {"max_abs_err": worst, "ms": slice_timing[0], "plain_ms": slice_timing[1]}
+            mask = _sdpa_mask(q_len, k_len, tq, tk, causal, band)
+            lib_fwd, lib_both = _sdpa_library(qb, kb, vb, mask, scale, gb)
+            times = turns_ms({
+                "kernel": lambda: fa.attention_backward_kernel(
+                    qb, kb, vb, out, lse, *args, gb),
+                "library forward": lib_fwd,
+                "library forward+backward": lib_both,
+                "plain": lambda: fa.attention_backward_reference(qb, kb, vb, *args, gb),
+            })
+            times["library"] = times["library forward+backward"] - times["library forward"]
+            device = turns_ms({
+                "fma": _attention_bwd_entry(
+                    "asr_attention_bwd_fma", qb, kb, vb, out, lse, *args, gb),
+                "kernel": _attention_bwd_entry(
+                    "asr_attention_bwd", qb, kb, vb, out, lse, *args, gb),
+            }, n=5, reps=DEVICE_REPS)
+            limits = attention_bwd_bound(b, HEADS, tq, tk, d)
+            _print_times(f"attention bwd {name} bf16 (library: SDPA forward+backward "
+                         f"minus forward, dropout 0)", shape, times, limits)
+            timed[name] = {**_measured(shape, errs[torch.bfloat16], times, limits),
+                           **_device_times(f"attention bwd {name}", shape, device, limits)}
+    _check_keyless_rows(dev)
+    first, *others = (timed[n] for n in TIMED_ATTENTION)
+    return {**first, "max_abs_err": worst, "other_shapes": others}
 
 
 # -- phase 6: windowed causal-band attention (K6 / K7) --------------------------
@@ -432,25 +750,36 @@ def check_banded(dev) -> tuple[dict, dict]:
     lse1 = torch.empty(q.shape[:3], dtype=torch.float32, device=dev)
     fa.banded_attention_kernel(qb, kb, vb, n, 7, scale, 0.1, 50, lse6)
     out1 = fa._launch(qb, kb, vb, n, n, 7, scale, 0.1, True, 50, lse1)
-    t = {
-        "K6": median_ms(lambda: fa.banded_attention_kernel(qb, kb, vb, n, 7, scale, 0.1, 50)),
-        "K6 plain": median_ms(lambda: fa.banded_attention_reference(
-            qb, kb, vb, n, 7, scale, 0.1, 50)),
-        "K1 (causal band 50)": median_ms(lambda: fa._launch(
-            qb, kb, vb, n, n, 7, scale, 0.1, True, 50)),
-        "K7": median_ms(lambda: fa.banded_attention_backward_kernel(
-            qb, kb, vb, lse6, n, 7, scale, 0.1, 50, gb)),
-        "K7 plain": median_ms(lambda: fa.banded_attention_backward_reference(
-            qb, kb, vb, n, 7, scale, 0.1, 50, gb)),
-        "K2 (causal band 50)": median_ms(lambda: fa.attention_backward_kernel(
-            qb, kb, vb, out1, lse1, n, n, 7, scale, 0.1, True, 50, gb)),
-    }
-    print("banded times, bf16 (64,8,267,64) band 50 dropout 0.1, median of "
-          f"{N_TIMED}: " + ", ".join(f"{k} {v:.4f} ms" for k, v in t.items()))
-    return (
-        {"max_abs_err": worst["fwd"], "ms": t["K6"], "plain_ms": t["K6 plain"]},
-        {"max_abs_err": worst["bwd"], "ms": t["K7"], "plain_ms": t["K7 plain"]},
-    )
+    mask = _sdpa_mask(n, n, 267, 267, True, 50)
+    lib_fwd, lib_both = _sdpa_library(qb, kb, vb, mask, scale, gb)
+    with torch.no_grad():
+        fwd = turns_ms({
+            "kernel": lambda: fa.banded_attention_kernel(qb, kb, vb, n, 7, scale, 0.1, 50),
+            "K1 (causal band 50)": lambda: fa._launch(
+                qb, kb, vb, n, n, 7, scale, 0.1, True, 50),
+            "library": lib_fwd,
+            "plain": lambda: fa.banded_attention_reference(qb, kb, vb, n, 7, scale, 0.1, 50),
+        })
+    bwd = turns_ms({
+        "kernel": lambda: fa.banded_attention_backward_kernel(
+            qb, kb, vb, lse6, n, 7, scale, 0.1, 50, gb),
+        "K2 (causal band 50)": lambda: fa.attention_backward_kernel(
+            qb, kb, vb, out1, lse1, n, n, 7, scale, 0.1, True, 50, gb),
+        "library forward": lib_fwd,
+        "library forward+backward": lib_both,
+        "plain": lambda: fa.banded_attention_backward_reference(
+            qb, kb, vb, n, 7, scale, 0.1, 50, gb),
+    })
+    bwd["library"] = bwd["library forward+backward"] - bwd["library forward"]
+    shape = [64, HEADS, 267, 267, 64]
+    pairs = band_pairs(n.tolist(), HEADS, 50)
+    limits = (attention_fwd_bound(64, HEADS, 267, 267, 64, pairs=pairs),
+              banded_attention_bwd_bound(64, HEADS, 267, 64, pairs=pairs))
+    what = "bf16 band 50 dropout 0.1 (library: SDPA with the causal-band mask, dropout 0)"
+    _print_times(f"banded K6 {what}", shape, fwd, limits[0])
+    _print_times(f"banded K7 {what}", shape, bwd, limits[1])
+    return (_measured(shape, worst["fwd"], fwd, limits[0]),
+            _measured(shape, worst["bwd"], bwd, limits[1]))
 
 
 # -- phase 7: CTC alpha / beta -------------------------------------------------
@@ -503,25 +832,40 @@ def check_ctc(dev) -> tuple[dict, dict]:
         if dtype == torch.bfloat16:
             ext_i, lens_i, lab_i = ctc._check_kernel_inputs(logits, ext, lens, lab_lens)
             k_loss, k_alpha, k_lse = ctc.ctc_alpha_kernel(logits, ext_i, lens_i, lab_i)
-            timing["alpha"] = (
-                median_ms(lambda: ctc.ctc_alpha_kernel(logits, ext_i, lens_i, lab_i)),
-                median_ms(lambda: ctc.ctc_alpha_reference(logits, ext, lens, lab_lens),
-                          n=5, warmup=1),
-            )
-            timing["beta"] = (
-                median_ms(lambda: ctc.ctc_beta_kernel(
-                    logits, ext_i, lens_i, lab_i, k_lse, k_alpha, k_loss, g)),
-                median_ms(lambda: ctc.ctc_beta_reference(
-                    logits, ext, lens, lab_lens, lse, alpha, want_loss, g),
-                    n=5, warmup=1),
-            )
+            leaf = logits.detach().clone().requires_grad_(True)
+            targets, in_lens, tgt_lens = labels.long(), lens.long(), lab_lens.long()
+
+            def lib_fwd():
+                # the library's pair for the same function: log-softmax, then
+                # the alpha recursion (its backward: beta and the gradient)
+                logp = F.log_softmax(leaf, -1, dtype=torch.float32).transpose(0, 1)
+                return F.ctc_loss(logp, targets, in_lens, tgt_lens, blank=0,
+                                  reduction="none", zero_infinity=False)
+
+            timing["alpha"] = turns_ms({
+                "kernel": lambda: ctc.ctc_alpha_kernel(logits, ext_i, lens_i, lab_i),
+                "library": lib_fwd,
+            })
+            timing["beta"] = turns_ms({
+                "kernel": lambda: ctc.ctc_beta_kernel(
+                    logits, ext_i, lens_i, lab_i, k_lse, k_alpha, k_loss, g),
+                "library forward": lib_fwd,
+                "library forward+backward": lambda: torch.autograd.grad(lib_fwd(), leaf, g),
+            })
+            timing["beta"]["library"] = (timing["beta"]["library forward+backward"]
+                                         - timing["beta"]["library forward"])
+            timing["alpha"]["plain"] = median_ms(
+                lambda: ctc.ctc_alpha_reference(logits, ext, lens, lab_lens), n=5, warmup=1)
+            timing["beta"]["plain"] = median_ms(
+                lambda: ctc.ctc_beta_reference(
+                    logits, ext, lens, lab_lens, lse, alpha, want_loss, g), n=5, warmup=1)
+            shape = list(logits.shape)
+            dims = (*shape, ext.shape[1])
+            limits = {"alpha": ctc_alpha_bound(*dims), "beta": ctc_beta_bound(*dims)}
             for part in ("alpha", "beta"):
-                print(f"ctc {part} bf16 (64,267,4233): kernel {timing[part][0]:.4f} ms, "
-                      f"plain {timing[part][1]:.4f} ms")
-    return tuple(
-        {"max_abs_err": worst[p], "ms": timing[p][0], "plain_ms": timing[p][1]}
-        for p in ("alpha", "beta")
-    )
+                _print_times(f"ctc {part} bf16 (library: F.log_softmax + F.ctc_loss; plain: "
+                             f"median of 5)", shape, timing[part], limits[part])
+    return tuple(_measured(shape, worst[p], timing[p], limits[p]) for p in ("alpha", "beta"))
 
 
 # -- phase 8: the serving path -------------------------------------------------
@@ -611,7 +955,7 @@ def run_serving_path(dev) -> dict:
           f"load; audio-s/s {tm['audio_s'] / (tm['encode_s'] + tm['search_s']):.3f} "
           f"(encode+search), {tm['audio_s'] / wall:.3f} (wall)")
     print(f"launches in the recognize run: {counts}")
-    return counts
+    return counts, n
 
 
 # -- phase 9: the training path ------------------------------------------------
@@ -1009,6 +1353,7 @@ def measure_training_throughput(dev, n_warmup=3, n_timed=20) -> dict:
     require(counts["fused_attention_bwd"] == 6 * n_timed and counts["ctc_beta"] == n_timed,
             f"throughput loop launches {counts}")
     out = {
+        "launches_per_step": {k: v / n_timed for k, v in counts.items()},
         "ms_per_step": step_s * 1e3,
         "steps_per_s": 1.0 / step_s,
         "audio_s_per_s": bsz * seconds / step_s,
@@ -1059,9 +1404,11 @@ def streaming_train_setup(dev) -> tuple:
     return train_step, init_fn(), batch
 
 
-def measure_streaming_throughput(dev, n_warmup=3, n_timed=20) -> None:
+def measure_streaming_throughput(dev, n_warmup=3, n_timed=20) -> dict:
     """The streaming recipe's step on one fixed batch of 64 x 8 s with the
-    window on (K6/K7) and off (K1/K2), back to back in this process."""
+    window on (K6/K7) and off (K1/K2), back to back in this process;
+    returns the launches per step of the windowed route."""
+    per_step = {}
     for window in ("1", "0"):
         train_step, state, batch = streaming_train_setup(dev)
         with banded_window(window):
@@ -1085,8 +1432,11 @@ def measure_streaming_throughput(dev, n_warmup=3, n_timed=20) -> None:
               f"steps after {n_warmup} warm-up: {step_s * 1e3:.3f} ms/step, "
               f"{1.0 / step_s:.4f} steps/s, {THROUGHPUT_BATCH * THROUGHPUT_SECONDS / step_s:.1f} "
               f"audio-s/s, final loss {float(m['loss']):.4f}")
+        if window == "1":
+            per_step = {k: v / n_timed for k, v in counts.items()}
         del train_step, state
         torch.cuda.empty_cache()
+    return per_step
 
 
 def main() -> None:
@@ -1110,13 +1460,13 @@ def main() -> None:
     attn_bwd = check_attention_bwd(dev)
     banded_fwd, banded_bwd = check_banded(dev)
     ctc_alpha, ctc_beta = check_ctc(dev)
-    serve = run_serving_path(dev)
+    serve, serve_batches = run_serving_path(dev)
     trained, corpus = run_training_path(dev)
     check_step_against_cpu(corpus, dev)
     stream_trained, stream_exp = run_streaming_training(corpus)
     stream_served = run_streaming_serving(stream_exp, corpus["vocab"], dev)
-    measure_training_throughput(dev)
-    measure_streaming_throughput(dev)
+    flagship_step = measure_training_throughput(dev)["launches_per_step"]
+    streaming_step = measure_streaming_throughput(dev)
 
     # launches: the main paths' runs, each counted from 0
     launches = {
@@ -1139,7 +1489,12 @@ def main() -> None:
     kernels = [
         {"name": name, "route": "cuda",
          "source": f"asr_chinese_e2e_tpu_torch/ops/csrc/{src}", "replaces": rep,
-         "launches": launches[name], **measured}
+         "launches": launches[name],
+         "launches_per_step": {
+             "flagship_train_step": flagship_step[name],
+             "streaming_train_step": streaming_step[name],
+             "serving_batch": serve[name] / serve_batches,
+         }, **measured}
         for name, (src, rep, measured) in sources.items()
     ]
     print(json.dumps({"kernels": kernels}))

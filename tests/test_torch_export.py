@@ -69,7 +69,7 @@ def test_export_then_load_encodes_like_jax(tmp_path, monkeypatch, capsys):
     written = capsys.readouterr().out.strip().splitlines()[-1]
     assert written == os.path.join(exp, "torch_checkpoints", "best.pt")
 
-    model, cfg, tfeat_cfg, voc = load_experiment(exp, vocab_path, "best")
+    model, cfg, tfeat_cfg, voc = load_experiment(exp, vocab_path, "best", device="cpu")
     assert voc.fingerprint() == JaxVocab.load(vocab_path).fingerprint()
     assert tfeat_cfg.n_mels == 20 and cfg.d_model == 32
 
@@ -92,6 +92,6 @@ def test_load_rejects_other_vocab(tmp_path):
     other_path = tmp_path / "other_vocab.json"
     other_path.write_text(json.dumps(other, ensure_ascii=False))
     with pytest.raises(ValueError, match="fingerprint"):
-        load_experiment(exp, str(other_path), "latest")
+        load_experiment(exp, str(other_path), "latest", device="cpu")
     with pytest.raises(FileNotFoundError):
-        load_experiment(exp, vocab_path, "e9_s9")
+        load_experiment(exp, vocab_path, "e9_s9", device="cpu")

@@ -181,7 +181,11 @@ def _imported_modules(path: Path):
             yield node.module
 
 
-CARD_SCRIPTS = [REPO / "chip_smoke.py", REPO / "scripts" / "profile_torch_train.py"]
+CARD_SCRIPTS = [
+    REPO / "chip_smoke.py",
+    REPO / "scripts" / "profile_torch_train.py",
+    REPO / "scripts" / "profile_torch_attention.py",
+]
 
 
 @pytest.mark.parametrize(
