@@ -37,11 +37,11 @@ _U = ctypes.c_uint
 SIGNATURES = {
     "asr_fbank": [_P, _I, _I, _I, _P, _P, _P, _P, _I, _I, _I, _I, _P],
     "asr_attention_fwd": [
-        _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _U, _U, _F,
+        _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _U, _U, _F,
         _I, _I, _I, _P,
     ],
     "asr_attention_bwd": [
-        _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+        _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
         _I, _F, _U, _U, _F, _I, _I, _I, _P,
     ],
     "asr_banded_attention_fwd": [
@@ -56,10 +56,6 @@ SIGNATURES = {
         _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P,
     ],
 }
-# the scalar-FMA build of the bf16 attention kernels, which the package never
-# calls: same arguments as the entry points they were, for side-by-side timing
-SIGNATURES["asr_attention_fwd_fma"] = SIGNATURES["asr_attention_fwd"]
-SIGNATURES["asr_attention_bwd_fma"] = SIGNATURES["asr_attention_bwd"]
 
 
 def _sources() -> list[Path]:

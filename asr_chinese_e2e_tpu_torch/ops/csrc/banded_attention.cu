@@ -13,43 +13,78 @@
 // exactly the weights the full-tile kernels (K1/K2) drop.
 //
 // What bounds it on the H100: at the streaming model's training shape
-// (B=64, H=8, T<=267, D=64, w=50) a query row has at most w+1 visible keys
-// of T, so the windowed kernels do about (w + 64) / T of the full tile's
-// score work. Like K1/K2 this first version runs on plain f32 FMAs, one
-// shared-memory load per FMA; mma/wgmma and TMA are later work.
+// (B=64, H=8, T<=267, D=64, w=50, bf16) K6 moves 70.0 MB (20.9 us at 3.35
+// TB/s) and K7, which reads no forward output, 122.5 MB (36.6 us); the
+// products over the visible pairs are 1.56 and 3.9 GFLOP, a few us on the
+// bf16 tensor cores but 23 and 58 us on f32 FMAs. So bytes bound both only
+// if the products run on the tensor cores, and what is then left per
+// visible element (mask, ex2, hash, hi/lo split) decides the time, as in
+// K1/K2: the design visits as few elements as the band allows.
 //
-// Design. Every kernel owns 64 rows per block with 4 threads per row (256
-// threads), and stages 32-row tiles of the other side in shared memory, as
-// K1/K2 do; shared memory does not grow with the band. A 64-row query tile
-// lies inside one query block c (BQ is a multiple of 64), and the kernel
-// computes its key range in place: the window of block c cut to [0, n) and
-// to the band of the tile's rows, [r0 - w, r0 + 64). Key tiles outside it
-// hold only masked weights, which are exactly 0, so skipping them is exact.
-//  K6: two passes over the key range. Pass 1 takes each row's max and sum
-//   of exp (online, over 32-key tiles; masked keys get -1e9 added, as the
-//   TPU kernel does). Pass 2 recomputes the scores, forms the normalised
-//   weight, applies the keep mask and accumulates (W o M) V in f32. The TPU
-//   kernel rounds W o M to the value type first, because its matrix unit
-//   takes bf16 operands; on f32 FMAs that rounding saves nothing, and with
-//   it the bf16 output was 2.08e-2 off the f32 plain version at the
-//   streaming training shape with dropout 0.1 on the H100. It writes the
-//   row log-sum-exp for K7 when asked.
-//  K7: the TPU kernel writes dK/dV for blocks c-1 and c per query block and
-//   the host shift-adds four (B, H, T, D) arrays. Here each gradient is
-//   written once, with no atomics, deterministically:
-//   1. a dQ pass per 64-query tile over its key range. With dP = dO V^T and
-//      dS = W o (dP o M - D), D_i = rowsum(dP o M o W), it accumulates
-//      sum_j W M dP K_j, sum_j W K_j and D_i in one sweep and writes
-//      dQ = scale (first - D_i second), and D_i for pass 2. D_i comes from
-//      the f32 weights, not from dO . O as in K2: in the bf16 path O is
-//      rounded to bf16, and that rounding put dK about 1e-2 off the f32
-//      plain version at the streaming training shape on the H100;
-//   2. a dK/dV pass per 64-key tile over the query rows that can see it:
-//      query blocks c and c+1 of its key block c, cut to [0, n) and to the
-//      band [j0, j0 + 64 + w).
-//   Scores are recomputed from Q, K and K6's log-sum-exp; padded query rows
-//   (qg >= n) are skipped. dS and W o M stay f32 in the bf16 path, as in
-//   K2 and for the reason of K6's pass 2.
+// bf16 inputs (banded_fwd_mma_kernel, banded_bwd_dq_mma_kernel,
+// banded_bwd_dkdv_mma_kernel): mma.sync.m16n8k16 with the building blocks
+// of mma.cuh, one block of 4 warps per (b, h, 64 owned rows), a warp owning
+// 16 rows, its operands read once from device memory straight into A
+// fragments. What the window gives and K1/K2 cannot assume:
+//  - The other side of a 64-row tile is small: keys [r0 - w, r0 + 64) for
+//    query rows [r0, r0 + 64), query rows [j0, j0 + 64 + w) for keys [j0,
+//    j0 + 64): 64 (ceil(w / 64) + 1) rows, two 64-row tiles for w <= 64.
+//    All of them are requested by cp.async up front and stay resident in
+//    (dynamic) shared memory: no ring, no second staging, one
+//    __syncthreads before the arithmetic. Up to 12 tiles fit (w <= 704, or
+//    any band when T <= 768); the entry point refuses more.
+//  - A warp's 16 rows [rw, rw + 15] see keys [rw - w, rw + 15] only:
+//    ceil(w / 16) + 1 groups of 16 keys, 5 of the tile pair's 8 at w = 50
+//    for every warp (and 16 keys [jw, jw + 15] are seen by the query
+//    groups of [jw, jw + 15 + w]). The other groups are skipped
+//    warp-uniformly: no mma, no mask, no ex2, no hash, no split for them.
+//    Blocks and warps wholly past the length n write zeros and stop.
+//  - In K6 and in K7's dQ pass a warp holds CHUNK = 5 groups of scores in
+//    accumulators at once (40 f32 per thread and product). For w <= 64
+//    that is the whole visible row: K6 takes the exact row max and one ex2
+//    per element, and its online (max, sum) update runs once, from the
+//    empty state; the dQ pass has D_i = rowsum(dP o M o W) before it forms
+//    dS, and needs the one product dQ += dS K. Wider bands (w > 64, BQ >=
+//    128) take the same code with a loop over chunks: K6 carries the
+//    online update from chunk to chunk, and the dQ pass sweeps its chunks
+//    twice, first for D_i. The dK/dV pass sums along no row and takes one
+//    group at a time: 162 registers for three blocks per SM, where five
+//    groups took 238 for two (and 67 us against 56 at the training shape).
+//  - No row below n is without a key on this route (row i sees key i), so
+//    a masked score is not biased by -1e9 but takes no part: -inf in K6
+//    (rows at or past n end with an empty sum and give zeros), weight 0 in
+//    K7, which needs no refusal like K2's. Scores are kept in units of
+//    log 2 and a weight is ex2 of a plain difference.
+//  K6 feeds W o M to the PV product as hi + lo bf16 fragments from the
+//  accumulators (exact to 2^-17); the TPU kernel rounds W o M to bf16
+//  first, which on this card measured 2.08e-2 against the 2e-2 bound. It
+//  writes the row log-sum-exp for K7 when asked.
+//  K7 writes each gradient once, with no atomics and no shift-add (the TPU
+//  kernel writes dK/dV for blocks c-1 and c per query block and the host
+//  adds four (B, H, T, D) arrays):
+//   1. the dQ pass per 64-query tile: S = Q K^T and dP = dO V^T on the
+//      visible groups, W from K6's log-sum-exp, D_i from the f32 weights
+//      (not dO . O as in K2: the bf16 rounding of O put dK 2.41e-2 off the
+//      f32 plain version), dS = W o (dP o M - D) as hi + lo fragments into
+//      dQ += dS K; D_i is written for pass 2;
+//   2. the dK/dV pass per 64-key tile on transposed tiles: S^T = K Q^T and
+//      dP^T = V dO^T with the owned keys' K and V as A fragments, so that
+//      (W o M)^T and dS^T are the A fragments of dV += (W o M)^T dO and
+//      dK += dS^T Q.
+//  The dropout switch is a template parameter: the streaming recipe trains
+//  with dropout 0 and pays nothing for the hash.
+//
+// f32 inputs (banded_fwd_kernel, banded_bwd_dq_kernel,
+// banded_bwd_dkdv_kernel, instantiated for float only; the 1e-4 bound)
+// keep the first design on plain f32 FMAs: 64 rows per block with 4 threads
+// per row (256 threads), 32-row tiles of the other side staged as f32 in
+// shared memory, the tile's key range computed in place (the window of its
+// query block cut to [0, n) and to the band of its rows). K6 makes two
+// passes over the key range (row max and sum of exp, with -1e9 on masked
+// keys as the TPU kernel does; then the normalised weights, the keep mask
+// and (W o M) V in f32); K7 a dQ pass that accumulates sum_j W M dP K_j,
+// sum_j W K_j and D_i in one sweep, then a dK/dV pass over the query rows
+// that can see the tile; padded query rows (qg >= n) are skipped.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -57,6 +92,7 @@
 #include <stdint.h>
 
 #include "common.cuh"
+#include "mma.cuh"
 
 namespace {
 
@@ -88,6 +124,7 @@ struct Params {
   uint32_t seed, threshold;
   float inv_keep;
   int dropout, band, bq;
+  int tiles;  // 64-row tiles of the other side resident per block (tensor-core kernels)
 };
 
 // keep-mask factor of weight (i, j): 0 or 1/(1-rate)
@@ -428,6 +465,517 @@ int launch_bwd(const void* q, const void* k, const void* v, const void* dout,
   return (int)cudaGetLastError();
 }
 
+// -- bf16 on the tensor cores ---------------------------------------------------
+
+constexpr int MMA_THREADS = 128;  // 4 warps x 16 owned rows
+constexpr int GROUP = 16;         // rows of the other side per step of the second product
+constexpr int CHUNK = 5;          // groups a warp holds in accumulators at once
+constexpr int MAX_TILES = 12;     // resident 64-row tiles that fit a block's shared memory
+// what an entry point returns, before any launch, for a window of more tiles:
+// no CUDA error code is negative, and the caller reads the limit from it
+constexpr int WINDOW_TOO_WIDE = -MAX_TILES;
+
+using bf16 = __nv_bfloat16;
+
+// 64-row tiles of the other side a block can meet: ceil(w / 64) + 1, and no
+// more than the axis holds
+int resident_tiles(const Params& p) {
+  return min(p.bq / asr::ATT_TILE + 1, (p.T + asr::ATT_TILE - 1) / asr::ATT_TILE);
+}
+
+// zeros into rows [r0, r0 + 64) below ``limit`` of a (rows, D) array
+template <int D>
+__device__ __forceinline__ void zero_rows(bf16* dst, int r0, int limit, int tid) {
+  constexpr int CPR = D / 8;
+  for (int c = tid; c < asr::ATT_TILE * CPR; c += MMA_THREADS) {
+    const int r = r0 + c / CPR;
+    if (r < limit)
+      *reinterpret_cast<uint4*>(dst + (size_t)r * D + (c % CPR) * 8) = make_uint4(0, 0, 0, 0);
+  }
+}
+
+// tiles [t_first, t_last] of a (rows, D) array into consecutive shared tiles
+template <int D>
+__device__ __forceinline__ void load_tiles_async(bf16* dst, const bf16* src, int t_first,
+                                                 int t_last, int limit, int tid) {
+  for (int t = t_first; t <= t_last; ++t)
+    asr::load_tile_async<D, MMA_THREADS>(
+        dst + (t - t_first) * asr::ATT_TILE * (D + asr::ATT_PAD), src, t * asr::ATT_TILE, limit,
+        tid);
+}
+
+template <int D, bool DROPOUT>
+__global__ void __launch_bounds__(MMA_THREADS)
+banded_fwd_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                      const bf16* __restrict__ v, const int* __restrict__ len,
+                      bf16* __restrict__ out, float* __restrict__ lse, Params p) {
+  using namespace asr;
+  constexpr int LD = D + ATT_PAD;
+  constexpr int KS = D / 16;
+  constexpr int DN = D / 8;
+  extern __shared__ __align__(16) unsigned char smem[];
+  bf16* Ks = reinterpret_cast<bf16*>(smem);
+  bf16* Vs = Ks + p.tiles * ATT_TILE * LD;
+
+  const int tid = threadIdx.x;
+  const int warp = tid >> 5;
+  const int lane = tid & 31;
+  const int g = lane >> 2;
+  const int t4 = lane & 3;
+  const int b = blockIdx.z;
+  const int h = blockIdx.y;
+  const int r0 = blockIdx.x * ATT_TILE;
+  const int n = min(len[b], p.T);
+  const uint32_t cell = (uint32_t)(b * p.H + h);
+  const size_t bh = (size_t)b * p.H + h;
+  bf16* ob = out + bh * p.T * D;
+  float* lb = lse != nullptr ? lse + bh * p.T : nullptr;
+
+  if (r0 >= n) {  // every row of the block is past the length
+    zero_rows<D>(ob, r0, p.T, tid);
+    if (lb != nullptr && tid < ATT_TILE && r0 + tid < p.T) lb[r0 + tid] = 0.0f;
+    return;
+  }
+  // the keys the block's rows see lie in the tiles [t_first, t_last]
+  const int t_first = max(r0 - p.band, 0) / ATT_TILE;
+  const int t_last = r0 / ATT_TILE;
+  const int k0 = t_first * ATT_TILE;  // the key of shared row 0
+  load_tiles_async<D>(Ks, k + bh * p.T * D, t_first, t_last, n, tid);
+  load_tiles_async<D>(Vs, v + bh * p.T * D, t_first, t_last, n, tid);
+  cp_async_commit();
+
+  const int rw = r0 + warp * 16;  // this warp's first row
+  const bool warp_on = rw < n;    // else it has only zeros to write
+  const int irow[2] = {rw + g, rw + g + 8};
+  // row r sees the keys [jlo[r], jhi[r]]; a row at or past n sees none
+  const int jlo[2] = {irow[0] - p.band, irow[1] - p.band};
+  const int jhi[2] = {irow[0] < n ? irow[0] : -1, irow[1] < n ? irow[1] : -1};
+  const float scale2 = p.scale * LOG2E;  // scores in units of log 2
+
+  uint32_t qf[KS][4];
+  if (warp_on) {
+#pragma unroll
+    for (int ks = 0; ks < KS; ++ks) load_a_fragment<D>(qf[ks], q + bh * p.T * D, rw, n, ks, lane);
+  }
+  float o[DN][4];
+#pragma unroll
+  for (int dn = 0; dn < DN; ++dn)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) o[dn][e] = 0.0f;
+  float m_run[2] = {-INFINITY, -INFINITY};
+  float l_run[2] = {0.0f, 0.0f};
+
+  cp_async_wait<0>();
+  __syncthreads();
+
+  if (warp_on) {
+    // the 16-key groups [g_lo, g_hi] hold every key this warp's rows see
+    const int g_lo = max(rw - p.band, 0) / GROUP;
+    const int g_hi = rw / GROUP;
+    for (int gc = g_lo; gc <= g_hi; gc += CHUNK) {
+      const int ng = min(CHUNK, g_hi - gc + 1);
+      const bf16* krows = Ks + (gc * GROUP - k0) * LD;
+      const bf16* vrows = Vs + (gc * GROUP - k0) * LD;
+      float s[2 * CHUNK][4];
+#pragma unroll
+      for (int u = 0; u < CHUNK; ++u) {
+        if (u < ng) {
+#pragma unroll
+          for (int e = 0; e < 4; ++e) s[2 * u][e] = s[2 * u + 1][e] = 0.0f;
+          mma_rows_t<D>(s[2 * u], s[2 * u + 1], qf, krows + u * GROUP * LD, lane);
+        }
+      }
+      // mask on the accumulators; the row max over the quad
+      float mx[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+      for (int u = 0; u < CHUNK; ++u) {
+        if (u < ng) {
+#pragma unroll
+          for (int nt = 0; nt < 2; ++nt) {
+#pragma unroll
+            for (int e = 0; e < 4; ++e) {
+              const int j = (gc + u) * GROUP + nt * 8 + 2 * t4 + (e & 1);
+              const bool seen = j >= jlo[e >> 1] && j <= jhi[e >> 1];
+              const float sc = seen ? s[2 * u + nt][e] * scale2 : -INFINITY;
+              s[2 * u + nt][e] = sc;
+              mx[e >> 1] = fmaxf(mx[e >> 1], sc);
+            }
+          }
+        }
+      }
+      float corr[2], base[2], psum[2] = {0.0f, 0.0f};
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const float m_new = fmaxf(m_run[r], quad_max(mx[r]));
+        base[r] = m_new == -INFINITY ? 0.0f : m_new;  // a row that has seen no key yet
+        corr[r] = ex2(m_run[r] - base[r]);            // 0 from the empty state
+        m_run[r] = m_new;
+      }
+      // weights, their row sum, and the keep mask
+#pragma unroll
+      for (int u = 0; u < CHUNK; ++u) {
+        if (u < ng) {
+#pragma unroll
+          for (int nt = 0; nt < 2; ++nt) {
+#pragma unroll
+            for (int e = 0; e < 4; ++e) {
+              float w = ex2(s[2 * u + nt][e] - base[e >> 1]);
+              psum[e >> 1] += w;
+              if (DROPOUT) {
+                const int j = (gc + u) * GROUP + nt * 8 + 2 * t4 + (e & 1);
+                const uint32_t x = keep_hash((uint32_t)irow[e >> 1], (uint32_t)j, p.seed, cell);
+                w = x >= p.threshold ? w * p.inv_keep : 0.0f;
+              }
+              s[2 * u + nt][e] = w;
+            }
+          }
+        }
+      }
+#pragma unroll
+      for (int r = 0; r < 2; ++r) l_run[r] = l_run[r] * corr[r] + quad_sum(psum[r]);
+      if (gc != g_lo) {  // bands over 64 only: the earlier chunks' share
+#pragma unroll
+        for (int dn = 0; dn < DN; ++dn)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) o[dn][e] *= corr[e >> 1];
+      }
+      // O += (W o M) V, the weights as hi + lo bf16 fragments
+#pragma unroll
+      for (int u = 0; u < CHUNK; ++u) {
+        if (u < ng) {
+          uint32_t hi[4], lo[4];
+          split_fragment(s[2 * u], s[2 * u + 1], hi, lo);
+          mma_split<D>(o, hi, lo, vrows + u * GROUP * LD, lane);
+        }
+      }
+    }
+  }
+
+  __syncthreads();  // every warp is done with K: its first rows become the output stage
+  if (rw >= p.T) return;
+  float norm[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const bool live = l_run[r] > 0.0f;  // rows at or past n: zeros
+    norm[r] = live ? 1.0f / l_run[r] : 0.0f;
+    if (lb != nullptr && t4 == 0 && irow[r] < p.T)
+      lb[irow[r]] = live ? m_run[r] * LN2 + logf(l_run[r]) : 0.0f;
+  }
+  store_rows<D>(o, norm, Ks + warp * 16 * LD, ob, rw, p.T, lane);
+}
+
+template <int D, bool DROPOUT>
+__global__ void __launch_bounds__(MMA_THREADS)
+banded_bwd_dq_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                         const bf16* __restrict__ v, const bf16* __restrict__ dout,
+                         const float* __restrict__ lse, const int* __restrict__ len,
+                         float* __restrict__ delta, bf16* __restrict__ dq, Params p) {
+  using namespace asr;
+  constexpr int LD = D + ATT_PAD;
+  constexpr int KS = D / 16;
+  constexpr int DN = D / 8;
+  extern __shared__ __align__(16) unsigned char smem[];
+  bf16* Ks = reinterpret_cast<bf16*>(smem);
+  bf16* Vs = Ks + p.tiles * ATT_TILE * LD;
+
+  const int tid = threadIdx.x;
+  const int warp = tid >> 5;
+  const int lane = tid & 31;
+  const int g = lane >> 2;
+  const int t4 = lane & 3;
+  const int b = blockIdx.z;
+  const int h = blockIdx.y;
+  const int r0 = blockIdx.x * ATT_TILE;
+  const int n = min(len[b], p.T);
+  const uint32_t cell = (uint32_t)(b * p.H + h);
+  const size_t bh = (size_t)b * p.H + h;
+  bf16* dqb = dq + bh * p.T * D;
+  float* db = delta + bh * p.T;
+
+  if (r0 >= n) {  // every row of the block is past the length: W = 0, dq = 0
+    zero_rows<D>(dqb, r0, p.T, tid);
+    if (tid < ATT_TILE && r0 + tid < p.T) db[r0 + tid] = 0.0f;
+    return;
+  }
+  const int t_first = max(r0 - p.band, 0) / ATT_TILE;
+  const int t_last = r0 / ATT_TILE;
+  const int k0 = t_first * ATT_TILE;
+  load_tiles_async<D>(Ks, k + bh * p.T * D, t_first, t_last, n, tid);
+  load_tiles_async<D>(Vs, v + bh * p.T * D, t_first, t_last, n, tid);
+  cp_async_commit();
+
+  const int rw = r0 + warp * 16;
+  const bool warp_on = rw < n;
+  const int irow[2] = {rw + g, rw + g + 8};
+  const int jlo[2] = {irow[0] - p.band, irow[1] - p.band};
+  const int jhi[2] = {irow[0] < n ? irow[0] : -1, irow[1] < n ? irow[1] : -1};
+  const float scale2 = p.scale * LOG2E;
+
+  // this warp's 16 query rows: Q and dO as A fragments (zeros at or past n)
+  // and minus their log-sum-exp in units of log 2
+  uint32_t qf[KS][4], gf[KS][4];
+  float nl2[2] = {0.0f, 0.0f};
+  if (warp_on) {
+#pragma unroll
+    for (int ks = 0; ks < KS; ++ks) {
+      load_a_fragment<D>(qf[ks], q + bh * p.T * D, rw, n, ks, lane);
+      load_a_fragment<D>(gf[ks], dout + bh * p.T * D, rw, n, ks, lane);
+    }
+#pragma unroll
+    for (int r = 0; r < 2; ++r)
+      if (irow[r] < n) nl2[r] = -lse[bh * p.T + irow[r]] * LOG2E;
+  }
+  float acc[DN][4];
+#pragma unroll
+  for (int dn = 0; dn < DN; ++dn)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[dn][e] = 0.0f;
+  float di[2] = {0.0f, 0.0f};  // D_i = rowsum(dP o M o W), from the f32 weights
+
+  cp_async_wait<0>();
+  __syncthreads();
+
+  if (warp_on) {
+    const int g_lo = max(rw - p.band, 0) / GROUP;
+    const int g_hi = rw / GROUP;
+    const bool one_chunk = g_hi - g_lo < CHUNK;  // bands up to 64
+    float w[2 * CHUNK][4], dw[2 * CHUNK][4];
+    // W into w, dW = dP o M into dw, and this thread's share of D_i, for the
+    // groups [gc, gc + ng)
+    auto weights = [&](int gc, int ng, bool sum_d) {
+      const bf16* krows = Ks + (gc * GROUP - k0) * LD;
+      const bf16* vrows = Vs + (gc * GROUP - k0) * LD;
+#pragma unroll
+      for (int u = 0; u < CHUNK; ++u) {
+        if (u < ng) {  // S = Q K^T and dP = dO V^T
+#pragma unroll
+          for (int e = 0; e < 4; ++e)
+            w[2 * u][e] = w[2 * u + 1][e] = dw[2 * u][e] = dw[2 * u + 1][e] = 0.0f;
+          mma_rows_t<D>(w[2 * u], w[2 * u + 1], qf, krows + u * GROUP * LD, lane);
+          mma_rows_t<D>(dw[2 * u], dw[2 * u + 1], gf, vrows + u * GROUP * LD, lane);
+#pragma unroll
+          for (int nt = 0; nt < 2; ++nt) {
+#pragma unroll
+            for (int e = 0; e < 4; ++e) {
+              const int r = e >> 1;
+              const int j = (gc + u) * GROUP + nt * 8 + 2 * t4 + (e & 1);
+              const bool seen = j >= jlo[r] && j <= jhi[r];
+              const float wt = seen ? ex2(fmaf(w[2 * u + nt][e], scale2, nl2[r])) : 0.0f;
+              if (DROPOUT)
+                dw[2 * u + nt][e] *=
+                    keep_hash((uint32_t)irow[r], (uint32_t)j, p.seed, cell) >= p.threshold
+                        ? p.inv_keep : 0.0f;
+              w[2 * u + nt][e] = wt;
+              if (sum_d) di[r] = fmaf(wt, dw[2 * u + nt][e], di[r]);
+            }
+          }
+        }
+      }
+    };
+    if (!one_chunk) {  // bands over 64: a first sweep for D_i
+      for (int gc = g_lo; gc <= g_hi; gc += CHUNK) weights(gc, min(CHUNK, g_hi - gc + 1), true);
+    }
+    for (int gc = g_lo; gc <= g_hi; gc += CHUNK) {
+      const int ng = min(CHUNK, g_hi - gc + 1);
+      weights(gc, ng, one_chunk);
+      if (gc == g_lo) {
+        di[0] = quad_sum(di[0]);
+        di[1] = quad_sum(di[1]);
+      }
+      // dQ += dS K, dS = W o (dW - D) as hi + lo
+#pragma unroll
+      for (int u = 0; u < CHUNK; ++u) {
+        if (u < ng) {
+#pragma unroll
+          for (int nt = 0; nt < 2; ++nt)
+#pragma unroll
+            for (int e = 0; e < 4; ++e)
+              dw[2 * u + nt][e] = w[2 * u + nt][e] * (dw[2 * u + nt][e] - di[e >> 1]);
+          uint32_t hi[4], lo[4];
+          split_fragment(dw[2 * u], dw[2 * u + 1], hi, lo);
+          mma_split<D>(acc, hi, lo, Ks + ((gc + u) * GROUP - k0) * LD, lane);
+        }
+      }
+    }
+  }
+
+  __syncthreads();  // every warp is done with K: its first rows become the output stage
+  if (rw >= p.T) return;
+#pragma unroll
+  for (int r = 0; r < 2; ++r)
+    if (t4 == 0 && irow[r] < p.T) db[irow[r]] = di[r];  // 0 on rows at or past n
+  store_rows<D>(acc, p.scale, Ks + warp * 16 * LD, dqb, rw, p.T, lane);
+}
+
+template <int D, bool DROPOUT>
+__global__ void __launch_bounds__(MMA_THREADS)
+banded_bwd_dkdv_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                           const bf16* __restrict__ v, const bf16* __restrict__ dout,
+                           const float* __restrict__ lse, const float* __restrict__ delta,
+                           const int* __restrict__ len, bf16* __restrict__ dk,
+                           bf16* __restrict__ dv, Params p) {
+  using namespace asr;
+  constexpr int LD = D + ATT_PAD;
+  constexpr int KS = D / 16;
+  constexpr int DN = D / 8;
+  extern __shared__ __align__(16) unsigned char smem[];
+  bf16* Qs = reinterpret_cast<bf16*>(smem);
+  bf16* Gs = Qs + p.tiles * ATT_TILE * LD;  // dO rows
+  float* Ls = reinterpret_cast<float*>(Gs + p.tiles * ATT_TILE * LD);  // -lse log2 e
+  float* Ds = Ls + p.tiles * ATT_TILE;                                  // D_i
+
+  const int tid = threadIdx.x;
+  const int warp = tid >> 5;
+  const int lane = tid & 31;
+  const int g = lane >> 2;
+  const int t4 = lane & 3;
+  const int b = blockIdx.z;
+  const int h = blockIdx.y;
+  const int j0 = blockIdx.x * ATT_TILE;
+  const int n = min(len[b], p.T);
+  const uint32_t cell = (uint32_t)(b * p.H + h);
+  const size_t bh = (size_t)b * p.H + h;
+  bf16* dkb = dk + bh * p.T * D;
+  bf16* dvb = dv + bh * p.T * D;
+
+  if (j0 >= n) {  // every key of the block is past the length: no row sees it
+    zero_rows<D>(dkb, j0, p.T, tid);
+    zero_rows<D>(dvb, j0, p.T, tid);
+    return;
+  }
+  // the query rows that see the block's keys lie in the tiles [t_first, t_last]
+  const int t_first = j0 / ATT_TILE;
+  const int t_last = min(j0 + ATT_TILE - 1 + p.band, n - 1) / ATT_TILE;
+  const int i0 = t_first * ATT_TILE;  // the query row of shared row 0
+  load_tiles_async<D>(Qs, q + bh * p.T * D, t_first, t_last, n, tid);
+  load_tiles_async<D>(Gs, dout + bh * p.T * D, t_first, t_last, n, tid);
+  cp_async_commit();
+  for (int x = tid; x < (t_last - t_first + 1) * ATT_TILE; x += MMA_THREADS) {
+    const bool ok = i0 + x < n;
+    Ls[x] = ok ? -lse[bh * p.T + i0 + x] * LOG2E : 0.0f;
+    Ds[x] = ok ? delta[bh * p.T + i0 + x] : 0.0f;
+  }
+
+  const int jw = j0 + warp * 16;  // this warp's first key
+  const bool warp_on = jw < n;
+  const int jrow[2] = {jw + g, jw + g + 8};
+  // key r is seen by the query rows [jrow[r], ihi[r]]; a key at or past n by none
+  const int ihi[2] = {jrow[0] < n ? min(jrow[0] + p.band, n - 1) : -1,
+                      jrow[1] < n ? min(jrow[1] + p.band, n - 1) : -1};
+  const float scale2 = p.scale * LOG2E;
+
+  // this warp's 16 keys: K and V as A fragments, once from device memory
+  uint32_t kf[KS][4], vf[KS][4];
+  if (warp_on) {
+#pragma unroll
+    for (int ks = 0; ks < KS; ++ks) {
+      load_a_fragment<D>(kf[ks], k + bh * p.T * D, jw, n, ks, lane);
+      load_a_fragment<D>(vf[ks], v + bh * p.T * D, jw, n, ks, lane);
+    }
+  }
+  float dka[DN][4], dva[DN][4];
+#pragma unroll
+  for (int dn = 0; dn < DN; ++dn)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dka[dn][e] = dva[dn][e] = 0.0f;
+
+  cp_async_wait<0>();
+  __syncthreads();
+
+  if (warp_on) {
+    // the 16-row query groups [g_lo, g_hi] hold every row that sees this warp's
+    // keys; one group at a time (no sum runs along a key's column but dK and dV)
+    const int g_lo = jw / GROUP;
+    const int g_hi = min(jw + 15 + p.band, n - 1) / GROUP;
+    for (int gq = g_lo; gq <= g_hi; ++gq) {
+      const bf16* qrows = Qs + (gq * GROUP - i0) * LD;
+      const bf16* grows = Gs + (gq * GROUP - i0) * LD;
+      // S^T = K Q^T and dP^T = V dO^T: 16 keys x 16 queries
+      float sT[2][4], dpT[2][4];
+#pragma unroll
+      for (int e = 0; e < 4; ++e) sT[0][e] = sT[1][e] = dpT[0][e] = dpT[1][e] = 0.0f;
+      mma_rows_t<D>(sT[0], sT[1], kf, qrows, lane);
+      mma_rows_t<D>(dpT[0], dpT[1], vf, grows, lane);
+      // (W o M)^T into sT, dS^T into dpT, at each element's global (i, j)
+#pragma unroll
+      for (int nt = 0; nt < 2; ++nt) {
+        const int ii = gq * GROUP + nt * 8 + 2 * t4;  // and ii + 1
+        const float2 nl2 = *reinterpret_cast<const float2*>(&Ls[ii - i0]);
+        const float2 d2 = *reinterpret_cast<const float2*>(&Ds[ii - i0]);
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int i = ii + (e & 1);
+          const int r = e >> 1;
+          const bool seen = i >= jrow[r] && i <= ihi[r];
+          const float wt = seen ? ex2(fmaf(sT[nt][e], scale2, (e & 1) ? nl2.y : nl2.x)) : 0.0f;
+          float keep = 1.0f;
+          if (DROPOUT)
+            keep = keep_hash((uint32_t)i, (uint32_t)jrow[r], p.seed, cell) >= p.threshold
+                       ? p.inv_keep : 0.0f;
+          sT[nt][e] = wt * keep;
+          dpT[nt][e] = wt * (dpT[nt][e] * keep - ((e & 1) ? d2.y : d2.x));
+        }
+      }
+      // dV += (W o M)^T dO, dK += dS^T Q, each operand as hi + lo
+      uint32_t whi[4], wlo[4], shi[4], slo[4];
+      split_fragment(sT[0], sT[1], whi, wlo);
+      split_fragment(dpT[0], dpT[1], shi, slo);
+      mma_split<D>(dva, whi, wlo, grows, lane);
+      mma_split<D>(dka, shi, slo, qrows, lane);
+    }
+  }
+
+  __syncthreads();  // every warp is done with Q and dO: their first rows become the stages
+  if (jw >= p.T) return;
+  store_rows<D>(dka, p.scale, Qs + warp * 16 * LD, dkb, jw, p.T, lane);
+  store_rows<D>(dva, 1.0f, Gs + warp * 16 * LD, dvb, jw, p.T, lane);
+}
+
+// dynamic shared memory over 48 KB has to be asked for, per kernel
+template <typename Kernel>
+cudaError_t allow_shared(Kernel kernel, size_t bytes) {
+  if (bytes <= 48 * 1024) return cudaSuccess;
+  return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+}
+
+template <int D, bool DROPOUT>
+int launch_fwd_mma(const void* q, const void* k, const void* v, const int* len,
+                   void* out, float* lse, int B, const Params& p, cudaStream_t stream) {
+  if (p.tiles > MAX_TILES) return WINDOW_TOO_WIDE;
+  const size_t bytes = (size_t)p.tiles * 2 * asr::ATT_TILE * (D + asr::ATT_PAD) * sizeof(bf16);
+  const cudaError_t err = allow_shared(banded_fwd_mma_kernel<D, DROPOUT>, bytes);
+  if (err != cudaSuccess) return (int)err;
+  dim3 grid((p.T + asr::ATT_TILE - 1) / asr::ATT_TILE, p.H, B);
+  banded_fwd_mma_kernel<D, DROPOUT><<<grid, MMA_THREADS, bytes, stream>>>(
+      (const bf16*)q, (const bf16*)k, (const bf16*)v, len, (bf16*)out, lse, p);
+  return (int)cudaGetLastError();
+}
+
+template <int D, bool DROPOUT>
+int launch_bwd_mma(const void* q, const void* k, const void* v, const void* dout,
+                   const float* lse, const int* len, float* delta, void* dq,
+                   void* dk, void* dv, int B, const Params& p, cudaStream_t stream) {
+  if (p.tiles > MAX_TILES) return WINDOW_TOO_WIDE;
+  const size_t tile_bytes = (size_t)2 * asr::ATT_TILE * (D + asr::ATT_PAD) * sizeof(bf16);
+  const size_t dq_bytes = p.tiles * tile_bytes;
+  const size_t dkdv_bytes = p.tiles * (tile_bytes + 2 * asr::ATT_TILE * sizeof(float));
+  cudaError_t err = allow_shared(banded_bwd_dq_mma_kernel<D, DROPOUT>, dq_bytes);
+  if (err != cudaSuccess) return (int)err;
+  err = allow_shared(banded_bwd_dkdv_mma_kernel<D, DROPOUT>, dkdv_bytes);
+  if (err != cudaSuccess) return (int)err;
+  dim3 grid((p.T + asr::ATT_TILE - 1) / asr::ATT_TILE, p.H, B);
+  // the dQ pass writes delta, which the dK/dV pass reads (same stream)
+  banded_bwd_dq_mma_kernel<D, DROPOUT><<<grid, MMA_THREADS, dq_bytes, stream>>>(
+      (const bf16*)q, (const bf16*)k, (const bf16*)v, (const bf16*)dout, lse, len, delta,
+      (bf16*)dq, p);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  banded_bwd_dkdv_mma_kernel<D, DROPOUT><<<grid, MMA_THREADS, dkdv_bytes, stream>>>(
+      (const bf16*)q, (const bf16*)k, (const bf16*)v, (const bf16*)dout, lse, delta, len,
+      (bf16*)dk, (bf16*)dv, p);
+  return (int)cudaGetLastError();
+}
+
 bool bad_band(int band, int bq) {
   return band < 1 || bq < band || bq % QT != 0;
 }
@@ -436,9 +984,15 @@ bool bad_band(int band, int bq) {
 
 // q, k, v, out: (B, H, T, D), contiguous, bf16 (is_bf16=1) or f32; len:
 // (B,) int32 on the device; lse: (B, H, T) f32 row log-sum-exp output, or
-// null. band >= 1, bq = 64 * ceil(band / 64). Returns cudaGetLastError()
-// after the launch, or cudaErrorInvalidValue for a head dim without an
-// instantiation or a bad band.
+// null. band >= 1, bq = 64 * ceil(band / 64). bf16 runs on the tensor cores,
+// f32 on FMAs. Returns cudaGetLastError() after the launch, or
+// cudaErrorInvalidValue for a head dim without an instantiation or a bad
+// band, or (bf16) -MAX_TILES for a window of more resident tiles than that.
+#define ASR_BANDED_PARAMS                                                      \
+  Params p{H, T, scale, seed, threshold, 1.0f / keep_prob, dropout, band, bq, 0}; \
+  p.tiles = resident_tiles(p);                                                 \
+  cudaStream_t st = (cudaStream_t)stream
+
 extern "C" int asr_banded_attention_fwd(const void* q, const void* k,
                                         const void* v, const int* len,
                                         void* out, float* lse, int B, int H,
@@ -448,18 +1002,14 @@ extern "C" int asr_banded_attention_fwd(const void* q, const void* k,
                                         float keep_prob, int dropout, int band,
                                         int bq, void* stream) {
   if (bad_band(band, bq)) return (int)cudaErrorInvalidValue;
-  const Params p{H, T, scale, seed, threshold, 1.0f / keep_prob, dropout, band, bq};
-  cudaStream_t st = (cudaStream_t)stream;
-#define ASR_BANDED_FWD_CASE(TYPE, DIM) \
-  return launch_fwd<TYPE, DIM>(q, k, v, len, out, lse, B, p, st)
-  if (D == 64) {
-    if (is_bf16) ASR_BANDED_FWD_CASE(__nv_bfloat16, 64);
-    ASR_BANDED_FWD_CASE(float, 64);
-  }
-  if (D == 32) {
-    if (is_bf16) ASR_BANDED_FWD_CASE(__nv_bfloat16, 32);
-    ASR_BANDED_FWD_CASE(float, 32);
-  }
+  ASR_BANDED_PARAMS;
+  // the tensor-core kernels have the dropout switch at compile time
+#define ASR_BANDED_FWD_CASE(DIM)                                               \
+  if (!is_bf16) return launch_fwd<float, DIM>(q, k, v, len, out, lse, B, p, st); \
+  return dropout ? launch_fwd_mma<DIM, true>(q, k, v, len, out, lse, B, p, st)  \
+                 : launch_fwd_mma<DIM, false>(q, k, v, len, out, lse, B, p, st)
+  if (D == 64) { ASR_BANDED_FWD_CASE(64); }
+  if (D == 32) { ASR_BANDED_FWD_CASE(32); }
 #undef ASR_BANDED_FWD_CASE
   return (int)cudaErrorInvalidValue;
 }
@@ -467,8 +1017,7 @@ extern "C" int asr_banded_attention_fwd(const void* q, const void* k,
 // q, k, v, dout, dq, dk, dv: (B, H, T, D), contiguous, bf16 or f32;
 // lse: (B, H, T) f32 from the forward kernel; delta: (B, H, T) f32 scratch;
 // len: (B,) int32 on the device. Returns the first launch error,
-// cudaErrorInvalidValue for a head dim without an instantiation or a bad
-// band, or 0.
+// cudaErrorInvalidValue as the forward does, or 0.
 extern "C" int asr_banded_attention_bwd(const void* q, const void* k,
                                         const void* v, const void* dout,
                                         const float* lse, const int* len,
@@ -480,19 +1029,16 @@ extern "C" int asr_banded_attention_bwd(const void* q, const void* k,
                                         float keep_prob, int dropout, int band,
                                         int bq, void* stream) {
   if (bad_band(band, bq)) return (int)cudaErrorInvalidValue;
-  const Params p{H, T, scale, seed, threshold, 1.0f / keep_prob, dropout, band, bq};
-  cudaStream_t st = (cudaStream_t)stream;
-#define ASR_BANDED_BWD_CASE(TYPE, DIM)                                      \
-  return launch_bwd<TYPE, DIM>(q, k, v, dout, lse, len, delta, dq, dk, dv, B, \
-                               p, st)
-  if (D == 64) {
-    if (is_bf16) ASR_BANDED_BWD_CASE(__nv_bfloat16, 64);
-    ASR_BANDED_BWD_CASE(float, 64);
-  }
-  if (D == 32) {
-    if (is_bf16) ASR_BANDED_BWD_CASE(__nv_bfloat16, 32);
-    ASR_BANDED_BWD_CASE(float, 32);
-  }
+  ASR_BANDED_PARAMS;
+#define ASR_BANDED_BWD_ARGS q, k, v, dout, lse, len, delta, dq, dk, dv, B, p, st
+#define ASR_BANDED_BWD_CASE(DIM)                                               \
+  if (!is_bf16) return launch_bwd<float, DIM>(ASR_BANDED_BWD_ARGS);            \
+  return dropout ? launch_bwd_mma<DIM, true>(ASR_BANDED_BWD_ARGS)              \
+                 : launch_bwd_mma<DIM, false>(ASR_BANDED_BWD_ARGS)
+  if (D == 64) { ASR_BANDED_BWD_CASE(64); }
+  if (D == 32) { ASR_BANDED_BWD_CASE(32); }
 #undef ASR_BANDED_BWD_CASE
+#undef ASR_BANDED_BWD_ARGS
   return (int)cudaErrorInvalidValue;
 }
+#undef ASR_BANDED_PARAMS

@@ -13,6 +13,12 @@
 // causal, band, rectangular) and the keep mask use global indices and the
 // same hash of (i, j, seed, b*H + h) as the forward, so each tile drops
 // exactly the weights the forward dropped.
+// A bf16 O has lost up to 2^-9 of each value, and D with it: at the
+// streaming training shape under a causal band 50 with dropout 0.1 that
+// alone put dk at 2.24e-2 against the 2e-2 bound (1.08e-2 with D from f32).
+// So the bf16 forward also writes what the rounding took away as a second
+// bf16 array, out_lo, and D_i = dO_i . (O_i + O_lo_i): as good as from f32
+// for 2 bytes per element more, and no second sweep over the keys.
 //
 // What bounds it on the H100, at the flagship's training shape (64, 8, 267,
 // 64) bf16: q, k, v, o, dO read and dq, dk, dv written once are 8 x 17.5 MB
@@ -67,8 +73,7 @@
 // attention_bwd_dq_kernel, the 1e-4 bound) keep the first design on plain
 // f32 FMAs: 256 threads per 64 owned rows, four threads sharing a row, the
 // other side in 32-row f32 tiles, partial dot products combined by two warp
-// shuffles. Their bf16 instantiations are built only under
-// asr_attention_bwd_fma, for timing the two designs side by side.
+// shuffles (the templates are instantiated for float only).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -350,35 +355,6 @@ __device__ __forceinline__ void query_tile_range(int j0, int qn, int kn,
   hi = (last + asr::ATT_TILE - 1) / asr::ATT_TILE;
 }
 
-// this warp's 16 rows of a 16 x D f32 result, times ``mul``, through its own
-// rows of a shared tile and out as 16-byte stores; rows at or past ``limit``
-// are not written
-template <int D>
-__device__ __forceinline__ void store_rows(const float (&acc)[D / 8][4], float mul,
-                                           __nv_bfloat16* stage, __nv_bfloat16* dst,
-                                           int r0, int limit, int lane) {
-  constexpr int LD = D + asr::ATT_PAD;
-  constexpr int CPR = D / 8;
-  const int g = lane >> 2;
-  const int t4 = lane & 3;
-#pragma unroll
-  for (int dn = 0; dn < D / 8; ++dn) {
-#pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      *reinterpret_cast<__nv_bfloat162*>(&stage[(g + 8 * r) * LD + dn * 8 + 2 * t4]) =
-          __floats2bfloat162_rn(acc[dn][2 * r] * mul, acc[dn][2 * r + 1] * mul);
-    }
-  }
-  __syncwarp();
-  for (int c = lane; c < 16 * CPR; c += 32) {
-    const int r = c / CPR;
-    const int cc = c - r * CPR;
-    if (r0 + r < limit)
-      *reinterpret_cast<uint4*>(dst + (size_t)(r0 + r) * D + cc * 8) =
-          *reinterpret_cast<const uint4*>(&stage[r * LD + cc * 8]);
-  }
-}
-
 template <int D, bool DROPOUT>
 __global__ void __launch_bounds__(MMA_THREADS)
 attention_bwd_dkdv_mma_kernel(const __nv_bfloat16* __restrict__ q,
@@ -531,6 +507,7 @@ attention_bwd_dq_mma_kernel(const __nv_bfloat16* __restrict__ q,
                             const __nv_bfloat16* __restrict__ k,
                             const __nv_bfloat16* __restrict__ v,
                             const __nv_bfloat16* __restrict__ out,
+                            const __nv_bfloat16* __restrict__ out_lo,
                             const __nv_bfloat16* __restrict__ dout,
                             const float* __restrict__ lse,
                             float* __restrict__ delta,
@@ -569,21 +546,26 @@ attention_bwd_dq_mma_kernel(const __nv_bfloat16* __restrict__ q,
 
   // this warp's 16 query rows: Q and dO as A fragments, their lse, and
   // D_i = dO_i . O_i summed over the same fragment layout and written for
-  // pass 3; rows at or past qn are padded: W = 0, dq = 0
+  // the dK/dV pass, with O = out + out_lo where the forward kept what the
+  // rounding of out took away (from the bf16 output alone, dq and dk lose
+  // up to half the bound they are held to); rows at or past qn are padded:
+  // W = 0, dq = 0
   uint32_t qf[KS][4], gf[KS][4];
   float li[2], di[2] = {0.0f, 0.0f};
 #pragma unroll
   for (int ks = 0; ks < KS; ++ks) {
     load_a_fragment<D>(qf[ks], q + bh * p.Tq * D, iw, qn, ks, lane);
     load_a_fragment<D>(gf[ks], dout + bh * p.Tq * D, iw, qn, ks, lane);
-    uint32_t of[4];
+    uint32_t of[4], lf[4] = {0u, 0u, 0u, 0u};
     load_a_fragment<D>(of, out + bh * p.Tq * D, iw, qn, ks, lane);
+    if (out_lo != nullptr) load_a_fragment<D>(lf, out_lo + bh * p.Tq * D, iw, qn, ks, lane);
 #pragma unroll
     for (int e = 0; e < 4; ++e) {
       const float2 o2 = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&of[e]));
+      const float2 l2 = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&lf[e]));
       const float2 g2 =
           __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&gf[ks][e]));
-      di[e & 1] = fmaf(o2.x, g2.x, fmaf(o2.y, g2.y, di[e & 1]));
+      di[e & 1] = fmaf(o2.x + l2.x, g2.x, fmaf(o2.y + l2.y, g2.y, di[e & 1]));
     }
   }
 #pragma unroll
@@ -677,14 +659,14 @@ attention_bwd_dq_mma_kernel(const __nv_bfloat16* __restrict__ q,
 
 template <int D, bool DROPOUT>
 int launch_mma(const void* q, const void* k, const void* v, const void* out,
-               const void* dout, const float* lse, const int* q_len,
+               const void* out_lo, const void* dout, const float* lse, const int* q_len,
                const int* k_len, float* delta, void* dq, void* dk, void* dv,
                int B, const Params& p, cudaStream_t stream) {
   using T = __nv_bfloat16;
   dim3 qgrid((p.Tq + asr::ATT_TILE - 1) / asr::ATT_TILE, p.H, B);
   attention_bwd_dq_mma_kernel<D, DROPOUT><<<qgrid, MMA_THREADS, 0, stream>>>(
-      (const T*)q, (const T*)k, (const T*)v, (const T*)out, (const T*)dout, lse,
-      delta, q_len, k_len, (T*)dq, p);
+      (const T*)q, (const T*)k, (const T*)v, (const T*)out, (const T*)out_lo,
+      (const T*)dout, lse, delta, q_len, k_len, (T*)dq, p);
   const cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   dim3 kgrid((p.Tk + asr::ATT_TILE - 1) / asr::ATT_TILE, p.H, B);
@@ -697,7 +679,9 @@ int launch_mma(const void* q, const void* k, const void* v, const void* out,
 }  // namespace
 
 // q, out, dout, dq: (B, H, Tq, D); k, v, dk, dv: (B, H, Tk, D); all
-// contiguous, bf16 (is_bf16=1) or f32. lse: (B, H, Tq) f32 from the forward
+// contiguous, bf16 (is_bf16=1) or f32. out_lo: (B, H, Tq, D) bf16 from the
+// forward kernel (what the rounding of a bf16 ``out`` took away), or null,
+// and unused for f32. lse: (B, H, Tq) f32 from the forward
 // kernel; delta: (B, H, Tq) f32 scratch; q_len/k_len: (B,) int32 on the
 // device. bf16 runs on the tensor cores, f32 on FMAs. Returns the first
 // launch error, cudaErrorInvalidValue for a head dim without an
@@ -708,11 +692,15 @@ int launch_mma(const void* q, const void* k, const void* v, const void* out,
 #define ASR_ATTN_BWD_ARGS                                                     \
   q, k, v, out, dout, lse, q_len, k_len, delta, dq, dk, dv, B, p,              \
       (cudaStream_t)stream
+#define ASR_ATTN_BWD_MMA_ARGS                                                 \
+  q, k, v, out, out_lo, dout, lse, q_len, k_len, delta, dq, dk, dv, B, p,      \
+      (cudaStream_t)stream
 
 extern "C" int asr_attention_bwd(const void* q, const void* k, const void* v,
-                                 const void* out, const void* dout,
-                                 const float* lse, const int* q_len,
-                                 const int* k_len, float* delta, void* dq,
+                                 const void* out, const void* out_lo,
+                                 const void* dout, const float* lse,
+                                 const int* q_len, const int* k_len,
+                                 float* delta, void* dq,
                                  void* dk, void* dv, int B, int H, int Tq,
                                  int Tk, int D, int is_bf16, float scale,
                                  unsigned int seed, unsigned int threshold,
@@ -722,37 +710,17 @@ extern "C" int asr_attention_bwd(const void* q, const void* k, const void* v,
   // the tensor-core kernels have the dropout switch at compile time
   if (D == 64) {
     if (!is_bf16) return launch<float, 64>(ASR_ATTN_BWD_ARGS);
-    return dropout ? launch_mma<64, true>(ASR_ATTN_BWD_ARGS)
-                   : launch_mma<64, false>(ASR_ATTN_BWD_ARGS);
+    return dropout ? launch_mma<64, true>(ASR_ATTN_BWD_MMA_ARGS)
+                   : launch_mma<64, false>(ASR_ATTN_BWD_MMA_ARGS);
   }
   if (D == 32) {
     if (!is_bf16) return launch<float, 32>(ASR_ATTN_BWD_ARGS);
-    return dropout ? launch_mma<32, true>(ASR_ATTN_BWD_ARGS)
-                   : launch_mma<32, false>(ASR_ATTN_BWD_ARGS);
+    return dropout ? launch_mma<32, true>(ASR_ATTN_BWD_MMA_ARGS)
+                   : launch_mma<32, false>(ASR_ATTN_BWD_MMA_ARGS);
   }
   return (int)cudaErrorInvalidValue;
 }
 
-// The FMA design for both input types: what bf16 calls ran before the
-// tensor-core kernels. Nothing in the package calls it; it is built so that
-// the two designs can be timed side by side in one process.
-extern "C" int asr_attention_bwd_fma(const void* q, const void* k, const void* v,
-                                     const void* out, const void* dout,
-                                     const float* lse, const int* q_len,
-                                     const int* k_len, float* delta, void* dq,
-                                     void* dk, void* dv, int B, int H, int Tq,
-                                     int Tk, int D, int is_bf16, float scale,
-                                     unsigned int seed, unsigned int threshold,
-                                     float keep_prob, int dropout, int causal,
-                                     int band, void* stream) {
-  ASR_ATTN_BWD_PARAMS;
-  if (D == 64)
-    return is_bf16 ? launch<__nv_bfloat16, 64>(ASR_ATTN_BWD_ARGS)
-                   : launch<float, 64>(ASR_ATTN_BWD_ARGS);
-  if (D == 32)
-    return is_bf16 ? launch<__nv_bfloat16, 32>(ASR_ATTN_BWD_ARGS)
-                   : launch<float, 32>(ASR_ATTN_BWD_ARGS);
-  return (int)cudaErrorInvalidValue;
-}
+#undef ASR_ATTN_BWD_MMA_ARGS
 #undef ASR_ATTN_BWD_ARGS
 #undef ASR_ATTN_BWD_PARAMS

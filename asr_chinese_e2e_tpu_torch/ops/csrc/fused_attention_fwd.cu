@@ -9,7 +9,9 @@
 // (W o M) V. Inputs bf16 or f32, f32 accumulation, output in the input type.
 // For training, the kernel also writes each query row's log-sum-exp of its
 // masked scores (``lse``, when the pointer is not null), which the backward
-// kernels (fused_attention_bwd.cu) use to recompute the weights.
+// kernels (fused_attention_bwd.cu) use to recompute the weights, and for
+// bf16 what the rounding of the output took away (``out_lo``, when the
+// pointer is not null), from which the backward takes D_i = dO_i . O_i.
 //
 // What bounds it on the H100, at the flagship's training shape (64, 8, 267,
 // 64) bf16: q, k, v read and the output written once are 4 x 17.5 MB = 70.0
@@ -57,8 +59,7 @@
 // design on plain f32 FMAs: 256 threads per 64 query rows, four threads
 // sharing a row, each holding the whole q row in registers and scoring
 // every fourth key of a 32-key tile staged as f32; probabilities cross
-// shared memory. Its bf16 instantiation is built only under
-// asr_attention_fwd_fma, for timing the two designs side by side.
+// shared memory (the template is instantiated for float only).
 // Masked keys get -1e9 added (not -inf), as the TPU kernel does, so a row
 // whose keys are all masked averages over Tk.
 
@@ -218,7 +219,8 @@ attention_fwd_mma_kernel(const __nv_bfloat16* __restrict__ q,
                          const __nv_bfloat16* __restrict__ k,
                          const __nv_bfloat16* __restrict__ v,
                          const int* __restrict__ q_len, const int* __restrict__ k_len,
-                         __nv_bfloat16* __restrict__ out, float* __restrict__ lse,
+                         __nv_bfloat16* __restrict__ out,
+                         __nv_bfloat16* __restrict__ out_lo, float* __restrict__ lse,
                          int H, int Tq, int Tk, float scale, uint32_t seed,
                          uint32_t threshold, float keep_prob, int causal, int band) {
   using namespace asr;
@@ -392,43 +394,41 @@ attention_fwd_mma_kernel(const __nv_bfloat16* __restrict__ q,
       lse[bh * Tq + irow[r]] = m_run[r] * LN2 + logf(l_run[r]);
   }
   __nv_bfloat16* stage = Qs + warp * 16 * LD;
+  store_rows<D>(o, norm, stage, out + bh * Tq * D, i0 + warp * 16, Tq, lane);
+  if (out_lo == nullptr) return;
+  // what the rounding of the output to bf16 took away, as a second bf16
+  // array: the backward takes D = dO . (out + out_lo), as good as from f32
+  __syncwarp();  // the stage has been read
 #pragma unroll
   for (int dn = 0; dn < DN; ++dn) {
 #pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      *reinterpret_cast<__nv_bfloat162*>(&stage[(g + 8 * r) * LD + dn * 8 + 2 * t4]) =
-          __floats2bfloat162_rn(o[dn][2 * r] * norm[r], o[dn][2 * r + 1] * norm[r]);
+    for (int e = 0; e < 4; ++e) {
+      const float x = o[dn][e] * norm[e >> 1];
+      o[dn][e] = x - __bfloat162float(__float2bfloat16_rn(x));
     }
   }
-  __syncwarp();
-  constexpr int CPR = D / 8;
-  for (int c = lane; c < 16 * CPR; c += 32) {
-    const int r = c / CPR;
-    const int cc = c - r * CPR;
-    const int i = i0 + warp * 16 + r;
-    if (i < Tq)
-      *reinterpret_cast<uint4*>(out + (bh * Tq + i) * D + cc * 8) =
-          *reinterpret_cast<const uint4*>(&stage[r * LD + cc * 8]);
-  }
+  store_rows<D>(o, 1.0f, stage, out_lo + bh * Tq * D, i0 + warp * 16, Tq, lane);
 }
 
 template <int D, bool DROPOUT>
 void launch_mma(const void* q, const void* k, const void* v, const int* q_len,
-                const int* k_len, void* out, float* lse, int B, int H, int Tq,
-                int Tk, float scale, uint32_t seed, uint32_t threshold,
+                const int* k_len, void* out, void* out_lo, float* lse, int B, int H,
+                int Tq, int Tk, float scale, uint32_t seed, uint32_t threshold,
                 float keep_prob, int causal, int band, cudaStream_t stream) {
   dim3 grid((Tq + asr::ATT_TILE - 1) / asr::ATT_TILE, H, B);
   attention_fwd_mma_kernel<D, DROPOUT><<<grid, MMA_THREADS, 0, stream>>>(
       (const __nv_bfloat16*)q, (const __nv_bfloat16*)k, (const __nv_bfloat16*)v,
-      q_len, k_len, (__nv_bfloat16*)out, lse, H, Tq, Tk, scale, seed, threshold,
-      keep_prob, causal, band);
+      q_len, k_len, (__nv_bfloat16*)out, (__nv_bfloat16*)out_lo, lse, H, Tq, Tk, scale,
+      seed, threshold, keep_prob, causal, band);
 }
 
 }  // namespace
 
 // q: (B, H, Tq, D), k/v: (B, H, Tk, D), out: (B, H, Tq, D), all contiguous,
 // bf16 (is_bf16=1) or f32; q_len/k_len: (B,) int32 on the device; lse:
-// (B, H, Tq) f32 row log-sum-exp output, or null. bf16 runs on the tensor
+// (B, H, Tq) f32 row log-sum-exp output, or null; out_lo: (B, H, Tq, D) bf16
+// output for what the rounding of a bf16 ``out`` took away (the backward
+// kernel's input), or null, and unused for f32. bf16 runs on the tensor
 // cores, f32 on FMAs. Returns cudaGetLastError() after the launch, or
 // cudaErrorInvalidValue for a head dim without an instantiation.
 #define ASR_ATTN_ARGS                                                          \
@@ -438,22 +438,22 @@ void launch_mma(const void* q, const void* k, const void* v, const int* q_len,
 #define ASR_ATTN_MMA(DIM)                                                      \
   do {                                                                         \
     if (dropout)                                                               \
-      launch_mma<DIM, true>(q, k, v, q_len, k_len, out, lse, B, H, Tq, Tk,      \
-                            scale, seed, threshold, keep_prob, causal, band,    \
-                            (cudaStream_t)stream);                             \
+      launch_mma<DIM, true>(q, k, v, q_len, k_len, out, out_lo, lse, B, H, Tq,  \
+                            Tk, scale, seed, threshold, keep_prob, causal,      \
+                            band, (cudaStream_t)stream);                       \
     else                                                                       \
-      launch_mma<DIM, false>(q, k, v, q_len, k_len, out, lse, B, H, Tq, Tk,     \
-                             scale, seed, threshold, keep_prob, causal, band,   \
-                             (cudaStream_t)stream);                            \
+      launch_mma<DIM, false>(q, k, v, q_len, k_len, out, out_lo, lse, B, H, Tq, \
+                             Tk, scale, seed, threshold, keep_prob, causal,     \
+                             band, (cudaStream_t)stream);                      \
   } while (0)
 
 extern "C" int asr_attention_fwd(const void* q, const void* k, const void* v,
                                  const int* q_len, const int* k_len, void* out,
-                                 float* lse, int B, int H, int Tq, int Tk, int D,
-                                 int is_bf16, float scale, unsigned int seed,
-                                 unsigned int threshold, float keep_prob,
-                                 int dropout, int causal, int band,
-                                 void* stream) {
+                                 void* out_lo, float* lse, int B, int H, int Tq,
+                                 int Tk, int D, int is_bf16, float scale,
+                                 unsigned int seed, unsigned int threshold,
+                                 float keep_prob, int dropout, int causal,
+                                 int band, void* stream) {
   if (D == 64) {
     if (is_bf16) ASR_ATTN_MMA(64); else launch<float, 64>(ASR_ATTN_ARGS);
   } else if (D == 32) {
@@ -464,24 +464,5 @@ extern "C" int asr_attention_fwd(const void* q, const void* k, const void* v,
   return (int)cudaGetLastError();
 }
 
-// The FMA design for both input types: what bf16 calls ran before the
-// tensor-core kernel. Nothing in the package calls it; it is built so that
-// the two designs can be timed side by side in one process.
-extern "C" int asr_attention_fwd_fma(const void* q, const void* k, const void* v,
-                                     const int* q_len, const int* k_len, void* out,
-                                     float* lse, int B, int H, int Tq, int Tk, int D,
-                                     int is_bf16, float scale, unsigned int seed,
-                                     unsigned int threshold, float keep_prob,
-                                     int dropout, int causal, int band,
-                                     void* stream) {
-  if (D == 64) {
-    if (is_bf16) launch<__nv_bfloat16, 64>(ASR_ATTN_ARGS); else launch<float, 64>(ASR_ATTN_ARGS);
-  } else if (D == 32) {
-    if (is_bf16) launch<__nv_bfloat16, 32>(ASR_ATTN_ARGS); else launch<float, 32>(ASR_ATTN_ARGS);
-  } else {
-    return (int)cudaErrorInvalidValue;
-  }
-  return (int)cudaGetLastError();
-}
 #undef ASR_ATTN_MMA
 #undef ASR_ATTN_ARGS

@@ -1,8 +1,9 @@
 // Building blocks of the tensor-core attention kernels: 16-byte asynchronous
 // copies into shared memory (cp.async, zero-filling), ldmatrix fragment
 // loads, the bf16 mma.sync.m16n8k16 product with f32 accumulators, the
-// hi + lo split that feeds an f32 operand to it, and the key-tile range a
-// block of query rows has to visit.
+// hi + lo split that feeds an f32 operand to it, the store of a warp's
+// result rows, the per-row window bounds, and the key-tile range a block of
+// query rows has to visit.
 //
 // Fragment layout of mma.m16n8k16 (lane = 4 g + t, g = 0..7, t = 0..3):
 //   A (16 x 16, row):  a0 (g, 2t..2t+1)  a1 (g+8, 2t..)  a2 (g, 2t+8..)  a3 (g+8, 2t+8..)
@@ -124,14 +125,21 @@ __device__ __forceinline__ void split_pair(float x, float y, uint32_t& hi, uint3
   lo = *reinterpret_cast<const uint32_t*>(&l);
 }
 
-// A fragments (hi and lo) of columns [16 ks, 16 ks + 16) of a 16 x 64 f32
-// accumulator tile held as eight 16 x 8 accumulators
+// A fragments (hi and lo) of a 16 x 16 f32 tile held as two neighbouring
+// 16 x 8 accumulators
+__device__ __forceinline__ void split_fragment(const float (&left)[4], const float (&right)[4],
+                                               uint32_t (&hi)[4], uint32_t (&lo)[4]) {
+  split_pair(left[0], left[1], hi[0], lo[0]);
+  split_pair(left[2], left[3], hi[1], lo[1]);
+  split_pair(right[0], right[1], hi[2], lo[2]);
+  split_pair(right[2], right[3], hi[3], lo[3]);
+}
+
+// the same for columns [16 ks, 16 ks + 16) of a 16 x 64 f32 accumulator tile
+// held as eight 16 x 8 accumulators
 __device__ __forceinline__ void split_fragment(const float (&acc)[8][4], int ks,
                                                uint32_t (&hi)[4], uint32_t (&lo)[4]) {
-  split_pair(acc[2 * ks][0], acc[2 * ks][1], hi[0], lo[0]);
-  split_pair(acc[2 * ks][2], acc[2 * ks][3], hi[1], lo[1]);
-  split_pair(acc[2 * ks + 1][0], acc[2 * ks + 1][1], hi[2], lo[2]);
-  split_pair(acc[2 * ks + 1][2], acc[2 * ks + 1][3], hi[3], lo[3]);
+  split_fragment(acc[2 * ks], acc[2 * ks + 1], hi, lo);
 }
 
 // acc (16 x D) += (hi + lo) B, for a 16 x 16 operand given as its hi and lo
@@ -173,6 +181,61 @@ __device__ __forceinline__ void load_a_fragment(uint32_t (&a)[4], const __nv_bfl
     const int col = c + 8 * (e >> 1);
     a[e] = r < limit ? *reinterpret_cast<const uint32_t*>(src + (size_t)r * D + col) : 0u;
   }
+}
+
+// (left | right) (16 x 16) += A B^T for A = 16 x D given as its fragments and
+// B = rows [0, 16) of a shared tile with row stride D + ATT_PAD (``rows``
+// points at the first): the scores of 16 owned rows against 16 rows of the
+// other side, as two 16 x 8 accumulators
+template <int D>
+__device__ __forceinline__ void mma_rows_t(float (&left)[4], float (&right)[4],
+                                           const uint32_t (&a)[D / 16][4],
+                                           const __nv_bfloat16* rows, int lane) {
+  constexpr int LD = D + ATT_PAD;
+#pragma unroll
+  for (int ks = 0; ks < D / 16; ++ks) {
+    uint32_t f[4];
+    ldmatrix_x4(f, rows + ((lane >> 4) * 8 + (lane & 7)) * LD + ks * 16 + ((lane >> 3) & 1) * 8);
+    mma_bf16(left, a[ks], f[0], f[1]);
+    mma_bf16(right, a[ks], f[2], f[3]);
+  }
+}
+
+// this warp's 16 rows of a 16 x D f32 result, row g times mul[0] and row
+// g + 8 times mul[1], through its own 16 rows of a shared tile (``stage``)
+// and out as 16-byte stores; rows at or past ``limit`` are not written
+template <int D>
+__device__ __forceinline__ void store_rows(const float (&acc)[D / 8][4], const float (&mul)[2],
+                                           __nv_bfloat16* stage, __nv_bfloat16* dst,
+                                           int r0, int limit, int lane) {
+  constexpr int LD = D + ATT_PAD;
+  constexpr int CPR = D / 8;
+  const int g = lane >> 2;
+  const int t4 = lane & 3;
+#pragma unroll
+  for (int dn = 0; dn < D / 8; ++dn) {
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      *reinterpret_cast<__nv_bfloat162*>(&stage[(g + 8 * r) * LD + dn * 8 + 2 * t4]) =
+          __floats2bfloat162_rn(acc[dn][2 * r] * mul[r], acc[dn][2 * r + 1] * mul[r]);
+    }
+  }
+  __syncwarp();
+  for (int c = lane; c < 16 * CPR; c += 32) {
+    const int r = c / CPR;
+    const int cc = c - r * CPR;
+    if (r0 + r < limit)
+      *reinterpret_cast<uint4*>(dst + (size_t)(r0 + r) * D + cc * 8) =
+          *reinterpret_cast<const uint4*>(&stage[r * LD + cc * 8]);
+  }
+}
+
+template <int D>
+__device__ __forceinline__ void store_rows(const float (&acc)[D / 8][4], float mul,
+                                           __nv_bfloat16* stage, __nv_bfloat16* dst,
+                                           int r0, int limit, int lane) {
+  const float both[2] = {mul, mul};
+  store_rows<D>(acc, both, stage, dst, r0, limit, lane);
 }
 
 // key_visible as a range: row i sees the keys [i - below, i + above] that lie

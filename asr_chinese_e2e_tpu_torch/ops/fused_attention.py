@@ -4,7 +4,7 @@
 ``asr_chinese_e2e_tpu/ops/fused_attention.py::_fwd_kernel`` and
 ``_bwd_kernel``; and the windowed causal-band forward and backward (K6, K7,
 ``csrc/banded_attention.cu``), the port of ``_banded_fwd_kernel`` and
-``_banded_bwd_kernel``. K1 and K2 run bf16 inputs on the tensor cores
+``_banded_bwd_kernel``. All four run bf16 inputs on the tensor cores
 (``mma.sync``, ``csrc/mma.cuh``) and f32 inputs on FMAs.
 
 ``fused_attention_general`` takes (B, H, T, D) tensors and is
@@ -265,12 +265,8 @@ def keyless_row_gap(q_lengths, k_lengths, tq: int, tk: int):
     return q_lengths.clamp(max=tq) - k_lengths.clamp(max=tk)
 
 
-def _check_kernel_inputs(q, k, v, q_lengths, k_lengths, backward_band: int = 0):
-    """Validate inputs for the kernels; returns (q_len, k_len) as int32 on
-    q's device. ``backward_band`` > 0: the call is a backward under that
-    band, which recomputes the weights from the row log-sum-exp and so
-    refuses a query row without a visible key (its scores are all -1e9,
-    where f32 absorbs the log Tk of its log-sum-exp)."""
+def _check_tensors(q, k, v):
+    """Device, shapes, dtypes and layout the kernels take."""
     if q.device.type != "cuda":
         raise ValueError(f"attention kernel: unsupported device {q.device}")
     if q.dim() != 4 or k.dim() != 4 or k.shape != v.shape:
@@ -278,7 +274,7 @@ def _check_kernel_inputs(q, k, v, q_lengths, k_lengths, backward_band: int = 0):
             f"attention kernel: bad shapes q {tuple(q.shape)} k {tuple(k.shape)} "
             f"v {tuple(v.shape)}"
         )
-    bsz, heads, tq, d = q.shape
+    bsz, heads, _, d = q.shape
     if k.shape[0] != bsz or k.shape[1] != heads or k.shape[3] != d:
         raise ValueError("attention kernel: q and k/v disagree on B, H or D")
     if q.dtype not in _KERNEL_DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
@@ -289,6 +285,17 @@ def _check_kernel_inputs(q, k, v, q_lengths, k_lengths, backward_band: int = 0):
         raise ValueError("attention kernel: q, k and v must be contiguous")
     if not (q.device == k.device == v.device):
         raise ValueError("attention kernel: q, k and v on different devices")
+
+
+def _check_kernel_inputs(q, k, v, q_lengths, k_lengths, backward_band: int = 0):
+    """Validate inputs for the kernels; returns (q_len, k_len) as int32 on
+    q's device. ``backward_band`` > 0: a backward under that band follows
+    (or is this call), which recomputes the weights from the row
+    log-sum-exp and so refuses a query row without a visible key (its
+    scores are all -1e9, where f32 absorbs the log Tk of its log-sum-exp).
+    The one host sync of an attention call, forward and backward."""
+    _check_tensors(q, k, v)
+    bsz, tq = q.shape[0], q.shape[2]
     q_len = q_lengths.to(device=q.device, dtype=torch.int32).contiguous()
     k_len = k_lengths.to(device=q.device, dtype=torch.int32).contiguous()
     if q_len.shape != (bsz,) or k_len.shape != (bsz,):
@@ -309,6 +316,19 @@ def _check_kernel_inputs(q, k, v, q_lengths, k_lengths, backward_band: int = 0):
     return q_len, k_len
 
 
+def _check_banded(err: int, name: str, q, band: int) -> None:
+    """Raise on what a banded entry point returned. A negative code is the
+    refusal of the tensor-core K6/K7, made before any launch: they keep a
+    block's whole window in shared memory, ceil(band / 64) + 1 tiles of 64
+    rows (no more than T holds), and the code is minus the most they hold."""
+    if err < 0:
+        raise ValueError(
+            f"banded attention kernel: band {band} over {q.shape[2]} frames needs more "
+            f"than {-err} resident tiles of 64 rows (bf16)"
+        )
+    check(err, name)
+
+
 def _dropout_args(seed, rate):
     rate = float(rate)
     return (
@@ -317,17 +337,29 @@ def _dropout_args(seed, rate):
     )
 
 
-def _launch(q, k, v, q_len, k_len, seed, scale, rate, causal, band, lse=None):
+def _residual_ptr(q, out_lo):
+    """The pointer of the output's rounding residual, which only the bf16
+    kernels write and read."""
+    if out_lo is None or q.dtype != torch.bfloat16:
+        return None
+    if out_lo.shape != q.shape or out_lo.dtype != q.dtype or not out_lo.is_contiguous():
+        raise ValueError("attention kernel: out_lo must be like q")
+    return out_lo.data_ptr()
+
+
+def _launch(q, k, v, q_len, k_len, seed, scale, rate, causal, band, lse=None, out_lo=None):
     """Launch the forward kernel on tensors that ``_check_kernel_inputs``
     has checked; returns the new output. ``lse``, when given, is a (B, H,
-    Tq) f32 tensor that receives each row's log-sum-exp."""
+    Tq) f32 tensor that receives each row's log-sum-exp; ``out_lo``, when
+    given (bf16 only), a tensor like q that receives what the rounding of
+    the output to bf16 took away (K2 takes D from the two together)."""
     bsz, heads, tq, d = q.shape
     out = torch.empty_like(q)
     lib = load_library()
     with torch.cuda.device(q.device):
         err = lib.asr_attention_fwd(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), q_len.data_ptr(),
-            k_len.data_ptr(), out.data_ptr(),
+            k_len.data_ptr(), out.data_ptr(), _residual_ptr(q, out_lo),
             None if lse is None else lse.data_ptr(),
             bsz, heads, tq, k.shape[2], d, int(q.dtype == torch.bfloat16),
             float(scale), *_dropout_args(seed, rate), int(bool(causal)), int(band),
@@ -338,27 +370,36 @@ def _launch(q, k, v, q_len, k_len, seed, scale, rate, causal, band, lse=None):
     return out
 
 
-def attention_backward_kernel(
-    q, k, v, out, lse, q_lengths, k_lengths, seed, scale, rate, causal, band, dout
+def _check_backward_tensors(q, lse, dout, *same_as_q):
+    """dO in q's dtype and contiguous, after the shape and layout checks
+    the backward kernels need beyond ``_check_tensors``."""
+    if dout.shape != q.shape or any(x.shape != q.shape for x in same_as_q):
+        raise ValueError("attention backward kernel: out/dout shapes")
+    if lse.shape != q.shape[:3] or lse.dtype != torch.float32:
+        raise ValueError("attention backward kernel: lse must be (B, H, Tq) f32")
+    if not (lse.is_contiguous() and all(x.is_contiguous() for x in same_as_q)):
+        raise ValueError("attention backward kernel: out/lse contiguous")
+    return dout.to(q.dtype).contiguous()
+
+
+def _launch_backward(
+    q, k, v, out, lse, q_len, k_len, seed, scale, rate, causal, band, dout, out_lo=None
 ):
-    """K2: (dq, dk, dv) in the inputs' dtype, from the forward's output and
-    row log-sum-exp (``lse``, (B, H, Tq) f32). CUDA tensors only. Under a
-    band every query row below its q_length must see a key: q_length <=
-    k_length + band, else ValueError."""
-    q_len, k_len = _check_kernel_inputs(q, k, v, q_lengths, k_lengths, int(band))
+    """Launch K2 on tensors and int32 lengths that have been checked (by
+    ``attention_backward_kernel``, or by the forward of the autograd
+    Function, whose one host sync also covers the backward's refusal).
+    ``out_lo``: what K1 wrote beside a bf16 ``out``; without it D comes
+    from the rounded output alone."""
     bsz, heads, tq, d = q.shape
-    dout = dout.to(q.dtype).contiguous()
-    if out.shape != q.shape or dout.shape != q.shape or lse.shape != (bsz, heads, tq):
-        raise ValueError("attention backward kernel: out/dout/lse shapes")
-    if lse.dtype != torch.float32 or not (out.is_contiguous() and lse.is_contiguous()):
-        raise ValueError("attention backward kernel: lse f32, out/lse contiguous")
+    dout = _check_backward_tensors(q, lse, dout, out)
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
     delta = torch.empty((bsz, heads, tq), dtype=torch.float32, device=q.device)
     lib = load_library()
     with torch.cuda.device(q.device):
         err = lib.asr_attention_bwd(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-            dout.data_ptr(), lse.data_ptr(), q_len.data_ptr(), k_len.data_ptr(),
+            _residual_ptr(q, out_lo), dout.data_ptr(), lse.data_ptr(),
+            q_len.data_ptr(), k_len.data_ptr(),
             delta.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
             bsz, heads, tq, k.shape[2], d, int(q.dtype == torch.bfloat16),
             float(scale), *_dropout_args(seed, rate), int(bool(causal)), int(band),
@@ -367,6 +408,21 @@ def attention_backward_kernel(
     check(err, "asr_attention_bwd")
     attention_backward_kernel.launches += 1
     return dq, dk, dv
+
+
+def attention_backward_kernel(
+    q, k, v, out, lse, q_lengths, k_lengths, seed, scale, rate, causal, band, dout,
+    out_lo=None,
+):
+    """K2: (dq, dk, dv) in the inputs' dtype, from the forward's output and
+    row log-sum-exp (``lse``, (B, H, Tq) f32), and for bf16 the output's
+    rounding residual (``out_lo``) where K1 wrote it. CUDA tensors only.
+    Under a band every query row below its q_length must see a key:
+    q_length <= k_length + band, else ValueError."""
+    q_len, k_len = _check_kernel_inputs(q, k, v, q_lengths, k_lengths, int(band))
+    return _launch_backward(
+        q, k, v, out, lse, q_len, k_len, seed, scale, rate, causal, band, dout, out_lo
+    )
 
 
 def banded_attention_kernel(q, k, v, n, seed, scale, rate, band, lse=None):
@@ -386,21 +442,17 @@ def banded_attention_kernel(q, k, v, n, seed, scale, rate, band, lse=None):
             *_dropout_args(seed, rate), int(band), _block_q(band),
             torch.cuda.current_stream().cuda_stream,
         )
-    check(err, "asr_banded_attention_fwd")
+    _check_banded(err, "asr_banded_attention_fwd", q, band)
     banded_attention_kernel.launches += 1
     return out
 
 
-def banded_attention_backward_kernel(q, k, v, lse, lengths, seed, scale, rate, band, dout):
-    """K7: (dq, dk, dv) in the inputs' dtype, from K6's row log-sum-exp
-    (``lse``, (B, H, T) f32). CUDA tensors only."""
-    _, n = _check_kernel_inputs(q, k, v, lengths, lengths)
+def _launch_banded_backward(q, k, v, lse, n, seed, scale, rate, band, dout):
+    """Launch K7 on tensors and int32 lengths (``n``, on the card) that
+    have been checked, by ``banded_attention_backward_kernel`` or by the
+    forward of the autograd Function."""
     bsz, heads, t, d = q.shape
-    dout = dout.to(q.dtype).contiguous()
-    if k.shape != q.shape or dout.shape != q.shape:
-        raise ValueError("banded attention backward kernel: q/k/v/dout shapes")
-    if lse.shape != (bsz, heads, t) or lse.dtype != torch.float32 or not lse.is_contiguous():
-        raise ValueError("banded attention backward kernel: lse must be (B, H, T) f32")
+    dout = _check_backward_tensors(q, lse, dout)
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
     delta = torch.empty((bsz, heads, t), dtype=torch.float32, device=q.device)
     lib = load_library()
@@ -413,18 +465,54 @@ def banded_attention_backward_kernel(q, k, v, lse, lengths, seed, scale, rate, b
             *_dropout_args(seed, rate), int(band), _block_q(band),
             torch.cuda.current_stream().cuda_stream,
         )
-    check(err, "asr_banded_attention_bwd")
+    _check_banded(err, "asr_banded_attention_bwd", q, band)
     banded_attention_backward_kernel.launches += 1
     return dq, dk, dv
+
+
+def banded_attention_backward_kernel(q, k, v, lse, lengths, seed, scale, rate, band, dout):
+    """K7: (dq, dk, dv) in the inputs' dtype, from K6's row log-sum-exp
+    (``lse``, (B, H, T) f32). CUDA tensors only. No refusal as K2's: on
+    this route row i below its length sees key i."""
+    _, n = _check_kernel_inputs(q, k, v, lengths, lengths)
+    if k.shape != q.shape:
+        raise ValueError("banded attention backward kernel: q/k/v shapes")
+    return _launch_banded_backward(q, k, v, lse, n, seed, scale, rate, band, dout)
+
+
+def _forward_kernels(
+    q, k, v, q_lengths, k_lengths, seed, scale, rate, causal, band, banded, needs_grad
+):
+    """K1, or K6 on the windowed route, after the call's one validation and
+    host sync; returns (out, what the backward needs or None). When a
+    gradient is needed the sync also covers K2's refusal of a query row
+    without a visible key (a band, and q_length > k_length + band; K7 has
+    no such row), so the backward launches on these lengths unchecked."""
+    refuse = int(band) if needs_grad and not banded else 0
+    q_len, k_len = _check_kernel_inputs(q, k, v, q_lengths, k_lengths, refuse)
+    lse = out_lo = None
+    if needs_grad:
+        lse = torch.empty(q.shape[:3], dtype=torch.float32, device=q.device)
+    if banded:
+        out = banded_attention_kernel(q, k, v, k_len, seed, scale, rate, band, lse)
+    else:
+        if needs_grad and q.dtype == torch.bfloat16:
+            out_lo = torch.empty_like(q)
+        out = _launch(q, k, v, q_len, k_len, seed, scale, rate, causal, band, lse, out_lo)
+    if not needs_grad:
+        return out, None
+    # K7 needs no forward output; K2 takes D from a bf16 output and its residual
+    return out, (q, k, v, q_len, k_len, None if banded else out, lse, out_lo)
 
 
 class _FusedAttention(torch.autograd.Function):
     """Forward K1 and backward K2, or K6 and K7 on the windowed route
     (plain versions on the CPU). The route is chosen once, in ``forward``.
-    Saves q, k, v and, on the card, the row log-sum-exp (and the output,
-    which K2 needs and K7 does not): no
-    (Tq, Tk) tensor is kept for the backward. The windowed route passes
-    ``k_lengths`` as its one length, as the JAX package does."""
+    Saves q, k, v and, on the card, the checked int32 lengths and the row
+    log-sum-exp (and the output, with its rounding residual in bf16, which
+    K2 needs and K7 does not): no (Tq, Tk) tensor is kept for the backward,
+    and the backward makes no host sync of its own. The windowed route
+    passes ``k_lengths`` as its one length, as the JAX package does."""
 
     @staticmethod
     def forward(ctx, q, k, v, q_lengths, k_lengths, seed, scale, rate, causal, band):
@@ -443,16 +531,12 @@ class _FusedAttention(torch.autograd.Function):
             if needs_grad:
                 ctx.save_for_backward(q, k, v, q_lengths, k_lengths)
             return out
-        q_len, k_len = _check_kernel_inputs(q, k, v, q_lengths, k_lengths)
-        lse = None
-        if needs_grad:
-            lse = torch.empty(q.shape[:3], dtype=torch.float32, device=q.device)
-        if banded:
-            out = banded_attention_kernel(q, k, v, k_len, seed, scale, rate, band, lse)
-        else:
-            out = _launch(q, k, v, q_len, k_len, seed, scale, rate, causal, band, lse)
-        if needs_grad:  # K7 needs no forward output
-            ctx.save_for_backward(q, k, v, q_len, k_len, None if banded else out, lse)
+        out, saved = _forward_kernels(
+            q, k, v, q_lengths, k_lengths, seed, scale, rate, causal, band, banded,
+            needs_grad,
+        )
+        if saved is not None:
+            ctx.save_for_backward(*saved)
         return out
 
     @staticmethod
@@ -471,15 +555,15 @@ class _FusedAttention(torch.autograd.Function):
                     dout,
                 )
         else:
-            q, k, v, q_len, k_len, out, lse = saved
+            q, k, v, q_len, k_len, out, lse, out_lo = saved
             if banded:
-                grads = banded_attention_backward_kernel(
+                grads = _launch_banded_backward(
                     q, k, v, lse, k_len, seed, scale, rate, band, dout
                 )
             else:
-                grads = attention_backward_kernel(
+                grads = _launch_backward(
                     q, k, v, out, lse, q_len, k_len, seed, scale, rate, causal, band,
-                    dout,
+                    dout, out_lo,
                 )
         return (*grads, None, None, None, None, None, None, None)
 
@@ -493,8 +577,10 @@ def fused_attention_general(
     D) in q's dtype with padded query rows zeroed; differentiable in q, k
     and v. ``causal`` masks kpos > qpos; ``band`` > 0 restricts keys to
     [q-band, q] (causal) or |q-k| <= band. Every k_length must be >= 1;
-    on the card the backward under a band also needs q_length <= k_length +
-    band (every query row sees a key), else it raises ValueError.
+    on the card a call that needs a gradient under a band also needs
+    q_length <= k_length + band (every query row sees a key: the backward
+    kernel's precondition, checked in the forward's one host sync), else
+    it raises ValueError.
     With ``ASR_BANDED_WINDOW=1`` a causal, banded, square call takes the
     windowed route (K6/K7), where ``k_lengths`` masks keys and zeroes
     query rows."""

@@ -10,7 +10,8 @@ through its kernels. Run from the repository root:
 
     python3 chip_smoke.py
 
-Phases (any failure raises, so the exit code is non-zero):
+Phases (any failure raises, so the exit code is non-zero; phases 3-14 each
+print the seconds they took):
 
 1. require CUDA; print the card (``nvidia-smi``); TF32 off;
 2. build the kernels (``ops/_build.py``, one nvcc per source in parallel)
@@ -18,7 +19,9 @@ Phases (any failure raises, so the exit code is non-zero):
 3. K5 fbank kernel vs ``log_mel_spectrogram``: log-mel abs diff and mel
    energy rel diff <= 1e-3, at the serving batch (8, 128000), the
    training batch (64, 128000) and an odd length. Here and in phases 4-7
-   a kernel is timed in turns with its plain version and, where one
+   a kernel is timed in turns (through the function the main path calls
+   it by: allocations included, the call's one validation and host sync
+   not) with its plain version and, where one
    PyTorch call computes the same function, that call (``library_ms``:
    ``F.scaled_dot_product_attention`` with a bool mask at dropout 0 for
    the attention kernels, its forward+backward minus its forward for the
@@ -32,25 +35,40 @@ Phases (any failure raises, so the exit code is non-zero):
    <= 2e-2 abs, at the serving encoder shapes (8, 8, 267|501, 64), the
    causal / band / rectangular / dropout cases, the training encoder
    shape (64, 8, 267, 64) with hash dropout 0.1, head dim 32, a single
-   query row over 267 keys, and a causal band 50 whose keys end 50 rows
-   before the queries do; at the training and serving shapes
-   also the time of the scalar-FMA build of the bf16 kernel (the design
-   it replaced), in turns with the rest;
+   query row over 267 keys, a causal band 50 whose keys end 50 rows
+   before the queries do, and the training shape under a causal band 50
+   with dropout 0.1; at the training and serving shapes also the device
+   time of the C entry point alone (20 launches back to back; at the
+   training shape K1 is called as for a backward, writing the row
+   log-sum-exp and the rounding residual of its bf16 output too);
 5. K2 attention backward (through the autograd Function, after K1 saved
    the row log-sum-exp) vs ``attention_backward_reference``: dq, dk, dv
    f32 <= 1e-4 abs, bf16 <= 2e-2 abs of the f32 reference, same cases;
-   the same times; with query rows that see no key at all (causal band
-   20, 267 rows over 100, 30 and 1 keys) K1 must still agree and K2,
-   which cannot recompute such a row's weights, must raise;
+   the same times, and beside ``ms`` (the launch function the autograd
+   Function's backward runs) ``checked_ms`` (the public wrapper, with its
+   validation and host sync) and the validation alone on the host's clock
+   (``check_ms``); with query rows that see no key at all (causal band
+   20, 267 rows over 100, 30 and 1 keys) K1 must still agree, and a call
+   that needs a gradient must be refused in its forward (K2 cannot
+   recompute such a row's weights), as a direct call of K2's wrapper;
 6. K6/K7 windowed causal-band attention (through the autograd Function
    with ``ASR_BANDED_WINDOW=1``) vs ``banded_attention_reference`` and
-   ``banded_attention_backward_reference``, same bounds, at the streaming
-   training shape (64, 8, 267, 64) band 50 with and without hash dropout
-   0.1, the streaming serving shape (1, 8, 501, 64), (2, 8, 150, 64) band
-   30 with lengths [150, 97], and bands 64 and 65 at T = 501; K6 vs K1 on
-   the same f32 inputs with dropout 0.1 <= 1e-5 abs; median times of K6,
-   its plain version and K1, and of K7, its plain version and K2, at the
-   training shape;
+   ``banded_attention_backward_reference``, same bounds (bf16: the
+   tensor-core kernels; f32: the FMA kernels), at the streaming training
+   shape (64, 8, 267, 64) band 50 with and without hash dropout 0.1, the
+   streaming serving shape (1, 8, 501, 64), (2, 8, 150, 64) band 30 with
+   lengths [150, 97], bands 64, 65 and 128 at T = 501, band 704 at T =
+   1500 (the twelve resident tiles a block can hold; a bf16 window of
+   more must be refused before any launch, and f32 must serve it), head
+   dim 32, the short segments of the prefix re-encode (T = 67 and T = 11)
+   and a length that is no multiple of 16; K6 vs K1 on the same f32
+   inputs with dropout 0.1 <= 1e-5 abs, and on the same bf16 inputs K6 vs
+   K1 and K7 vs K2 <= 2e-2 (each beside its distance to the f32 plain
+   version, <= 2e-2 too); at the training shape the median times of K6, its
+   plain version, K1 and the library call, and of K7, its plain version,
+   K2 and the library call, with dropout 0.1 and with none, and the
+   device times of the C entry points alone; K6 also at the serving
+   shape;
 7. K3/K4 CTC vs ``ctc_alpha_reference`` / ``ctc_beta_reference`` and the
    loss vs ``F.ctc_loss`` at (64, 267, 4233), ragged lengths, label pad
    32, f32 and bf16: loss rel <= 1e-4, gradient abs <= 1e-3 (f32; 1e-2
@@ -97,14 +115,18 @@ Phases (any failure raises, so the exit code is non-zero):
     after 3 warm-up steps: ms per step, steps/s, audio-s/s and MFU
     against the H100 SXM dense bf16 peak;
 14. streaming throughput: the streaming recipe on one fixed batch of
-    64 x 8 s, 3 warm-up then 20 timed steps with ``ASR_BANDED_WINDOW=1``
-    (K6/K7) and then ``=0`` (K1/K2), back to back: ms per step and
-    audio-s/s of each;
+    64 x 8 s, one model, 3 warm-up steps on each route, then 5 pairs of
+    segments of 4 timed steps, one with ``ASR_BANDED_WINDOW=1`` (K6/K7)
+    and one with ``=0`` (K1/K2), the order swapped from pair to pair: ms
+    per step of every segment, each route's median and audio-s/s, and in
+    how many pairs the window won;
 15. print the kernels' JSON line (per kernel: route, source, the TPU
     kernel it replaces, launches on the main paths and per flagship
     train step, streaming train step and serving batch, and at the
     training shape ``shape``, ``max_abs_err``, ``ms``, ``plain_ms``,
-    ``bound_ms``, ``bound_by``, ``library_ms``; ``other_shapes`` holds
+    ``bound_ms``, ``bound_by``, ``library_ms``, ``device_ms`` (20 launches
+    back to back: of the C entry point for the attention kernels, of the
+    wrapper for K3-K5) and for K2 and K7 ``checked_ms``; ``other_shapes`` holds
     the same for the serving shapes), the card line, and last
     ``{"ok": true, "device": {...}}``.
 """
@@ -325,16 +347,23 @@ def _measured(shape, err, times: dict, limits: dict) -> dict:
     }
 
 
-def _device_times(what, shape, device: dict, limits: dict) -> dict:
-    """Print and return the device times of the tensor-core kernel and of the
-    scalar-FMA design it replaced, launched back to back through their C
-    entry points, in turns."""
+def _device_times(what, shape, device_ms: float, limits: dict) -> dict:
+    """Print and return the device time of a kernel's C entry point,
+    launched back to back."""
     print(f"{what} {shape} bf16, device time of the entry point alone ({DEVICE_REPS} "
-          f"launches back to back, in turns, median of 10): tensor-core kernel "
-          f"{device['kernel']:.4f} ms ({limits['bound_ms'] / device['kernel'] * 100:.1f} % "
-          f"of the bound), scalar-FMA design {device['fma']:.4f} ms "
-          f"({device['fma'] / device['kernel']:.2f} x)")
-    return {"device_ms": device["kernel"], "fma_device_ms": device["fma"]}
+          f"launches back to back, median of 10): {device_ms:.4f} ms "
+          f"({limits['bound_ms'] / device_ms * 100:.1f} % of the bound)")
+    return {"device_ms": device_ms}
+
+
+def _wrapper_device_times(what, shape, fn, limits: dict) -> dict:
+    """The same for a kernel that outlasts its wrapper's host work (K3-K5):
+    the wrapper itself, called back to back."""
+    device_ms = turns_ms({"kernel": fn}, n=5, reps=DEVICE_REPS)["kernel"]
+    print(f"{what} {shape}, device time ({DEVICE_REPS} calls of the wrapper back to back, "
+          f"median of 10): {device_ms:.4f} ms "
+          f"({limits['bound_ms'] / device_ms * 100:.1f} % of the bound)")
+    return {"device_ms": device_ms}
 
 
 def _print_times(what, shape, times: dict, limits: dict) -> None:
@@ -397,7 +426,10 @@ def check_fbank(dev) -> dict:
             })
             limits = fbank_bound(*shape, cfg)
             _print_times("fbank f32", shape, times, limits)
-            timed[shape] = _measured(list(shape), max_abs, times, limits)
+            timed[shape] = {**_measured(list(shape), max_abs, times, limits),
+                            **_wrapper_device_times(
+                                "fbank f32", shape,
+                                lambda: log_mel_spectrogram_kernel(wave, cfg), limits)}
     # no single PyTorch call computes framing + DFT + mel + log: no library time
     return {**timed[64, 128000], "max_abs_err": worst, "other_shapes": [timed[8, 128000]]}
 
@@ -423,9 +455,11 @@ def _attn_inputs(b, h, tq, tk, d, dev, seed):
 
 # (name, batch, tq, tk, causal, band, rate, head dim): the serving encoder at
 # batch 8, the masks K1/K2 take, the training encoder (batch 64, dropout
-# 0.1), the edges a 64-row tile gets wrong first, and a causal band whose keys
-# end ``band`` before the queries do (``short_keys``: the last row still sees
-# one key, and the tile ranges skip on both sides)
+# 0.1; also under the streaming family's causal band, where few keys share a
+# row and the gradients are at their largest), the edges a 64-row tile gets
+# wrong first, and a causal band whose keys end ``band`` before the queries
+# do (``short_keys``: the last row still sees one key, and the tile ranges
+# skip on both sides)
 ATTENTION_CASES = [
     ("encoder-8s", 8, 267, 267, False, 0, 0.0, 64),
     ("encoder-15s", 8, 501, 501, False, 0, 0.0, 64),
@@ -438,6 +472,7 @@ ATTENTION_CASES = [
     ("head-dim-32", 8, 267, 267, False, 0, 0.1, 32),
     ("single-query", 8, 1, 267, False, 0, 0.0, 64),
     ("causal-band50-short-keys", 8, 267, 267, True, 50, 0.0, 64),
+    ("train-causal-band50-dropout0.1", 64, 267, 267, True, 50, 0.1, 64),
 ]
 # timed: the training shape first (the kernels' line reports it), then the
 # serving shapes
@@ -445,38 +480,46 @@ TIMED_ATTENTION = ("train-dropout0.1", "encoder-8s", "encoder-15s")
 HEADS = 8
 
 
-def _attention_fwd_entry(symbol, q, k, v, q_len, k_len, seed, scale, rate, causal, band):
-    """A closure that launches the C entry point ``symbol`` (``asr_attention_fwd``,
-    or ``asr_attention_fwd_fma``: the scalar-FMA build of the bf16 kernel, what
-    K1 was before the tensor-core design) into buffers made once, which it
-    carries as ``launch.out`` and ``launch.lse``. For timing only: no
+def _attention_fwd_entry(q, k, v, q_len, k_len, seed, scale, rate, causal, band,
+                         for_backward=True):
+    """A closure that launches the C entry point ``asr_attention_fwd`` into
+    buffers made once, which it carries as
+    ``launch.out``, ``launch.lse`` and ``launch.out_lo`` (the output's
+    rounding residual, bf16 only; with ``for_backward`` off the kernel
+    writes neither, as when no gradient is needed). For timing only: no
     counter, no input checks, no allocation."""
-    fn = getattr(_build.load_library(), symbol)
+    fn = _build.load_library().asr_attention_fwd
     out = torch.empty_like(q)
-    lse = torch.empty(q.shape[:3], dtype=torch.float32, device=q.device)
+    lse = out_lo = None
+    if for_backward:
+        lse = torch.empty(q.shape[:3], dtype=torch.float32, device=q.device)
+        out_lo = torch.empty_like(q) if q.dtype == torch.bfloat16 else None
     argv = (
         q.data_ptr(), k.data_ptr(), v.data_ptr(), q_len.data_ptr(), k_len.data_ptr(),
-        out.data_ptr(), lse.data_ptr(),
+        out.data_ptr(), None if out_lo is None else out_lo.data_ptr(),
+        None if lse is None else lse.data_ptr(),
         *q.shape[:3], k.shape[2], q.shape[3], int(q.dtype == torch.bfloat16),
         float(scale), *fa._dropout_args(seed, rate), int(causal), int(band),
     )
 
     def launch():
-        _build.check(fn(*argv, torch.cuda.current_stream().cuda_stream), symbol)
+        _build.check(fn(*argv, torch.cuda.current_stream().cuda_stream), "asr_attention_fwd")
 
     # the pointers in argv stay valid as long as the closure lives
     launch.inputs, launch.out, launch.lse = (q, k, v, q_len, k_len), out, lse
+    launch.out_lo = out_lo
     return launch
 
 
-def _attention_bwd_entry(symbol, q, k, v, out, lse, q_len, k_len, seed, scale, rate,
-                         causal, band, g):
-    """The same for ``asr_attention_bwd`` / ``asr_attention_bwd_fma``."""
-    fn = getattr(_build.load_library(), symbol)
+def _attention_bwd_entry(q, k, v, out, lse, q_len, k_len, seed, scale, rate, causal, band, g,
+                         out_lo=None):
+    """The same for ``asr_attention_bwd``."""
+    fn = _build.load_library().asr_attention_bwd
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
     delta = torch.empty(q.shape[:3], dtype=torch.float32, device=q.device)
     argv = (
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), g.data_ptr(),
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+        None if out_lo is None else out_lo.data_ptr(), g.data_ptr(),
         lse.data_ptr(), q_len.data_ptr(), k_len.data_ptr(), delta.data_ptr(),
         dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
         *q.shape[:3], k.shape[2], q.shape[3], int(q.dtype == torch.bfloat16),
@@ -484,10 +527,24 @@ def _attention_bwd_entry(symbol, q, k, v, out, lse, q_len, k_len, seed, scale, r
     )
 
     def launch():
-        _build.check(fn(*argv, torch.cuda.current_stream().cuda_stream), symbol)
+        _build.check(fn(*argv, torch.cuda.current_stream().cuda_stream), "asr_attention_bwd")
 
-    launch.buffers = (q, k, v, out, lse, q_len, k_len, g, dq, dk, dv, delta)
+    # the pointers in argv stay valid as long as the closure lives
+    launch.buffers = (q, k, v, out, out_lo, lse, q_len, k_len, g, delta)
+    launch.grads = (dq, dk, dv)
     return launch
+
+
+def host_ms(fn, n=N_TIMED) -> float:
+    """Median time of ``fn`` on the host's clock with the card idle before
+    each call: what a call that waits for the card costs its caller."""
+    times = []
+    for _ in range(n + 2):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(times[2:])
 
 
 DEVICE_REPS = 20  # back-to-back launches per sample of a device time
@@ -564,16 +621,22 @@ def check_attention(dev) -> dict:
         if name in TIMED_ATTENTION:
             mask = _sdpa_mask(q_len, k_len, tq, tk, causal, band)
             library, _ = _sdpa_library(qb, kb, vb, mask, scale, None)
+            # as the main path calls it: for the backward at the training shape
+            # (the row log-sum-exp and the output's residual written too)
+            training = b > 8
+            extra = ()
+            if training:
+                extra = (torch.empty(qb.shape[:3], dtype=torch.float32, device=dev),
+                         torch.empty_like(qb))
             with torch.no_grad():
                 times = turns_ms({
-                    "kernel": lambda: fa._launch(qb, kb, vb, *args),
+                    "kernel": lambda: fa._launch(qb, kb, vb, *args, *extra),
                     "library": library,
                     "plain": lambda: fa.attention_reference(qb, kb, vb, *args),
                 })
             device = turns_ms({
-                "fma": _attention_fwd_entry("asr_attention_fwd_fma", qb, kb, vb, *args),
-                "kernel": _attention_fwd_entry("asr_attention_fwd", qb, kb, vb, *args),
-            }, n=5, reps=DEVICE_REPS)
+                "kernel": _attention_fwd_entry(qb, kb, vb, *args, for_backward=training),
+            }, n=5, reps=DEVICE_REPS)["kernel"]
             limits = attention_fwd_bound(b, HEADS, tq, tk, d)
             _print_times(f"attention {name} bf16 (library: SDPA, dropout 0)",
                          shape, times, limits)
@@ -589,29 +652,51 @@ def check_attention(dev) -> dict:
 def _check_keyless_rows(dev) -> None:
     """Query rows more than the band past the key length see no key: K1
     gives them the mean of all Tk values, as the plain version does; K2,
-    which recomputes the weights from the row log-sum-exp, must refuse."""
+    which recomputes the weights from the row log-sum-exp, cannot serve
+    them: a call that needs a gradient is refused in its forward, before
+    any launch, and so is a direct call of the backward wrapper."""
     q, k, v, q_len, _ = _attn_inputs(4, HEADS, 267, 267, 64, dev, seed=40)
     k_len = torch.tensor([267, 100, 30, 1], dtype=torch.int32, device=dev)
     q_len = torch.full_like(k_len, 267)
     args = (q_len, k_len, 5, 0.125, 0.1, True, 20)
     errs = []
     for dtype, limit in ((torch.float32, 1e-4), (torch.bfloat16, 2e-2)):
-        leaves = [x.to(dtype).requires_grad_(True) for x in (q, k, v)]
-        out = fa.fused_attention_general(*leaves, *args)
-        want = fa.attention_reference(*(x.detach().float() for x in leaves), *args)
+        x = [t.to(dtype) for t in (q, k, v)]
+        out = fa.fused_attention_general(*x, *args)
+        want = fa.attention_reference(*(t.float() for t in x), *args)
         errs.append((out.float() - want).abs().max().item())
         require(errs[-1] <= limit, f"attention with keyless rows, {dtype}: {errs[-1]:.3e}")
-        before = fa.attention_backward_kernel.launches
-        try:
-            out.backward(torch.ones_like(out))
-        except ValueError as e:
-            require("sees no key" in str(e), f"attention bwd with keyless rows: {e}")
-        else:
-            raise AssertionError("attention bwd with keyless rows did not refuse")
-        require(fa.attention_backward_kernel.launches == before, "K2 launched all the same")
+        before = read_counters()
+        lse = torch.empty(q.shape[:3], dtype=torch.float32, device=dev)
+        for refused in (
+            lambda: fa.fused_attention_general(
+                *(t.detach().requires_grad_(True) for t in x), *args),
+            lambda: fa.attention_backward_kernel(*x, out, lse, *args, out),
+        ):
+            try:
+                refused()
+            except ValueError as e:
+                require("sees no key" in str(e), f"attention with keyless rows: {e}")
+            else:
+                raise AssertionError("a gradient over keyless rows was not refused")
+        require(read_counters() == before, "a kernel launched all the same")
     print("attention with keyless rows (4,8,267,267,64) causal band 20, k_len "
-          f"[267,100,30,1]: K1 f32 max_abs={errs[0]:.3e} bf16 max_abs={errs[1]:.3e}, "
-          "K2 refuses")
+          f"[267,100,30,1]: K1 f32 max_abs={errs[0]:.3e} bf16 max_abs={errs[1]:.3e}; with a "
+          "gradient the forward refuses, and so does the backward wrapper")
+
+
+def _validation_cost(q, k, v, q_len, k_len) -> float:
+    """The one validation of an attention call, which waits for the card to
+    hand two numbers to the host, on the host's clock with the card idle:
+    the forward of the autograd Function pays it once per call, the launch
+    functions that ``ms`` times do not, the public backward wrappers
+    (``checked_ms``) pay it again."""
+    plain = host_ms(lambda: fa._check_kernel_inputs(q, k, v, q_len, k_len))
+    refusing = host_ms(lambda: fa._check_kernel_inputs(q, k, v, q_len, k_len, 50))
+    print(f"attention {tuple(q.shape)}: validation and host sync of one call "
+          f"(_check_kernel_inputs, card idle, host clock, median of {N_TIMED}): {plain:.4f} ms, "
+          f"{refusing:.4f} ms with the backward's refusal under a band")
+    return plain
 
 
 def check_attention_bwd(dev) -> dict:
@@ -645,28 +730,32 @@ def check_attention_bwd(dev) -> dict:
         if name in TIMED_ATTENTION:
             qb, kb, vb, gb = (x.to(torch.bfloat16) for x in (q, k, v, g))
             lse = torch.empty(qb.shape[:3], dtype=torch.float32, device=dev)
-            out = fa._launch(qb, kb, vb, q_len, k_len, 777, scale, rate, causal, band, lse)
+            out_lo = torch.empty_like(qb)
+            out = fa._launch(qb, kb, vb, *args, lse, out_lo)
             mask = _sdpa_mask(q_len, k_len, tq, tk, causal, band)
             lib_fwd, lib_both = _sdpa_library(qb, kb, vb, mask, scale, gb)
             times = turns_ms({
-                "kernel": lambda: fa.attention_backward_kernel(
-                    qb, kb, vb, out, lse, *args, gb),
+                "kernel": lambda: fa._launch_backward(  # what the Function's backward runs
+                    qb, kb, vb, out, lse, *args, gb, out_lo),
+                # the public wrapper: the same after a validation and host sync
+                "checked": lambda: fa.attention_backward_kernel(
+                    qb, kb, vb, out, lse, *args, gb, out_lo),
                 "library forward": lib_fwd,
                 "library forward+backward": lib_both,
                 "plain": lambda: fa.attention_backward_reference(qb, kb, vb, *args, gb),
             })
             times["library"] = times["library forward+backward"] - times["library forward"]
             device = turns_ms({
-                "fma": _attention_bwd_entry(
-                    "asr_attention_bwd_fma", qb, kb, vb, out, lse, *args, gb),
-                "kernel": _attention_bwd_entry(
-                    "asr_attention_bwd", qb, kb, vb, out, lse, *args, gb),
-            }, n=5, reps=DEVICE_REPS)
+                "kernel": _attention_bwd_entry(qb, kb, vb, out, lse, *args, gb, out_lo),
+            }, n=5, reps=DEVICE_REPS)["kernel"]
             limits = attention_bwd_bound(b, HEADS, tq, tk, d)
             _print_times(f"attention bwd {name} bf16 (library: SDPA forward+backward "
                          f"minus forward, dropout 0)", shape, times, limits)
             timed[name] = {**_measured(shape, errs[torch.bfloat16], times, limits),
+                           "checked_ms": times["checked"],
                            **_device_times(f"attention bwd {name}", shape, device, limits)}
+            if name == TIMED_ATTENTION[0]:
+                timed[name]["check_ms"] = _validation_cost(qb, kb, vb, q_len, k_len)
     _check_keyless_rows(dev)
     first, *others = (timed[n] for n in TIMED_ATTENTION)
     return {**first, "max_abs_err": worst, "other_shapes": others}
@@ -674,67 +763,152 @@ def check_attention_bwd(dev) -> dict:
 
 # -- phase 6: windowed causal-band attention (K6 / K7) --------------------------
 
-# (name, batch, T, band, rate, lengths or None for the training rows): the
-# streaming model's training and serving encoder shapes, a ragged case, and
-# the bands at either side of BQ = 64
+# (name, batch, T, band, rate, lengths or None for the training rows, head
+# dim): the streaming model's training and serving encoder shapes, a ragged
+# case, the bands at either side of BQ = 64 and of one chunk of key groups,
+# a window of three resident tiles and one of the twelve a block can hold,
+# head dim 32, the short segments of the prefix re-encode, and a length that
+# is no multiple of 16
 BANDED_CASES = [
-    ("train-band50", 64, 267, 50, 0.0, None),
-    ("train-band50-dropout0.1", 64, 267, 50, 0.1, None),
-    ("serve-501", 1, 501, 50, 0.0, [501]),
-    ("ragged-band30", 2, 150, 30, 0.0, [150, 97]),
-    ("band64-501", 2, 501, 64, 0.0, [501, 388]),
-    ("band65-501", 2, 501, 65, 0.0, [501, 388]),
+    ("train-band50", 64, 267, 50, 0.0, None, 64),
+    ("train-band50-dropout0.1", 64, 267, 50, 0.1, None, 64),
+    ("serve-501", 1, 501, 50, 0.0, [501], 64),
+    ("ragged-band30", 2, 150, 30, 0.0, [150, 97], 64),
+    ("band64-501", 2, 501, 64, 0.0, [501, 388], 64),
+    ("band65-501", 2, 501, 65, 0.0, [501, 388], 64),
+    ("band128-501", 2, 501, 128, 0.1, [501, 388], 64),
+    ("band704-1500", 1, 1500, 704, 0.0, [1500], 64),
+    ("head-dim-32", 4, 267, 50, 0.1, [267, 200, 100, 7], 32),
+    ("segment-67", 1, 67, 50, 0.0, [67], 64),
+    ("segment-11", 1, 11, 50, 0.1, [11], 64),
+    ("length-203", 2, 267, 50, 0.1, [267, 203], 64),
 ]
 
 
-def _banded_inputs(b, t, lengths, dev, seed):
-    q, k, v, q_len, _ = _attn_inputs(b, 8, t, t, 64, dev, seed)
+def _banded_inputs(b, t, lengths, dev, seed, d=64):
+    q, k, v, q_len, _ = _attn_inputs(b, HEADS, t, t, d, dev, seed)
     if lengths is not None:
         q_len = torch.tensor(lengths, dtype=torch.int32, device=dev)
     return q, k, v, q_len
 
 
-def check_banded(dev) -> tuple[dict, dict]:
-    """K6 and K7 through the autograd Function with the window on (which
-    must route to them) vs their plain versions; K6 vs K1; times at the
-    training shape."""
-    scale = 1.0 / 8.0
-    worst = {"fwd": 0.0, "bwd": 0.0}
-    for i, (name, b, t, band, rate, lengths) in enumerate(BANDED_CASES):
-        q, k, v, n = _banded_inputs(b, t, lengths, dev, seed=20 + i)
+def _banded_fwd_entry(q, k, v, n, seed, scale, rate, band):
+    """A closure that launches ``asr_banded_attention_fwd`` into buffers made
+    once (``launch.lse`` is K7's input). For timing only: no counter, no
+    input checks, no allocation."""
+    fn = _build.load_library().asr_banded_attention_fwd
+    out = torch.empty_like(q)
+    lse = torch.empty(q.shape[:3], dtype=torch.float32, device=q.device)
+    argv = (
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), n.data_ptr(), out.data_ptr(),
+        lse.data_ptr(), *q.shape, int(q.dtype == torch.bfloat16), float(scale),
+        *fa._dropout_args(seed, rate), int(band), fa._block_q(band),
+    )
+
+    def launch():
+        _build.check(fn(*argv, torch.cuda.current_stream().cuda_stream),
+                     "asr_banded_attention_fwd")
+
+    # the pointers in argv stay valid as long as the closure lives
+    launch.inputs, launch.out, launch.lse = (q, k, v, n), out, lse
+    return launch
+
+
+def _banded_bwd_entry(q, k, v, lse, n, seed, scale, rate, band, g):
+    """The same for ``asr_banded_attention_bwd``."""
+    fn = _build.load_library().asr_banded_attention_bwd
+    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+    delta = torch.empty(q.shape[:3], dtype=torch.float32, device=q.device)
+    argv = (
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), g.data_ptr(), lse.data_ptr(),
+        n.data_ptr(), delta.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+        *q.shape, int(q.dtype == torch.bfloat16), float(scale),
+        *fa._dropout_args(seed, rate), int(band), fa._block_q(band),
+    )
+
+    def launch():
+        _build.check(fn(*argv, torch.cuda.current_stream().cuda_stream),
+                     "asr_banded_attention_bwd")
+
+    launch.buffers, launch.grads = (q, k, v, lse, n, g, delta), (dq, dk, dv)
+    return launch
+
+
+def _check_banded_cases(dev) -> dict:
+    """Every case of ``BANDED_CASES`` through the autograd Function with the
+    window on (which must route to K6/K7) vs the plain versions; returns
+    each case's bf16 errors, (forward, worst gradient)."""
+    worst = {}
+    for i, (name, b, t, band, rate, lengths, d) in enumerate(BANDED_CASES):
+        q, k, v, n = _banded_inputs(b, t, lengths, dev, seed=20 + i, d=d)
         g = torch.randn(q.shape, generator=torch.Generator().manual_seed(i)).to(dev)
+        scale = d ** -0.5
         args = (n, n, 4321, scale, rate, True, band)
         errs = {}
         for dtype in (torch.float32, torch.bfloat16):
             leaves = [x.detach().to(dtype).requires_grad_(True) for x in (q, k, v)]
-            before = fa.banded_attention_kernel.launches, fa.fused_attention_general.launches
+            before = [COUNTERS[c].launches for c in (
+                "banded_attention_fwd", "banded_attention_bwd", "fused_attention_fwd",
+                "fused_attention_bwd")]
             with banded_window("1"):
                 out = fa.fused_attention_general(*leaves, *args)
                 out.backward(g.to(dtype))
-            require((fa.banded_attention_kernel.launches - before[0],
-                     fa.fused_attention_general.launches - before[1]) == (1, 0),
-                    f"banded {name}: the window did not route to K6")
+            after = [COUNTERS[c].launches for c in (
+                "banded_attention_fwd", "banded_attention_bwd", "fused_attention_fwd",
+                "fused_attention_bwd")]
+            require([x - y for x, y in zip(after, before)] == [1, 1, 0, 0],
+                    f"banded {name}: the window did not route to K6 and K7")
             plain = [x.detach().float() for x in leaves]
             want = fa.banded_attention_reference(*plain, n, 4321, scale, rate, band)
             want_g = fa.banded_attention_backward_reference(
                 *plain, n, 4321, scale, rate, band, g.to(dtype).float())
             torch.cuda.synchronize()
-            require(out.dtype == dtype and all(x.grad.dtype == dtype for x in leaves),
-                    f"banded {name}: dtype")
-            pairs = [(out, want)] + [(x.grad, w) for x, w in zip(leaves, want_g)]
-            errs[dtype] = [(got.float() - w).abs().max().item() for got, w in pairs]
+            got = [out] + [x.grad for x in leaves]
+            require(all(x.dtype == dtype and bool(torch.isfinite(x).all()) for x in got),
+                    f"banded {name}: dtype or non-finite")
+            pairs = list(zip(got, [want, *want_g]))
+            errs[dtype] = [(x.float() - w).abs().max().item() for x, w in pairs]
             largest = max(w.abs().max().item() for _, w in pairs[1:])
         e32, e16 = errs[torch.float32], errs[torch.bfloat16]
-        print(f"banded {name} ({b},8,{t},64) band {band} rate {rate}: fwd f32 max_abs="
+        print(f"banded {name} ({b},8,{t},{d}) band {band} rate {rate}: fwd f32 max_abs="
               f"{e32[0]:.3e} bf16 {e16[0]:.3e}; bwd (dq, dk, dv) f32 "
               f"{', '.join(f'{e:.3e}' for e in e32[1:])} bf16 "
               f"{', '.join(f'{e:.3e}' for e in e16[1:])} (largest |grad| {largest:.3f})")
         require(max(e32) <= 1e-4, f"banded {name} f32 disagrees")
         require(max(e16) <= 2e-2, f"banded {name} bf16 disagrees")
-        worst["fwd"] = max(worst["fwd"], e16[0])
-        worst["bwd"] = max(worst["bwd"], *e16[1:])
+        worst[name] = (e16[0], max(e16[1:]))
+    _check_window_refusal(dev)
+    return worst
 
-    # K6 and K1 interchangeable mid-training: the same weights dropped
+
+def _check_window_refusal(dev) -> None:
+    """A bf16 window of more tiles than a block's shared memory holds is
+    refused by the entry point before any launch, and the wrapper says so;
+    f32 (the FMA kernels stage tile by tile) serves it."""
+    q, k, v, n = _banded_inputs(1, 1500, [1500], dev, seed=50)
+    before = read_counters()
+    try:
+        fa.banded_attention_kernel(*(x.to(torch.bfloat16) for x in (q, k, v)), n, 1, 0.125,
+                                   0.0, 769)
+    except ValueError as e:
+        require("resident tiles" in str(e), f"banded window refusal: {e}")
+        print(f"banded (1,8,1500,64) band 769 bf16: refused before any launch ({e})")
+    else:
+        raise AssertionError("a window of 14 tiles was not refused")
+    require(read_counters() == before, "a kernel launched all the same")
+    got = fa.banded_attention_kernel(q, k, v, n, 1, 0.125, 0.0, 769)
+    err = (got - fa.banded_attention_reference(q, k, v, n, 1, 0.125, 0.0, 769)).abs().max().item()
+    require(err <= 1e-4, f"banded band 769 f32 disagrees: {err:.3e}")
+
+
+def check_banded(dev) -> tuple[dict, dict]:
+    """K6 and K7 vs their plain versions at every case; K6 vs K1 and K7 vs
+    K2; times at the training shape (and K6's at the serving shape)."""
+    scale = 1.0 / 8.0
+    errs = _check_banded_cases(dev)
+    worst = {"fwd": max(e[0] for e in errs.values()), "bwd": max(e[1] for e in errs.values())}
+
+    # K6/K7 and K1/K2 interchangeable mid-training: the same weights dropped
     q, k, v, n = _banded_inputs(64, 267, None, dev, seed=30)
     k6 = fa.banded_attention_kernel(q, k, v, n, 99, scale, 0.1, 50)
     k1 = fa._launch(q, k, v, n, n, 99, scale, 0.1, True, 50)
@@ -743,34 +917,78 @@ def check_banded(dev) -> tuple[dict, dict]:
     print(f"banded K6 vs K1, f32 (64,8,267,64) band 50 dropout 0.1: max_abs={k6_k1:.3e}")
     require(k6_k1 <= 1e-5, "K6 and K1 disagree")
 
-    # times at the streaming training shape, bf16, hash dropout 0.1
     qb, kb, vb = (x.to(torch.bfloat16) for x in (q, k, v))
     gb = torch.randn(q.shape, generator=torch.Generator().manual_seed(3)).to(dev, torch.bfloat16)
-    lse6 = torch.empty(q.shape[:3], dtype=torch.float32, device=dev)
-    lse1 = torch.empty(q.shape[:3], dtype=torch.float32, device=dev)
-    fa.banded_attention_kernel(qb, kb, vb, n, 7, scale, 0.1, 50, lse6)
-    out1 = fa._launch(qb, kb, vb, n, n, 7, scale, 0.1, True, 50, lse1)
+    # entry points with their buffers, per dropout rate: (K6, K7, K1, K2)
+    entries = {}
+    for rate in (0.1, 0.0):
+        call = (n, n, 7, scale, rate, True, 50)
+        k6e = _banded_fwd_entry(qb, kb, vb, n, 7, scale, rate, 50)
+        k1e = _attention_fwd_entry(qb, kb, vb, *call)
+        k6e(), k1e()
+        entries[rate] = (
+            k6e, _banded_bwd_entry(qb, kb, vb, k6e.lse, n, 7, scale, rate, 50, gb), k1e,
+            _attention_bwd_entry(qb, kb, vb, k1e.out, k1e.lse, *call, gb, k1e.out_lo),
+        )
+    k6e, k7e, k1e, k2e = entries[0.1]
+    k7e(), k2e()
+    torch.cuda.synchronize()
+    plain = [x.float() for x in (qb, kb, vb)]
+    want = [fa.banded_attention_reference(*plain, n, 7, scale, 0.1, 50),
+            *fa.banded_attention_backward_reference(*plain, n, 7, scale, 0.1, 50, gb.float())]
+    got = {"K6/K7": [k6e.out, *k7e.grads], "K1/K2": [k1e.out, *k2e.grads]}
+
+    def dist(xs, ys):
+        return [(x.float() - y.float()).abs().max().item() for x, y in zip(xs, ys)]
+
+    same = dist(got["K6/K7"], got["K1/K2"])
+    off = {name: dist(xs, want) for name, xs in got.items()}
+    print("banded K6 vs K1 and K7 vs K2 (out, dq, dk, dv), bf16 (64,8,267,64) band 50 dropout "
+          f"0.1: max_abs={', '.join(f'{e:.3e}' for e in same)}; against the f32 plain version "
+          + "; ".join(f"{name} {', '.join(f'{e:.3e}' for e in es)}" for name, es in off.items()))
+    require(max(same) <= 2e-2, "K6/K7 and K1/K2 disagree in bf16")
+    require(max(off["K6/K7"]) <= 2e-2, "K6/K7 disagree with the plain version")
+    require(max(off["K1/K2"]) <= 2e-2, "K1/K2 disagree with the plain version")
+
+    # times at the streaming training shape, bf16: through the wrappers, in turns
+    # dropout 0.1: what K7 and K2 read
+    lse6, lse1, out1, out1_lo = k6e.lse, k1e.lse, k1e.out, k1e.out_lo
     mask = _sdpa_mask(n, n, 267, 267, True, 50)
     lib_fwd, lib_both = _sdpa_library(qb, kb, vb, mask, scale, gb)
     with torch.no_grad():
         fwd = turns_ms({
             "kernel": lambda: fa.banded_attention_kernel(qb, kb, vb, n, 7, scale, 0.1, 50),
+            "kernel, dropout 0": lambda: fa.banded_attention_kernel(
+                qb, kb, vb, n, 7, scale, 0.0, 50),
             "K1 (causal band 50)": lambda: fa._launch(
                 qb, kb, vb, n, n, 7, scale, 0.1, True, 50),
             "library": lib_fwd,
             "plain": lambda: fa.banded_attention_reference(qb, kb, vb, n, 7, scale, 0.1, 50),
         })
+    lse6_0 = entries[0.0][0].lse
     bwd = turns_ms({
-        "kernel": lambda: fa.banded_attention_backward_kernel(
+        # the launch functions: what the autograd Function's backward runs
+        "kernel": lambda: fa._launch_banded_backward(
             qb, kb, vb, lse6, n, 7, scale, 0.1, 50, gb),
-        "K2 (causal band 50)": lambda: fa.attention_backward_kernel(
-            qb, kb, vb, out1, lse1, n, n, 7, scale, 0.1, True, 50, gb),
+        "kernel, dropout 0": lambda: fa._launch_banded_backward(
+            qb, kb, vb, lse6_0, n, 7, scale, 0.0, 50, gb),
+        # the public wrapper: the same after a validation and host sync
+        "checked": lambda: fa.banded_attention_backward_kernel(
+            qb, kb, vb, lse6, n, 7, scale, 0.1, 50, gb),
+        "K2 (causal band 50)": lambda: fa._launch_backward(
+            qb, kb, vb, out1, lse1, n, n, 7, scale, 0.1, True, 50, gb, out1_lo),
         "library forward": lib_fwd,
         "library forward+backward": lib_both,
         "plain": lambda: fa.banded_attention_backward_reference(
             qb, kb, vb, n, 7, scale, 0.1, 50, gb),
     })
     bwd["library"] = bwd["library forward+backward"] - bwd["library forward"]
+    # the entry points alone, back to back: the kernels' device time
+    names = ("K6", "K7", "K1 (causal band 50)", "K2 (causal band 50)")
+    device = turns_ms({
+        f"{name}, dropout {rate}": entry
+        for rate in (0.1, 0.0) for name, entry in zip(names, entries[rate])
+    }, n=5, reps=DEVICE_REPS)
     shape = [64, HEADS, 267, 267, 64]
     pairs = band_pairs(n.tolist(), HEADS, 50)
     limits = (attention_fwd_bound(64, HEADS, 267, 267, 64, pairs=pairs),
@@ -778,8 +996,43 @@ def check_banded(dev) -> tuple[dict, dict]:
     what = "bf16 band 50 dropout 0.1 (library: SDPA with the causal-band mask, dropout 0)"
     _print_times(f"banded K6 {what}", shape, fwd, limits[0])
     _print_times(f"banded K7 {what}", shape, bwd, limits[1])
-    return (_measured(shape, worst["fwd"], fwd, limits[0]),
-            _measured(shape, worst["bwd"], bwd, limits[1]))
+    print(f"banded {shape} bf16 band 50, device time of the entry points alone "
+          f"({DEVICE_REPS} launches back to back, in turns, median of 10), ms: "
+          + ", ".join(f"{k} {v:.4f}" for k, v in device.items())
+          + f"; K6 at {limits[0]['bound_ms'] / device['K6, dropout 0.1'] * 100:.1f} % and K7 at "
+          f"{limits[1]['bound_ms'] / device['K7, dropout 0.1'] * 100:.1f} % of the bound")
+
+    # K6 at the streaming serving shape (the prefix re-encode takes no gradient)
+    qs, ks, vs, ns = _banded_inputs(1, 501, [501], dev, seed=31)
+    qs, ks, vs = (x.to(torch.bfloat16) for x in (qs, ks, vs))
+    mask_s = _sdpa_mask(ns, ns, 501, 501, True, 50)
+    with torch.no_grad():
+        serve = turns_ms({
+            "kernel": lambda: fa.banded_attention_kernel(qs, ks, vs, ns, 7, scale, 0.0, 50),
+            "K1 (causal band 50)": lambda: fa._launch(
+                qs, ks, vs, ns, ns, 7, scale, 0.0, True, 50),
+            "library": _sdpa_library(qs, ks, vs, mask_s, scale, None)[0],
+            "plain": lambda: fa.banded_attention_reference(qs, ks, vs, ns, 7, scale, 0.0, 50),
+        })
+    serve_device = turns_ms(
+        {"kernel": _banded_fwd_entry(qs, ks, vs, ns, 7, scale, 0.0, 50)},
+        n=5, reps=DEVICE_REPS)["kernel"]
+    serve_shape = [1, HEADS, 501, 501, 64]
+    serve_limits = attention_fwd_bound(1, HEADS, 501, 501, 64,
+                                       pairs=band_pairs([501], HEADS, 50))
+    _print_times("banded K6 bf16 band 50 dropout 0 (library: SDPA with the causal-band "
+                 "mask)", serve_shape, serve, serve_limits)
+    served = {**_measured(serve_shape, errs["serve-501"][0], serve, serve_limits),
+              **_device_times("banded K6", serve_shape, serve_device, serve_limits)}
+
+    def entry(times, lim, err, key, other_shapes):
+        return {**_measured(shape, err, times, lim), "device_ms": device[f"{key}, dropout 0.1"],
+                "ms_dropout0": times["kernel, dropout 0"],
+                "device_ms_dropout0": device[f"{key}, dropout 0.0"],
+                "other_shapes": other_shapes}
+
+    return (entry(fwd, limits[0], worst["fwd"], "K6", [served]),
+            {**entry(bwd, limits[1], worst["bwd"], "K7", []), "checked_ms": bwd["checked"]})
 
 
 # -- phase 7: CTC alpha / beta -------------------------------------------------
@@ -865,7 +1118,18 @@ def check_ctc(dev) -> tuple[dict, dict]:
             for part in ("alpha", "beta"):
                 _print_times(f"ctc {part} bf16 (library: F.log_softmax + F.ctc_loss; plain: "
                              f"median of 5)", shape, timing[part], limits[part])
-    return tuple(_measured(shape, worst[p], timing[p], limits[p]) for p in ("alpha", "beta"))
+            device = {
+                "alpha": _wrapper_device_times(
+                    "ctc alpha bf16", shape,
+                    lambda: ctc.ctc_alpha_kernel(logits, ext_i, lens_i, lab_i), limits["alpha"]),
+                "beta": _wrapper_device_times(
+                    "ctc beta bf16", shape,
+                    lambda: ctc.ctc_beta_kernel(
+                        logits, ext_i, lens_i, lab_i, k_lse, k_alpha, k_loss, g),
+                    limits["beta"]),
+            }
+    return tuple({**_measured(shape, worst[p], timing[p], limits[p]), **device[p]}
+                 for p in ("alpha", "beta"))
 
 
 # -- phase 8: the serving path -------------------------------------------------
@@ -1404,39 +1668,53 @@ def streaming_train_setup(dev) -> tuple:
     return train_step, init_fn(), batch
 
 
-def measure_streaming_throughput(dev, n_warmup=3, n_timed=20) -> dict:
-    """The streaming recipe's step on one fixed batch of 64 x 8 s with the
-    window on (K6/K7) and off (K1/K2), back to back in this process;
-    returns the launches per step of the windowed route."""
-    per_step = {}
-    for window in ("1", "0"):
-        train_step, state, batch = streaming_train_setup(dev)
+STREAMING_ROUTES = {"1": "windowed K6/K7", "0": "full-tile K1/K2"}
+
+
+def measure_streaming_throughput(dev, n_warmup=3, n_pairs=5, n_segment=4) -> dict:
+    """The streaming recipe's step on one fixed batch of 64 x 8 s, one model
+    and optimizer state, with the window on (K6/K7) and off (K1/K2) in
+    alternating pairs of segments of ``n_segment`` timed steps (the route
+    is read at each attention call), the order swapped from pair to pair so
+    that a drift of the host falls on both routes alike; returns the
+    launches per step of the windowed route."""
+    train_step, state, batch = streaming_train_setup(dev)
+    for window in STREAMING_ROUTES:
         with banded_window(window):
             for _ in range(n_warmup):
                 state, m = train_step(state, *batch, 0)
-            torch.cuda.synchronize()
-            reset_counters()
-            t0 = time.perf_counter()
-            for _ in range(n_timed):
-                state, m = train_step(state, *batch, 0)
-            torch.cuda.synchronize()
-            step_s = (time.perf_counter() - t0) / n_timed
-            counts = read_counters()
-        fwd, bwd = (("banded_attention_fwd", "banded_attention_bwd") if window == "1"
-                    else ("fused_attention_fwd", "fused_attention_bwd"))
-        require(counts[fwd] == 6 * n_timed and counts[bwd] == 6 * n_timed,
-                f"streaming throughput launches {counts}")
-        require(np.isfinite(float(m["loss"])), "streaming throughput loss not finite")
-        route = "windowed K6/K7" if window == "1" else "full-tile K1/K2"
-        print(f"streaming train throughput, {route}, bf16, batch 64 x 8 s, {n_timed} "
-              f"steps after {n_warmup} warm-up: {step_s * 1e3:.3f} ms/step, "
-              f"{1.0 / step_s:.4f} steps/s, {THROUGHPUT_BATCH * THROUGHPUT_SECONDS / step_s:.1f} "
-              f"audio-s/s, final loss {float(m['loss']):.4f}")
-        if window == "1":
-            per_step = {k: v / n_timed for k, v in counts.items()}
-        del train_step, state
-        torch.cuda.empty_cache()
-    return per_step
+    torch.cuda.synchronize()
+    segments = {window: [] for window in STREAMING_ROUTES}
+    counts = {window: {k: 0 for k in COUNTERS} for window in STREAMING_ROUTES}
+    for pair in range(n_pairs):
+        for window in ("1", "0") if pair % 2 == 0 else ("0", "1"):
+            with banded_window(window):
+                reset_counters()
+                t0 = time.perf_counter()
+                for _ in range(n_segment):
+                    state, m = train_step(state, *batch, 0)
+                torch.cuda.synchronize()
+                segments[window].append((time.perf_counter() - t0) / n_segment * 1e3)
+                for k, v in read_counters().items():
+                    counts[window][k] += v
+    n_timed = n_pairs * n_segment
+    require(np.isfinite(float(m["loss"])), "streaming throughput loss not finite")
+    for window, (fwd, bwd) in (("1", ("banded_attention_fwd", "banded_attention_bwd")),
+                               ("0", ("fused_attention_fwd", "fused_attention_bwd"))):
+        c = counts[window]
+        require(c[fwd] == 6 * n_timed and c[bwd] == 6 * n_timed
+                and sum(c[k] for k in COUNTERS if "attention" in k) == 12 * n_timed,
+                f"streaming throughput launches, {STREAMING_ROUTES[window]}: {c}")
+        ms = statistics.median(segments[window])
+        print(f"streaming train throughput, {STREAMING_ROUTES[window]}, bf16, batch 64 x 8 s, "
+              f"{n_pairs} segments of {n_segment} steps after {n_warmup} warm-up, ms/step: "
+              f"{', '.join(f'{x:.3f}' for x in segments[window])}; median {ms:.3f} ms/step, "
+              f"{1e3 / ms:.4f} steps/s, "
+              f"{THROUGHPUT_BATCH * THROUGHPUT_SECONDS * 1e3 / ms:.1f} audio-s/s")
+    won = sum(w < f for w, f in zip(segments["1"], segments["0"]))
+    print(f"streaming train throughput: the window won {won} of {n_pairs} alternating pairs "
+          f"(final loss {float(m['loss']):.4f})")
+    return {k: v / n_timed for k, v in counts["1"].items()}
 
 
 def main() -> None:
@@ -1455,18 +1733,27 @@ def main() -> None:
     _build.load_library()
     print(f"kernels built/loaded in {time.perf_counter() - t0:.3f} s: {lib_path}")
 
-    fbank = check_fbank(dev)
-    attn = check_attention(dev)
-    attn_bwd = check_attention_bwd(dev)
-    banded_fwd, banded_bwd = check_banded(dev)
-    ctc_alpha, ctc_beta = check_ctc(dev)
-    serve, serve_batches = run_serving_path(dev)
-    trained, corpus = run_training_path(dev)
-    check_step_against_cpu(corpus, dev)
-    stream_trained, stream_exp = run_streaming_training(corpus)
-    stream_served = run_streaming_serving(stream_exp, corpus["vocab"], dev)
-    flagship_step = measure_training_throughput(dev)["launches_per_step"]
-    streaming_step = measure_streaming_throughput(dev)
+    def phase(number, fn, *args):
+        """Run one phase and print what it took of the run's time."""
+        start = time.perf_counter()
+        out = fn(*args)
+        torch.cuda.synchronize()
+        now = time.perf_counter()
+        print(f"phase {number} ({fn.__name__}): {now - start:.1f} s, {now - t0:.1f} s so far")
+        return out
+
+    fbank = phase(3, check_fbank, dev)
+    attn = phase(4, check_attention, dev)
+    attn_bwd = phase(5, check_attention_bwd, dev)
+    banded_fwd, banded_bwd = phase(6, check_banded, dev)
+    ctc_alpha, ctc_beta = phase(7, check_ctc, dev)
+    serve, serve_batches = phase(8, run_serving_path, dev)
+    trained, corpus = phase(9, run_training_path, dev)
+    phase(10, check_step_against_cpu, corpus, dev)
+    stream_trained, stream_exp = phase(11, run_streaming_training, corpus)
+    stream_served = phase(12, run_streaming_serving, stream_exp, corpus["vocab"], dev)
+    flagship_step = phase(13, measure_training_throughput, dev)["launches_per_step"]
+    streaming_step = phase(14, measure_streaming_throughput, dev)
 
     # launches: the main paths' runs, each counted from 0
     launches = {
