@@ -35,7 +35,7 @@ _F = ctypes.c_float
 _U = ctypes.c_uint
 # C entry points: name -> argtypes (every one returns a cudaError_t as int)
 SIGNATURES = {
-    "asr_fbank": [_P, _I, _I, _I, _P, _P, _P, _P, _I, _I, _I, _I, _P],
+    "asr_fbank": [_P, _I, _I, _I, _I, _P, _I, _P, _P, _I, _P, _I, _I, _I, _I, _P],
     "asr_attention_fwd": [
         _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _U, _U, _F,
         _I, _I, _I, _P,

@@ -53,7 +53,7 @@
 //  - No row below n is without a key on this route (row i sees key i), so
 //    a masked score is not biased by -1e9 but takes no part: -inf in K6
 //    (rows at or past n end with an empty sum and give zeros), weight 0 in
-//    K7, which needs no refusal like K2's. Scores are kept in units of
+//    K7, which keeps a single log-sum-exp per row. Scores are kept in units of
 //    log 2 and a weight is ex2 of a plain difference.
 //  K6 feeds W o M to the PV product as hi + lo bf16 fragments from the
 //  accumulators (exact to 2^-17); the TPU kernel rounds W o M to bf16

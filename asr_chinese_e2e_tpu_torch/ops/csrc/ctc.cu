@@ -21,26 +21,30 @@
 // gather (exact); the TPU kernel's one-hot product was a TPU workaround.
 //
 // What bounds it on the H100: the recursions are sequential in T with
-// ~2L+1 lanes of work per step, so they are latency-bound (one barrier per
-// step); the log-sum-exp and the gradient are bandwidth-bound passes over
-// the (B, T, C) logits (2 x 145 MB in bf16 at the flagship's B=64, T=267,
-// C=4233).
+// ~2L+1 lanes of work per step, so they are latency-bound; the log-sum-exp
+// and the gradient are bandwidth-bound passes over the (B, T, C) logits
+// (2 x 145 MB in bf16 at the flagship's B=64, T=267, C=4233: K4 moves 293.8
+// MB, 88 us at 3.35 TB/s).
 //
 // Design: K3 is two launches: a log-sum-exp pass with one block per (b, t)
 // row, then one block per utterance with one thread per extended-label
 // position; alpha is carried across T in shared memory (two buffers, one
 // barrier per step) and each step is written to the (B, T, S) alpha table
 // in device memory, which K4 reads (at T = 501 the table of one utterance
-// would not fit a block's shared memory). K4 is also two launches: the
-// reverse beta' recursion per utterance, which writes the posteriors z, and
-// a per-(b, t) pass that scatters z into a shared-memory row of C floats
-// with shared atomics and writes the gradient row in one pass.
+// would not fit a block's shared memory). K4 is two launches too: the
+// reverse beta' recursion, one block per utterance and a thread per
+// state, with every load of a step copied by cp.async eight steps ahead
+// (no load of device memory in the step-to-step chain), writing the
+// posteriors z (ctc_beta_recursion_kernel); then the gradient rows, a warp
+// per (b, t) row, in 16-byte loads and stores of the logits' type, with the
+// label positions written again after a warp barrier (ctc_grad_rows_kernel).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 
 #include "common.cuh"
+#include "mma.cuh"
 
 namespace {
 
@@ -155,91 +159,255 @@ __global__ void ctc_alpha_kernel(const T* __restrict__ logits,
   }
 }
 
-// K4, part 1: reverse beta' recursion per utterance; writes z for t < len
-template <typename T>
-__global__ void ctc_beta_kernel(const T* __restrict__ logits,
-                                const float* __restrict__ lse,
-                                const int* __restrict__ ext_all,
-                                const int* __restrict__ logit_len,
-                                const int* __restrict__ label_len,
-                                const float* __restrict__ alpha,
-                                const float* __restrict__ loss,
-                                float* __restrict__ z, int Tt, int C, int S,
-                                int blank) {
-  extern __shared__ float buf[];  // two buffers of S + 2, two log-zero pads each
+// K4's log-add-exp: lae's formula on the hardware's exp2 and log2
+// (ex2.approx, lg2.approx), branch-free, 1e-7 from lae: the step-to-step
+// chain is two of them.
+__device__ __forceinline__ float lae_fast(float a, float b) {
+  const float m = fmaxf(a, b);
+  return m + __logf(1.0f + __expf(-fabsf(a - b)));
+}
+
+// K4, part 1: the reverse beta' recursion, one block per utterance and
+// one thread per extended-label position, beta' carried in shared memory
+// (two buffers, one barrier a step). What a step reads of device memory
+// (the logits' row at the thread's label, its alpha, the row's log-sum-exp)
+// is copied P steps ahead by cp.async into the thread's own slots of a
+// ring in shared memory, so no load of device memory sits in the chain
+// from one step to the next: the parent design had two there, ~1.1 us a
+// step. One warp per utterance with the states in registers and the
+// neighbours by shuffles (no barrier) was measured too, on the same ring:
+// a single warp issues every state's work in turn, 0.2197 ms at S = 65 and
+// 2.2438 ms at S = 401 against this design's 0.1116 and 0.3446 (PERF.md).
+// Writes z for t < len.
+template <typename T, int P>
+__global__ void __launch_bounds__(1024)
+ctc_beta_recursion_kernel(const T* __restrict__ logits, const float* __restrict__ lse,
+                          const int* __restrict__ ext_all, const int* __restrict__ logit_len,
+                          const int* __restrict__ label_len, const float* __restrict__ alpha,
+                          const float* __restrict__ loss, float* __restrict__ z, int Tt, int C,
+                          int S, int blank) {
+  extern __shared__ float recur[];  // two buffers of S + 2, then P x 3 x blockDim slots
   const int b = blockIdx.x;
   const int s = threadIdx.x;
+  const int nth = blockDim.x;
   const bool valid = s < S;
   const int* ext = ext_all + (size_t)b * S;
-  const int label = valid ? ext[s] : blank;
-  const bool skip2 = can_skip(ext, s + 2, S, blank);  // s+2 -> s is allowed
+  const int label = valid ? ext[s] : 0;
+  const bool skip2 = can_skip(ext, s + 2, S, blank);
   const int len = min(logit_len[b], Tt);
   const int last = min(2 * label_len[b], S - 1);
+  const bool fin = valid && (s == last || s == max(last - 1, 0));
   const float nll = loss[b];
   const int stride = S + 2;
-  const float* a = alpha + (size_t)b * Tt * S;
-  float* zb = z + (size_t)b * Tt * S;
-  const int row0 = b * Tt;
-
+  float* buf = recur;
+  float* ring = recur + 2 * stride;
+  const size_t row0 = (size_t)b * Tt;
+  const size_t n_logits = (size_t)gridDim.x * Tt * C;
+  // step t into slot u: a bf16 logit as the aligned 4-byte word that holds
+  // it (the wrapper checks 16-byte alignment), read directly where that word
+  // would pass the end of the logits
+  auto fetch = [&](int u, int t) {
+    if (t < 0) return;
+    const size_t row = row0 + t;
+    const size_t idx = row * C + label;
+    float* slot = ring + (u * 3) * nth + s;
+    if constexpr (sizeof(T) == 4) {
+      asr::cp_async4(slot, logits + idx, valid);
+    } else if ((idx & 1) || idx + 1 < n_logits) {
+      asr::cp_async4(slot, reinterpret_cast<const uint32_t*>(logits) + idx / 2, valid);
+    } else {
+      slot[0] = __uint_as_float(*reinterpret_cast<const unsigned short*>(logits + idx));
+    }
+    asr::cp_async4(slot + nth, alpha + row * S + (valid ? s : 0), valid);
+    asr::cp_async4(slot + 2 * nth, lse + row, true);
+  };
   if (s < 2) {
     buf[S + s] = BIG_NEG;
     buf[stride + S + s] = BIG_NEG;
   }
+#pragma unroll
+  for (int u = 0; u < P; ++u) {
+    fetch(u, len - 1 - u);
+    asr::cp_async_commit();
+  }
   int cur = 0;
-  for (int t = len - 1; t >= 0; --t) {
-    const float e = emission(logits, lse, row0 + t, C, label, valid);
-    float val = BIG_NEG;
-    if (t == len - 1) {
-      if (valid && (s == last || s == max(last - 1, 0))) val = e;
-    } else {
-      __syncthreads();  // step t+1 is in buffer cur
-      if (valid) {
-        const float* next = buf + cur * stride;
-        const float stay = lae(next[s], next[s + 1]);
-        val = lae(stay, skip2 ? next[s + 2] : BIG_NEG) + e;
+  for (int tt = len - 1; tt >= 0; tt -= P) {
+#pragma unroll
+    for (int u = 0; u < P; ++u) {
+      const int t = tt - u;
+      if (t < 0) break;
+      asr::cp_async_wait<P - 1>();
+      const float* slot = ring + (u * 3) * nth + s;
+      float x;
+      if constexpr (sizeof(T) == 4) {
+        x = slot[0];
+      } else {
+        const uint32_t w = __float_as_uint(slot[0]);
+        x = __uint_as_float((((row0 + t) * C + label) & 1 ? w >> 16 : w & 0xffffu) << 16);
       }
-      cur ^= 1;
-    }
-    if (valid) {
-      buf[cur * stride + s] = val;
-      const float gamma = a[(size_t)t * S + s] + val - e;
-      zb[(size_t)t * S + s] = expf(fminf(gamma + nll, 0.0f));
+      const float e = valid ? x - slot[2 * nth] : BIG_NEG;
+      float val = BIG_NEG;
+      if (t == len - 1) {
+        if (fin) val = e;
+      } else {
+        __syncthreads();  // step t+1 is in buffer cur
+        const float* next = buf + cur * stride;
+        if (valid)
+          val = lae_fast(lae_fast(next[s], next[s + 1]), skip2 ? next[s + 2] : BIG_NEG) + e;
+        cur ^= 1;
+      }
+      if (valid) {
+        buf[cur * stride + s] = val;
+        z[(row0 + t) * S + s] = __expf(fminf(slot[nth] + val - e + nll, 0.0f));
+      }
+      fetch(u, t - P);
+      asr::cp_async_commit();
     }
   }
 }
 
-// K4, part 2: one block per (b, t) row; the row of C gradients is built in
-// shared memory (softmax * sum z, minus the scatter of z) and written once
+constexpr int GRAD_WARPS = 8;   // one row (b, t) at a time per warp
+constexpr int GRAD_ROWS = 16;   // rows of one utterance per block
+constexpr int LINK_HEAD = 1 << 16;
+
+// a row's elements [0, C) in three parts: up to the first 16-byte boundary,
+// whole 16-byte vectors, the rest; fn(i) for the scalars, vec(i) for vector i
+// of the aligned part (the logits and the gradient share their alignment)
+template <typename T, typename Scalar, typename Vector>
+__device__ __forceinline__ void row_parts(const T* x, int C, int lane, Scalar fn, Vector vec) {
+  constexpr int V = 16 / sizeof(T);
+  const int mis = (int)((reinterpret_cast<uintptr_t>(x) / sizeof(T)) & (V - 1));
+  const int head = min(C, (V - mis) & (V - 1));
+  const int n_vec = (C - head) / V;
+  for (int c = lane; c < head; c += 32) fn(c);
+#pragma unroll 4
+  for (int i = lane; i < n_vec; i += 32) vec(head, i);
+  for (int c = head + n_vec * V + lane; c < C; c += 32) fn(c);
+}
+
+// 16 bytes of T as floats, and back
 template <typename T>
-__global__ void __launch_bounds__(ROW_THREADS)
-ctc_grad_kernel(const T* __restrict__ logits, const float* __restrict__ lse,
-                const int* __restrict__ ext_all, const int* __restrict__ logit_len,
-                const float* __restrict__ z, const float* __restrict__ g,
-                T* __restrict__ dlogits, int Tt, int C, int S) {
-  extern __shared__ float grad[];  // C floats
-  __shared__ float red[32];
-  const int row = blockIdx.x;
-  const int b = row / Tt;
-  const int t = row - b * Tt;
-  T* out = dlogits + (size_t)row * C;
-  if (t >= logit_len[b]) {
-    for (int c = threadIdx.x; c < C; c += blockDim.x) out[c] = from_f32<T>(0.0f);
-    return;
+struct Vec16;
+template <>
+struct Vec16<float> {
+  static constexpr int N = 4;
+  static __device__ __forceinline__ void unpack(uint4 r, float (&f)[4]) {
+    f[0] = __uint_as_float(r.x);
+    f[1] = __uint_as_float(r.y);
+    f[2] = __uint_as_float(r.z);
+    f[3] = __uint_as_float(r.w);
   }
-  const float* zr = z + (size_t)row * S;
-  const int* ext = ext_all + (size_t)b * S;
-  float zs = 0.0f;
-  for (int s = threadIdx.x; s < S; s += blockDim.x) zs += zr[s];
-  zs = block_reduce(zs, red, false);
-  const float l = lse[row];
-  const T* x = logits + (size_t)row * C;
-  for (int c = threadIdx.x; c < C; c += blockDim.x)
-    grad[c] = expf(to_f32(x[c]) - l) * zs;
+  static __device__ __forceinline__ uint4 pack(const float (&f)[4]) {
+    return make_uint4(__float_as_uint(f[0]), __float_as_uint(f[1]), __float_as_uint(f[2]),
+                      __float_as_uint(f[3]));
+  }
+};
+template <>
+struct Vec16<__nv_bfloat16> {
+  static constexpr int N = 8;
+  static __device__ __forceinline__ void unpack(uint4 r, float (&f)[8]) {
+    const uint32_t w[4] = {r.x, r.y, r.z, r.w};
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const float2 p = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&w[i]));
+      f[2 * i] = p.x;
+      f[2 * i + 1] = p.y;
+    }
+  }
+  static __device__ __forceinline__ uint4 pack(const float (&f)[8]) {
+    uint32_t w[4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const __nv_bfloat162 p = __floats2bfloat162_rn(f[2 * i], f[2 * i + 1]);
+      w[i] = *reinterpret_cast<const uint32_t*>(&p);
+    }
+    return make_uint4(w[0], w[1], w[2], w[3]);
+  }
+};
+
+// K4, part 2: the gradient rows, GRAD_ROWS of one utterance per block, a
+// warp per row. Every class gets g softmax sum(z), in 16-byte loads and
+// stores; then, after the warp's barrier, the <= S label positions are
+// written again with g (softmax sum(z) - the sum of their z), the
+// duplicates (blank at every even s, a repeated label) summed first in the
+// order of s and each value rounded to the logits' type once. Rows t >= len
+// are zeros. The class of every position and the link to the next position
+// of the same class are worked out once per block in shared memory; no row
+// of C floats and no atomics.
+template <typename T>
+__global__ void __launch_bounds__(32 * GRAD_WARPS)
+ctc_grad_rows_kernel(const T* __restrict__ logits, const float* __restrict__ lse,
+                     const int* __restrict__ ext_all, const int* __restrict__ logit_len,
+                     const float* __restrict__ z, const float* __restrict__ g,
+                     T* __restrict__ dlogits, int Tt, int C, int S) {
+  using V = Vec16<T>;
+  extern __shared__ int sm[];
+  int* ext = sm;                                      // S classes
+  int* link = sm + S;                                 // next position | LINK_HEAD
+  float* zs_all = reinterpret_cast<float*>(sm + 2 * S);  // a row of z per warp
+  const int tid = threadIdx.x;
+  const int warp = tid >> 5;
+  const int lane = tid & 31;
+  const int b = blockIdx.y;
+  const int t0 = blockIdx.x * GRAD_ROWS;
+  const int len = min(logit_len[b], Tt);
+  for (int s = tid; s < S; s += blockDim.x) ext[s] = ext_all[(size_t)b * S + s];
   __syncthreads();
-  for (int s = threadIdx.x; s < S; s += blockDim.x) atomicAdd(&grad[ext[s]], -zr[s]);
+  for (int s = tid; s < S; s += blockDim.x) {
+    const int c = ext[s];
+    int head = LINK_HEAD, next = S;
+    for (int s2 = 0; s2 < S; ++s2) {
+      if (ext[s2] != c) continue;
+      if (s2 < s) head = 0;
+      if (s2 > s && next == S) next = s2;
+    }
+    link[s] = next | head;
+  }
   __syncthreads();
+
   const float gb = g[b];
-  for (int c = threadIdx.x; c < C; c += blockDim.x) out[c] = from_f32<T>(gb * grad[c]);
+  float* zr = zs_all + warp * S;
+  for (int r = warp; r < GRAD_ROWS; r += GRAD_WARPS) {
+    const int t = t0 + r;
+    if (t >= Tt) break;
+    const size_t row = (size_t)b * Tt + t;
+    const T* x = logits + row * C;
+    T* out = dlogits + row * C;
+    if (t >= len) {
+      row_parts(x, C, lane, [&](int c) { out[c] = from_f32<T>(0.0f); },
+                [&](int head, int i) {
+                  reinterpret_cast<uint4*>(out + head)[i] = make_uint4(0u, 0u, 0u, 0u);
+                });
+      continue;
+    }
+    float zs = 0.0f;
+    for (int s = lane; s < S; s += 32) {
+      const float v = z[row * S + s];
+      zr[s] = v;
+      zs += v;
+    }
+    for (int off = 16; off > 0; off >>= 1) zs += __shfl_xor_sync(0xffffffffu, zs, off);
+    const float l = lse[row];
+    row_parts(
+        x, C, lane, [&](int c) { out[c] = from_f32<T>(__expf(to_f32(x[c]) - l) * zs * gb); },
+        [&](int head, int i) {
+          float f[V::N];
+          V::unpack(reinterpret_cast<const uint4*>(x + head)[i], f);
+#pragma unroll
+          for (int k = 0; k < V::N; ++k) f[k] = __expf(f[k] - l) * zs * gb;
+          reinterpret_cast<uint4*>(out + head)[i] = V::pack(f);
+        });
+    __syncwarp();  // the row's z staged, and its class values written
+    for (int s = lane; s < S; s += 32) {
+      const int lk = link[s];
+      if (!(lk & LINK_HEAD)) continue;
+      float sum = zr[s];
+      for (int n = lk & (LINK_HEAD - 1); n < S; n = link[n] & (LINK_HEAD - 1)) sum += zr[n];
+      const int c = ext[s];
+      out[c] = from_f32<T>((__expf(to_f32(x[c]) - l) * zs - sum) * gb);
+    }
+    __syncwarp();  // zr is free for the warp's next row
+  }
 }
 
 int recursion_threads(int S) { return ((S + 31) / 32) * 32; }
@@ -263,20 +431,22 @@ int beta_launch(const void* logits, const int* ext, const int* logit_len,
                 const int* label_len, const float* lse, const float* alpha,
                 const float* loss, const float* g, float* z, void* dlogits,
                 int B, int Tt, int C, int S, int blank, cudaStream_t st) {
-  const size_t smem = 2 * (S + 2) * sizeof(float);
-  ctc_beta_kernel<T><<<B, recursion_threads(S), smem, st>>>(
-      (const T*)logits, lse, ext, logit_len, label_len, alpha, loss, z, Tt, C, S,
-      blank);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  const size_t row_smem = (size_t)C * sizeof(float);
-  if (row_smem > 48 * 1024) {
-    err = cudaFuncSetAttribute(ctc_grad_kernel<T>,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               (int)row_smem);
-    if (err != cudaSuccess) return (int)err;
-  }
-  ctc_grad_kernel<T><<<B * Tt, ROW_THREADS, row_smem, st>>>(
+  // steps fetched ahead: 8 x 3 floats a thread in the ring
+  constexpr int P = 8;
+  const int nth = 32 * ((S + 31) / 32);
+  const size_t rec_smem = sizeof(float) * (2 * (S + 2) + P * 3 * nth);
+  int err = cudaSuccess;
+  if (rec_smem > 48 * 1024)
+    err = cudaFuncSetAttribute(ctc_beta_recursion_kernel<T, P>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize, (int)rec_smem);
+  if (err != cudaSuccess) return err;
+  ctc_beta_recursion_kernel<T, P><<<B, nth, rec_smem, st>>>(
+      (const T*)logits, lse, ext, logit_len, label_len, alpha, loss, z, Tt, C, S, blank);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  const size_t smem = sizeof(int) * (size_t)(2 + GRAD_WARPS) * S;
+  dim3 grid((Tt + GRAD_ROWS - 1) / GRAD_ROWS, B);
+  ctc_grad_rows_kernel<T><<<grid, 32 * GRAD_WARPS, smem, st>>>(
       (const T*)logits, lse, ext, logit_len, z, g, (T*)dlogits, Tt, C, S);
   return (int)cudaGetLastError();
 }

@@ -8,8 +8,10 @@
 //   dS = W o (dW - rowsum(dW o W)),  dQ = dS K scale,  dK = dS^T Q scale.
 // rowsum(dW o W) = rowsum(dO o O) (because O = (W o M) V), so the kernel
 // never needs a whole score row: D_i = dO_i . O_i is precomputed per query
-// row, and W is recomputed from Q, K and the row log-sum-exp that the
-// forward kernel saved (W_ij = exp(s_ij - lse_i)). Masks (key length,
+// row, and W is recomputed from Q, K and the row statistics that the
+// forward kernel saved, the row max m_i and log-sum log l_i apart
+// (W_ij = exp(s_ij - m_i) / l_i, as exp((s_ij - m_i) - log l_i), the
+// scores rounded as the forward rounds them). Masks (key length,
 // causal, band, rectangular) and the keep mask use global indices and the
 // same hash of (i, j, seed, b*H + h) as the forward, so each tile drops
 // exactly the weights the forward dropped.
@@ -43,7 +45,7 @@
 // are read once from device memory straight into A fragments in registers;
 // the other side's tiles stay bf16 in shared memory (rows padded by 16
 // bytes), fetched by 16-byte cp.async into a ring of two stages, with the
-// tile's lse and D rows beside them in pass 3. Pass 2 computes S and dP and
+// tile's row statistics and D beside them in pass 3. Pass 2 computes S and dP and
 // feeds dS to dQ += dS K; pass 3 computes the transposed tiles S^T = K Q^T
 // and dP^T = V dO^T, so that the accumulators of (W o M)^T and dS^T are
 // already the A fragments of dV += (W o M)^T dO and dK += dS^T Q.
@@ -62,12 +64,12 @@
 // a template parameter. Outputs leave through shared memory as 16-byte
 // stores.
 //
-// Precondition of recomputing W from lse (both designs): every query row
-// below q_len sees a key. A row that sees none (a band, and the row more
-// than the band past k_len) has every score at -1e9, where f32 absorbs the
-// log Tk of its log-sum-exp, so its W would come back as 1 instead of
-// 1 / Tk. The wrapper (ops/fused_attention.py) refuses such lengths before
-// it launches; self-attention with q_len = k_len has no such row.
+// A query row that sees no key (a band, and the row more than the band
+// past k_len) has every score at the -1e9 bias, s_ij - m_i = 0 exactly,
+// and so W_ij = 1 / l_i = 1 / Tk on every key, as the TPU kernel computes
+// it; from a single log-sum-exp, where f32 absorbs the log Tk, it would
+// come back as 1. Such rows weigh keys past k_len too, so the dK/dV pass
+// visits them from every key block (query_tile_range).
 //
 // f32 inputs (the float instantiations of attention_bwd_dkdv_kernel and
 // attention_bwd_dq_kernel, the 1e-4 bound) keep the first design on plain
@@ -130,7 +132,7 @@ template <typename T, int D>
 __global__ void __launch_bounds__(THREADS)
 attention_bwd_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k,
                           const T* __restrict__ v, const T* __restrict__ dout,
-                          const float* __restrict__ lse,
+                          const float2* __restrict__ stats,
                           const float* __restrict__ delta,
                           const int* __restrict__ q_len,
                           const int* __restrict__ k_len, T* __restrict__ dk,
@@ -138,7 +140,7 @@ attention_bwd_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k,
   constexpr int DR = D / 4;
   __shared__ float Qs[TILE][D + 1];
   __shared__ float Gs[TILE][D + 1];  // dO rows
-  __shared__ float Ls[TILE];
+  __shared__ float2 Ms[TILE];  // (max, log-sum) of the tile's rows
   __shared__ float Ds[TILE];
 
   const int b = blockIdx.z;
@@ -180,7 +182,7 @@ attention_bwd_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k,
     }
     if (threadIdx.x < TILE) {
       const int i = i0 + threadIdx.x;
-      Ls[threadIdx.x] = i < qn ? lse[bh * p.Tq + i] : 0.0f;
+      Ms[threadIdx.x] = i < qn ? stats[bh * p.Tq + i] : make_float2(0.0f, 0.0f);
       Ds[threadIdx.x] = i < qn ? delta[bh * p.Tq + i] : 0.0f;
     }
     __syncthreads();
@@ -197,8 +199,8 @@ attention_bwd_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k,
       s = quad_sum(s);
       dp = quad_sum(dp);
       if (!col_ok) continue;
-      s = s * p.scale + (key_visible(i, j, kn, p.causal, p.band) ? 0.0f : NEG_BIAS);
-      const float w = expf(s - Ls[ii]);
+      s = fmaf(s, p.scale, key_visible(i, j, kn, p.causal, p.band) ? 0.0f : NEG_BIAS);
+      const float w = expf((s - Ms[ii].x) - Ms[ii].y);
       float keep = 1.0f;
       if (p.dropout)
         keep = keep_hash((uint32_t)i, (uint32_t)j, p.seed, cell) >= p.threshold
@@ -226,7 +228,7 @@ template <typename T, int D>
 __global__ void __launch_bounds__(THREADS)
 attention_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
                         const T* __restrict__ v, const T* __restrict__ dout,
-                        const float* __restrict__ lse,
+                        const float2* __restrict__ stats,
                         const float* __restrict__ delta,
                         const int* __restrict__ q_len,
                         const int* __restrict__ k_len, T* __restrict__ dq,
@@ -255,7 +257,7 @@ attention_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
     gr[dd] = to_f32(dout[qrow + r + 4 * dd]);
     acc[dd] = 0.0f;
   }
-  const float li = active ? lse[bh * p.Tq + i] : 0.0f;
+  const float2 mi = active ? stats[bh * p.Tq + i] : make_float2(0.0f, 0.0f);
   const float di = active ? delta[bh * p.Tq + i] : 0.0f;
 
   int n_tiles = (p.Tk + TILE - 1) / TILE;
@@ -287,8 +289,8 @@ attention_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
       s = quad_sum(s);
       dp = quad_sum(dp);
       if (!active) continue;
-      s = s * p.scale + (key_visible(i, j, kn, p.causal, p.band) ? 0.0f : NEG_BIAS);
-      const float w = expf(s - li);
+      s = fmaf(s, p.scale, key_visible(i, j, kn, p.causal, p.band) ? 0.0f : NEG_BIAS);
+      const float w = expf((s - mi.x) - mi.y);
       float keep = 1.0f;
       if (p.dropout)
         keep = keep_hash((uint32_t)i, (uint32_t)j, p.seed, cell) >= p.threshold
@@ -307,7 +309,7 @@ attention_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
 template <typename T, int D>
 int launch(const void* q, const void* k, const void* v, const void* out,
-           const void* dout, const float* lse, const int* q_len,
+           const void* dout, const float2* stats, const int* q_len,
            const int* k_len, float* delta, void* dq, void* dk, void* dv,
            int B, const Params& p, cudaStream_t stream) {
   const int rows = B * p.H * p.Tq;
@@ -317,13 +319,13 @@ int launch(const void* q, const void* k, const void* v, const void* out,
   if (err != cudaSuccess) return (int)err;
   dim3 kgrid((p.Tk + ROWS - 1) / ROWS, p.H, B);
   attention_bwd_dkdv_kernel<T, D><<<kgrid, THREADS, 0, stream>>>(
-      (const T*)q, (const T*)k, (const T*)v, (const T*)dout, lse, delta, q_len,
+      (const T*)q, (const T*)k, (const T*)v, (const T*)dout, stats, delta, q_len,
       k_len, (T*)dk, (T*)dv, p);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   dim3 qgrid((p.Tq + ROWS - 1) / ROWS, p.H, B);
   attention_bwd_dq_kernel<T, D><<<qgrid, THREADS, 0, stream>>>(
-      (const T*)q, (const T*)k, (const T*)v, (const T*)dout, lse, delta, q_len,
+      (const T*)q, (const T*)k, (const T*)v, (const T*)dout, stats, delta, q_len,
       k_len, (T*)dq, p);
   return (int)cudaGetLastError();
 }
@@ -333,10 +335,11 @@ int launch(const void* q, const void* k, const void* v, const void* out,
 constexpr int MMA_THREADS = 128;  // 4 warps x 16 owned rows
 
 // Query tiles [lo, hi) that the key block [j0, j0 + 64) has to visit. Rows
-// at or past qn weigh 0, and a masked key weighs exp(-1e9 - lse_i) = 0
-// exactly because row i sees a key (the precondition above). So a block of
-// keys past kn has nothing to do, and the others only meet the rows of
-// their window.
+// at or past qn weigh 0, and a masked key weighs exp(-1e9 - m_i) = 0
+// exactly where row i sees a key. So a block of keys past kn has nothing to
+// do, and the others only meet the rows of their window; but the rows that
+// see no key (a band, rows kn + band and on) weigh every key alike, so with
+// such rows every key block visits them too.
 __device__ __forceinline__ void query_tile_range(int j0, int qn, int kn,
                                                  const Params& p, int& lo, int& hi) {
   int first = 0, last = qn;  // query rows [first, last)
@@ -351,6 +354,10 @@ __device__ __forceinline__ void query_tile_range(int j0, int qn, int kn,
     }
     if (p.band > 0) last = min(qn, j_last + p.band + 1);
   }
+  if (p.band > 0 && qn > kn + p.band) {  // rows [kn + band, qn) see no key
+    if (last == 0) first = kn + p.band;
+    last = qn;
+  }
   lo = first / asr::ATT_TILE;
   hi = (last + asr::ATT_TILE - 1) / asr::ATT_TILE;
 }
@@ -361,7 +368,7 @@ attention_bwd_dkdv_mma_kernel(const __nv_bfloat16* __restrict__ q,
                               const __nv_bfloat16* __restrict__ k,
                               const __nv_bfloat16* __restrict__ v,
                               const __nv_bfloat16* __restrict__ dout,
-                              const float* __restrict__ lse,
+                              const float2* __restrict__ stats,
                               const float* __restrict__ delta,
                               const int* __restrict__ q_len,
                               const int* __restrict__ k_len,
@@ -374,7 +381,7 @@ attention_bwd_dkdv_mma_kernel(const __nv_bfloat16* __restrict__ q,
   constexpr int NT = ATT_TILE / 8;
   __shared__ __align__(16) __nv_bfloat16 Qs[2][ATT_TILE * LD];
   __shared__ __align__(16) __nv_bfloat16 Gs[2][ATT_TILE * LD];  // dO rows
-  __shared__ __align__(16) float Ls[2][ATT_TILE];
+  __shared__ __align__(16) float2 Ms[2][ATT_TILE];  // (max, log-sum) of the rows
   __shared__ __align__(16) float Ds[2][ATT_TILE];
 
   const int tid = threadIdx.x;
@@ -392,8 +399,10 @@ attention_bwd_dkdv_mma_kernel(const __nv_bfloat16* __restrict__ q,
   const size_t bh = (size_t)b * p.H + h;
   const __nv_bfloat16* qb = q + bh * p.Tq * D;
   const __nv_bfloat16* gb = dout + bh * p.Tq * D;
-  const float* lb = lse + bh * p.Tq;
+  const float2* mb = stats + bh * p.Tq;
   const float* db = delta + bh * p.Tq;
+  const float scale2 = p.scale * LOG2E;  // the forward's scores, in units of log 2
+  constexpr float NEG_BIAS2 = NEG_BIAS * LOG2E;
   const bool warp_on = jw < p.Tk;
   const int jrow[2] = {jw + g, jw + g + 8};
   // key r is seen by the query rows [ilo[r], ihi[r]]: key_visible, once per key
@@ -418,14 +427,14 @@ attention_bwd_dkdv_mma_kernel(const __nv_bfloat16* __restrict__ q,
   int t_lo, t_hi;
   query_tile_range(j0, qn, kn, p, t_lo, t_hi);
 
-  // Q and dO rows at or past qn are zero-filled, with their lse and D
+  // Q and dO rows at or past qn are zero-filled, with their statistics and D
   auto load_tile = [&](int st, int t) {
     load_tile_async<D, MMA_THREADS>(Qs[st], qb, t * ATT_TILE, qn, tid);
     load_tile_async<D, MMA_THREADS>(Gs[st], gb, t * ATT_TILE, qn, tid);
     if (tid < ATT_TILE) {
       const int i = t * ATT_TILE + tid;
       const bool ok = i < qn;
-      cp_async4(&Ls[st][tid], lb + (ok ? i : 0), ok);
+      cp_async8(&Ms[st][tid], mb + (ok ? i : 0), ok);
       cp_async4(&Ds[st][tid], db + (ok ? i : 0), ok);
     }
   };
@@ -473,8 +482,9 @@ attention_bwd_dkdv_mma_kernel(const __nv_bfloat16* __restrict__ q,
           const int i = i0 + ii;
           const int j = jrow[e >> 1];
           const bool seen = i >= ilo[e >> 1] && i <= ihi[e >> 1];
-          const float s = sT[nt][e] * p.scale + (seen ? 0.0f : NEG_BIAS);
-          const float w = exp_sub(s, -Ls[st][ii] * LOG2E);
+          const float s = fmaf(sT[nt][e], scale2, seen ? 0.0f : NEG_BIAS2);
+          const float2 ml = Ms[st][ii];
+          const float w = ex2((s - ml.x) - ml.y);
           float keep = 1.0f;
           if (DROPOUT)
             keep = keep_hash((uint32_t)i, (uint32_t)j, p.seed, cell) >= p.threshold
@@ -509,7 +519,7 @@ attention_bwd_dq_mma_kernel(const __nv_bfloat16* __restrict__ q,
                             const __nv_bfloat16* __restrict__ out,
                             const __nv_bfloat16* __restrict__ out_lo,
                             const __nv_bfloat16* __restrict__ dout,
-                            const float* __restrict__ lse,
+                            const float2* __restrict__ stats,
                             float* __restrict__ delta,
                             const int* __restrict__ q_len,
                             const int* __restrict__ k_len,
@@ -543,15 +553,18 @@ attention_bwd_dq_mma_kernel(const __nv_bfloat16* __restrict__ q,
   const Window win = attention_window(p.causal, p.band);
   const int jlo[2] = {irow[0] - win.below, irow[1] - win.below};
   const int jhi[2] = {min(irow[0] + win.above, kn - 1), min(irow[1] + win.above, kn - 1)};
+  const float scale2 = p.scale * LOG2E;  // the forward's scores, in units of log 2
+  constexpr float NEG_BIAS2 = NEG_BIAS * LOG2E;
 
-  // this warp's 16 query rows: Q and dO as A fragments, their lse, and
+  // this warp's 16 query rows: Q and dO as A fragments, their statistics, and
   // D_i = dO_i . O_i summed over the same fragment layout and written for
   // the dK/dV pass, with O = out + out_lo where the forward kept what the
   // rounding of out took away (from the bf16 output alone, dq and dk lose
   // up to half the bound they are held to); rows at or past qn are padded:
   // W = 0, dq = 0
   uint32_t qf[KS][4], gf[KS][4];
-  float li[2], di[2] = {0.0f, 0.0f};
+  float2 ml[2];
+  float di[2] = {0.0f, 0.0f};
 #pragma unroll
   for (int ks = 0; ks < KS; ++ks) {
     load_a_fragment<D>(qf[ks], q + bh * p.Tq * D, iw, qn, ks, lane);
@@ -573,7 +586,7 @@ attention_bwd_dq_mma_kernel(const __nv_bfloat16* __restrict__ q,
     di[r] += __shfl_xor_sync(0xffffffffu, di[r], 1);
     di[r] += __shfl_xor_sync(0xffffffffu, di[r], 2);
     const bool active = irow[r] < qn;
-    li[r] = active ? -lse[bh * p.Tq + irow[r]] * LOG2E : 0.0f;  // for exp_sub
+    ml[r] = active ? stats[bh * p.Tq + irow[r]] : make_float2(0.0f, 0.0f);
     if (active && t4 == 0) delta[bh * p.Tq + irow[r]] = di[r];
   }
   float acc[DN][4];
@@ -633,8 +646,8 @@ attention_bwd_dq_mma_kernel(const __nv_bfloat16* __restrict__ q,
           const int i = irow[e >> 1];
           const int j = j0 + nt * 8 + 2 * t4 + (e & 1);
           const bool seen = j >= jlo[e >> 1] && j <= jhi[e >> 1];
-          const float sc = s[nt][e] * p.scale + (seen ? 0.0f : NEG_BIAS);
-          const float w = exp_sub(sc, li[e >> 1]);
+          const float sc = fmaf(s[nt][e], scale2, seen ? 0.0f : NEG_BIAS2);
+          const float w = ex2((sc - ml[e >> 1].x) - ml[e >> 1].y);
           float keep = 1.0f;
           if (DROPOUT)
             keep = keep_hash((uint32_t)i, (uint32_t)j, p.seed, cell) >= p.threshold
@@ -659,19 +672,19 @@ attention_bwd_dq_mma_kernel(const __nv_bfloat16* __restrict__ q,
 
 template <int D, bool DROPOUT>
 int launch_mma(const void* q, const void* k, const void* v, const void* out,
-               const void* out_lo, const void* dout, const float* lse, const int* q_len,
+               const void* out_lo, const void* dout, const float2* stats, const int* q_len,
                const int* k_len, float* delta, void* dq, void* dk, void* dv,
                int B, const Params& p, cudaStream_t stream) {
   using T = __nv_bfloat16;
   dim3 qgrid((p.Tq + asr::ATT_TILE - 1) / asr::ATT_TILE, p.H, B);
   attention_bwd_dq_mma_kernel<D, DROPOUT><<<qgrid, MMA_THREADS, 0, stream>>>(
       (const T*)q, (const T*)k, (const T*)v, (const T*)out, (const T*)out_lo,
-      (const T*)dout, lse, delta, q_len, k_len, (T*)dq, p);
+      (const T*)dout, stats, delta, q_len, k_len, (T*)dq, p);
   const cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   dim3 kgrid((p.Tk + asr::ATT_TILE - 1) / asr::ATT_TILE, p.H, B);
   attention_bwd_dkdv_mma_kernel<D, DROPOUT><<<kgrid, MMA_THREADS, 0, stream>>>(
-      (const T*)q, (const T*)k, (const T*)v, (const T*)dout, lse, delta, q_len,
+      (const T*)q, (const T*)k, (const T*)v, (const T*)dout, stats, delta, q_len,
       k_len, (T*)dk, (T*)dv, p);
   return (int)cudaGetLastError();
 }
@@ -681,8 +694,8 @@ int launch_mma(const void* q, const void* k, const void* v, const void* out,
 // q, out, dout, dq: (B, H, Tq, D); k, v, dk, dv: (B, H, Tk, D); all
 // contiguous, bf16 (is_bf16=1) or f32. out_lo: (B, H, Tq, D) bf16 from the
 // forward kernel (what the rounding of a bf16 ``out`` took away), or null,
-// and unused for f32. lse: (B, H, Tq) f32 from the forward
-// kernel; delta: (B, H, Tq) f32 scratch; q_len/k_len: (B,) int32 on the
+// and unused for f32. stats: (B, H, Tq, 2) f32 row (max, log-sum) from the
+// forward kernel; delta: (B, H, Tq) f32 scratch; q_len/k_len: (B,) int32 on the
 // device. bf16 runs on the tensor cores, f32 on FMAs. Returns the first
 // launch error, cudaErrorInvalidValue for a head dim without an
 // instantiation, or 0.
@@ -690,15 +703,17 @@ int launch_mma(const void* q, const void* k, const void* v, const void* out,
   const Params p{H, Tq, Tk, scale, seed, threshold, 1.0f / keep_prob,          \
                  dropout, causal, band}
 #define ASR_ATTN_BWD_ARGS                                                     \
-  q, k, v, out, dout, lse, q_len, k_len, delta, dq, dk, dv, B, p,              \
+  q, k, v, out, dout, (const float2*)stats, q_len, k_len, delta, dq, dk, dv, B,  \
+      p,                                                                       \
       (cudaStream_t)stream
 #define ASR_ATTN_BWD_MMA_ARGS                                                 \
-  q, k, v, out, out_lo, dout, lse, q_len, k_len, delta, dq, dk, dv, B, p,      \
+  q, k, v, out, out_lo, dout, (const float2*)stats, q_len, k_len, delta, dq,   \
+      dk, dv, B, p,                                                            \
       (cudaStream_t)stream
 
 extern "C" int asr_attention_bwd(const void* q, const void* k, const void* v,
                                  const void* out, const void* out_lo,
-                                 const void* dout, const float* lse,
+                                 const void* dout, const float* stats,
                                  const int* q_len, const int* k_len,
                                  float* delta, void* dq,
                                  void* dk, void* dv, int B, int H, int Tq,

@@ -7,11 +7,17 @@
 // global index), f32 row softmax, padded query rows zeroed, optional keep
 // mask hashed from (i, j, seed, b*H + h) and scaled by 1/(1-rate), then
 // (W o M) V. Inputs bf16 or f32, f32 accumulation, output in the input type.
-// For training, the kernel also writes each query row's log-sum-exp of its
-// masked scores (``lse``, when the pointer is not null), which the backward
-// kernels (fused_attention_bwd.cu) use to recompute the weights, and for
-// bf16 what the rounding of the output took away (``out_lo``, when the
-// pointer is not null), from which the backward takes D_i = dO_i . O_i.
+// For training, the kernel also writes each query row's statistics of its
+// masked scores (``stats``, when the pointer is not null): the row maximum
+// m and the log of the row sum of exp(s - m), apart, in the units the
+// kernel scores in (natural for f32, log 2 for bf16), from which the
+// backward kernels (fused_attention_bwd.cu) rebuild the weights as
+// exp(s - m) / l. Kept apart, they serve a row that sees no key: its
+// scores all sit at the -1e9 bias, where f32 would absorb the log Tk of a
+// single log-sum-exp, and its weights come back as 1 / Tk, as in the TPU
+// kernel. For bf16 the kernel also writes what the rounding of the output
+// took away (``out_lo``, when the pointer is not null), from which the
+// backward takes D_i = dO_i . O_i.
 //
 // What bounds it on the H100, at the flagship's training shape (64, 8, 267,
 // 64) bf16: q, k, v read and the output written once are 4 x 17.5 MB = 70.0
@@ -87,7 +93,7 @@ __global__ void __launch_bounds__(THREADS)
 attention_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
                      const T* __restrict__ v, const int* __restrict__ q_len,
                      const int* __restrict__ k_len, T* __restrict__ out,
-                     float* __restrict__ lse,
+                     float* __restrict__ stats,
                      int H, int Tq, int Tk, float scale, uint32_t seed,
                      uint32_t threshold, float keep_prob, int dropout,
                      int causal, int band) {
@@ -152,7 +158,7 @@ attention_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
         sc = -INFINITY;  // past the key axis: not a key at all
       } else {
         const bool keep = asr::key_visible(i, j, kn, causal, band);
-        sc = acc * scale + (keep ? 0.0f : NEG_BIAS);
+        sc = fmaf(acc, scale, keep ? 0.0f : NEG_BIAS);  // as the backward rounds it
       }
       s[u] = sc;
       tile_max = fmaxf(tile_max, sc);
@@ -194,18 +200,19 @@ attention_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
     T* orow = out + (bh * Tq + i) * D;
 #pragma unroll
     for (int dd = 0; dd < DR; ++dd) orow[r + 4 * dd] = from_f32<T>(o[dd] * norm);
-    if (lse != nullptr && r == 0) lse[bh * Tq + i] = m_run + logf(l_run);
+    if (stats != nullptr && r == 0)
+      reinterpret_cast<float2*>(stats)[bh * Tq + i] = make_float2(m_run, logf(l_run));
   }
 }
 
 template <typename T, int D>
 void launch(const void* q, const void* k, const void* v, const int* q_len,
-            const int* k_len, void* out, float* lse, int B, int H, int Tq,
+            const int* k_len, void* out, float* stats, int B, int H, int Tq,
             int Tk, float scale, uint32_t seed, uint32_t threshold, float keep_prob,
             int dropout, int causal, int band, cudaStream_t stream) {
   dim3 grid((Tq + QT - 1) / QT, H, B);
   attention_fwd_kernel<T, D><<<grid, THREADS, 0, stream>>>(
-      (const T*)q, (const T*)k, (const T*)v, q_len, k_len, (T*)out, lse, H, Tq,
+      (const T*)q, (const T*)k, (const T*)v, q_len, k_len, (T*)out, stats, H, Tq,
       Tk, scale, seed, threshold, keep_prob, dropout, causal, band);
 }
 
@@ -220,7 +227,7 @@ attention_fwd_mma_kernel(const __nv_bfloat16* __restrict__ q,
                          const __nv_bfloat16* __restrict__ v,
                          const int* __restrict__ q_len, const int* __restrict__ k_len,
                          __nv_bfloat16* __restrict__ out,
-                         __nv_bfloat16* __restrict__ out_lo, float* __restrict__ lse,
+                         __nv_bfloat16* __restrict__ out_lo, float* __restrict__ stats,
                          int H, int Tq, int Tk, float scale, uint32_t seed,
                          uint32_t threshold, float keep_prob, int causal, int band) {
   using namespace asr;
@@ -323,7 +330,7 @@ attention_fwd_mma_kernel(const __nv_bfloat16* __restrict__ q,
         for (int e = 0; e < 4; ++e) {
           const int j = j0 + nt * 8 + 2 * t4 + (e & 1);
           const bool keep = j >= jlo[e >> 1] && j <= jhi[e >> 1];
-          s[nt][e] = s[nt][e] * scale2 + (keep ? 0.0f : NEG_BIAS2);
+          s[nt][e] = fmaf(s[nt][e], scale2, keep ? 0.0f : NEG_BIAS2);  // as K2 rounds it
         }
       }
       if (j0 + ATT_TILE > Tk) {  // the ragged tile: past the key axis is not a key at all
@@ -390,8 +397,9 @@ attention_fwd_mma_kernel(const __nv_bfloat16* __restrict__ q,
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
     norm[r] = irow[r] < qn ? 1.0f / l_run[r] : 0.0f;
-    if (lse != nullptr && t4 == 0 && irow[r] < Tq)
-      lse[bh * Tq + irow[r]] = m_run[r] * LN2 + logf(l_run[r]);
+    if (stats != nullptr && t4 == 0 && irow[r] < Tq)  // in units of log 2
+      reinterpret_cast<float2*>(stats)[bh * Tq + irow[r]] =
+          make_float2(m_run[r], log2f(l_run[r]));
   }
   __nv_bfloat16* stage = Qs + warp * 16 * LD;
   store_rows<D>(o, norm, stage, out + bh * Tq * D, i0 + warp * 16, Tq, lane);
@@ -412,44 +420,45 @@ attention_fwd_mma_kernel(const __nv_bfloat16* __restrict__ q,
 
 template <int D, bool DROPOUT>
 void launch_mma(const void* q, const void* k, const void* v, const int* q_len,
-                const int* k_len, void* out, void* out_lo, float* lse, int B, int H,
+                const int* k_len, void* out, void* out_lo, float* stats, int B, int H,
                 int Tq, int Tk, float scale, uint32_t seed, uint32_t threshold,
                 float keep_prob, int causal, int band, cudaStream_t stream) {
   dim3 grid((Tq + asr::ATT_TILE - 1) / asr::ATT_TILE, H, B);
   attention_fwd_mma_kernel<D, DROPOUT><<<grid, MMA_THREADS, 0, stream>>>(
       (const __nv_bfloat16*)q, (const __nv_bfloat16*)k, (const __nv_bfloat16*)v,
-      q_len, k_len, (__nv_bfloat16*)out, (__nv_bfloat16*)out_lo, lse, H, Tq, Tk, scale,
+      q_len, k_len, (__nv_bfloat16*)out, (__nv_bfloat16*)out_lo, stats, H, Tq, Tk, scale,
       seed, threshold, keep_prob, causal, band);
 }
 
 }  // namespace
 
 // q: (B, H, Tq, D), k/v: (B, H, Tk, D), out: (B, H, Tq, D), all contiguous,
-// bf16 (is_bf16=1) or f32; q_len/k_len: (B,) int32 on the device; lse:
-// (B, H, Tq) f32 row log-sum-exp output, or null; out_lo: (B, H, Tq, D) bf16
+// bf16 (is_bf16=1) or f32; q_len/k_len: (B,) int32 on the device; stats:
+// (B, H, Tq, 2) f32 output of each row's (max, log-sum) in the kernel's
+// units (natural for f32, log 2 for bf16), or null; out_lo: (B, H, Tq, D) bf16
 // output for what the rounding of a bf16 ``out`` took away (the backward
 // kernel's input), or null, and unused for f32. bf16 runs on the tensor
 // cores, f32 on FMAs. Returns cudaGetLastError() after the launch, or
 // cudaErrorInvalidValue for a head dim without an instantiation.
 #define ASR_ATTN_ARGS                                                          \
-  q, k, v, q_len, k_len, out, lse, B, H, Tq, Tk, scale, seed, threshold,        \
+  q, k, v, q_len, k_len, out, stats, B, H, Tq, Tk, scale, seed, threshold,      \
       keep_prob, dropout, causal, band, (cudaStream_t)stream
 // the tensor-core kernel has the dropout switch at compile time
 #define ASR_ATTN_MMA(DIM)                                                      \
   do {                                                                         \
     if (dropout)                                                               \
-      launch_mma<DIM, true>(q, k, v, q_len, k_len, out, out_lo, lse, B, H, Tq,  \
+      launch_mma<DIM, true>(q, k, v, q_len, k_len, out, out_lo, stats, B, H, Tq, \
                             Tk, scale, seed, threshold, keep_prob, causal,      \
                             band, (cudaStream_t)stream);                       \
     else                                                                       \
-      launch_mma<DIM, false>(q, k, v, q_len, k_len, out, out_lo, lse, B, H, Tq, \
+      launch_mma<DIM, false>(q, k, v, q_len, k_len, out, out_lo, stats, B, H, Tq,\
                              Tk, scale, seed, threshold, keep_prob, causal,     \
                              band, (cudaStream_t)stream);                      \
   } while (0)
 
 extern "C" int asr_attention_fwd(const void* q, const void* k, const void* v,
                                  const int* q_len, const int* k_len, void* out,
-                                 void* out_lo, float* lse, int B, int H, int Tq,
+                                 void* out_lo, float* stats, int B, int H, int Tq,
                                  int Tk, int D, int is_bf16, float scale,
                                  unsigned int seed, unsigned int threshold,
                                  float keep_prob, int dropout, int causal,

@@ -33,6 +33,14 @@ __device__ __forceinline__ void cp_async16(void* dst, const void* src, bool vali
                : "memory");
 }
 
+// 8 bytes global -> shared, asynchronously; zeros when !valid
+__device__ __forceinline__ void cp_async8(void* dst, const void* src, bool valid) {
+  const int n = valid ? 8 : 0;
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 8, %2;\n" ::"r"(smem_addr(dst)),
+               "l"(src), "r"(n)
+               : "memory");
+}
+
 // 4 bytes global -> shared, asynchronously; zeros when !valid
 __device__ __forceinline__ void cp_async4(void* dst, const void* src, bool valid) {
   const int n = valid ? 4 : 0;
@@ -103,15 +111,6 @@ __device__ __forceinline__ float ex2(float x) {
   float y;
   asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
   return y;
-}
-
-// exp(x - m) as one fused multiply-add and one ex2.approx.ftz, given
-// neg_m_log2e = -m log2(e); exp(-inf) = 0. (__expf adds a range test and two
-// multiplies per call to keep denormal results, which a weight does not need.)
-// The rounding of neg_m_log2e is 2^-24 of it: nothing for a row maximum of
-// ordinary size, but not for m = -1e9 (a row of masked keys only).
-__device__ __forceinline__ float exp_sub(float x, float neg_m_log2e) {
-  return ex2(fmaf(x, LOG2E, neg_m_log2e));
 }
 
 // (x, y) = hi + lo with hi = bf16(x, y) and lo = bf16((x, y) - hi), each

@@ -99,6 +99,8 @@ def _check_kernel_inputs(logits, ext, logit_lengths, label_lengths):
         )
     if not logits.is_contiguous():
         raise ValueError("ctc kernel: logits must be contiguous")
+    if logits.data_ptr() % 16:  # K4's rows share the gradient's 16-byte alignment
+        raise ValueError("ctc kernel: logits must start on a 16-byte boundary")
     bsz = logits.shape[0]
     if ext.shape[0] != bsz or ext.shape[1] > 1024:
         raise ValueError(f"ctc kernel: extended labels {tuple(ext.shape)}")
@@ -138,7 +140,10 @@ def ctc_beta_kernel(
     logits, ext, logit_lengths, label_lengths, lse, alpha, loss, g, blank_id=0
 ):
     """K4 on the tensors K3 used and produced, plus the cotangent ``g``
-    (B,): returns d_logits (B, T, C) in the logits' dtype."""
+    (B,): returns d_logits (B, T, C) in the logits' dtype. Two launches: the
+    reverse recursion, a block per utterance and a thread per state,
+    writing the posteriors z (B, T, S); the gradient rows, a warp per (b, t)
+    row."""
     bsz, t_max, c = logits.shape
     s = ext.shape[1]
     dev = logits.device

@@ -257,14 +257,6 @@ _KERNEL_DTYPES = (torch.float32, torch.bfloat16)
 _KERNEL_HEAD_DIMS = (32, 64)
 
 
-def keyless_row_gap(q_lengths, k_lengths, tq: int, tk: int):
-    """(B,) by how many rows the queries outlast the keys: under a band
-    (causal or not) query row i sees no key at all when i - band is past
-    the last key, so an utterance has such a row when its gap exceeds the
-    band."""
-    return q_lengths.clamp(max=tq) - k_lengths.clamp(max=tk)
-
-
 def _check_tensors(q, k, v):
     """Device, shapes, dtypes and layout the kernels take."""
     if q.device.type != "cuda":
@@ -287,32 +279,19 @@ def _check_tensors(q, k, v):
         raise ValueError("attention kernel: q, k and v on different devices")
 
 
-def _check_kernel_inputs(q, k, v, q_lengths, k_lengths, backward_band: int = 0):
+def _check_kernel_inputs(q, k, v, q_lengths, k_lengths):
     """Validate inputs for the kernels; returns (q_len, k_len) as int32 on
-    q's device. ``backward_band`` > 0: a backward under that band follows
-    (or is this call), which recomputes the weights from the row
-    log-sum-exp and so refuses a query row without a visible key (its
-    scores are all -1e9, where f32 absorbs the log Tk of its log-sum-exp).
-    The one host sync of an attention call, forward and backward."""
+    q's device. The one host sync of an attention call, forward and
+    backward."""
     _check_tensors(q, k, v)
-    bsz, tq = q.shape[0], q.shape[2]
+    bsz = q.shape[0]
     q_len = q_lengths.to(device=q.device, dtype=torch.int32).contiguous()
     k_len = k_lengths.to(device=q.device, dtype=torch.int32).contiguous()
     if q_len.shape != (bsz,) or k_len.shape != (bsz,):
         raise ValueError("attention kernel: lengths must be (B,)")
-    # host sync (one for both values): an empty key row has no defined output
-    if backward_band > 0:
-        gap = keyless_row_gap(q_len, k_len, tq, k.shape[2]).max()
-        k_min, gap = torch.stack([k_len.min(), gap]).tolist()
-    else:
-        k_min, gap = int(k_len.min()), 0
-    if k_min < 1:
+    # host sync: an empty key row has no defined output
+    if int(k_len.min()) < 1:
         raise ValueError("attention kernel: every k_length must be >= 1")
-    if gap > backward_band:
-        raise ValueError(
-            f"attention backward kernel: a query row sees no key (q_length exceeds "
-            f"k_length by {gap} > band {backward_band})"
-        )
     return q_len, k_len
 
 
@@ -347,12 +326,20 @@ def _residual_ptr(q, out_lo):
     return out_lo.data_ptr()
 
 
-def _launch(q, k, v, q_len, k_len, seed, scale, rate, causal, band, lse=None, out_lo=None):
+def row_stats_like(q):
+    """An empty (B, H, Tq, 2) f32 tensor for K1's row statistics."""
+    return torch.empty((*q.shape[:3], 2), dtype=torch.float32, device=q.device)
+
+
+def _launch(q, k, v, q_len, k_len, seed, scale, rate, causal, band, stats=None, out_lo=None):
     """Launch the forward kernel on tensors that ``_check_kernel_inputs``
-    has checked; returns the new output. ``lse``, when given, is a (B, H,
-    Tq) f32 tensor that receives each row's log-sum-exp; ``out_lo``, when
-    given (bf16 only), a tensor like q that receives what the rounding of
-    the output to bf16 took away (K2 takes D from the two together)."""
+    has checked; returns the new output. ``stats``, when given, is a (B,
+    H, Tq, 2) f32 tensor (``row_stats_like``) that receives each row's
+    score maximum and the log of its sum of exp(score - max), apart, in
+    the kernel's units (natural for f32, log 2 for bf16), from which K2
+    rebuilds the weights; ``out_lo``, when given (bf16 only), a tensor
+    like q that receives what the rounding of the output to bf16 took
+    away (K2 takes D from the two together)."""
     bsz, heads, tq, d = q.shape
     out = torch.empty_like(q)
     lib = load_library()
@@ -360,7 +347,7 @@ def _launch(q, k, v, q_len, k_len, seed, scale, rate, causal, band, lse=None, ou
         err = lib.asr_attention_fwd(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), q_len.data_ptr(),
             k_len.data_ptr(), out.data_ptr(), _residual_ptr(q, out_lo),
-            None if lse is None else lse.data_ptr(),
+            None if stats is None else stats.data_ptr(),
             bsz, heads, tq, k.shape[2], d, int(q.dtype == torch.bfloat16),
             float(scale), *_dropout_args(seed, rate), int(bool(causal)), int(band),
             torch.cuda.current_stream().cuda_stream,
@@ -370,35 +357,38 @@ def _launch(q, k, v, q_len, k_len, seed, scale, rate, causal, band, lse=None, ou
     return out
 
 
-def _check_backward_tensors(q, lse, dout, *same_as_q):
+def _check_backward_tensors(q, rows, dout, *same_as_q, per_row: int = 1):
     """dO in q's dtype and contiguous, after the shape and layout checks
-    the backward kernels need beyond ``_check_tensors``."""
+    the backward kernels need beyond ``_check_tensors``: ``rows`` is what
+    the forward saved per query row, ``per_row`` f32 values each (K7: the
+    log-sum-exp, (B, H, T); K2: the statistics, (B, H, Tq, 2))."""
     if dout.shape != q.shape or any(x.shape != q.shape for x in same_as_q):
         raise ValueError("attention backward kernel: out/dout shapes")
-    if lse.shape != q.shape[:3] or lse.dtype != torch.float32:
-        raise ValueError("attention backward kernel: lse must be (B, H, Tq) f32")
-    if not (lse.is_contiguous() and all(x.is_contiguous() for x in same_as_q)):
-        raise ValueError("attention backward kernel: out/lse contiguous")
+    want = tuple(q.shape[:3]) + ((per_row,) if per_row > 1 else ())
+    if tuple(rows.shape) != want or rows.dtype != torch.float32:
+        raise ValueError(f"attention backward kernel: row values must be {want} f32")
+    if not (rows.is_contiguous() and all(x.is_contiguous() for x in same_as_q)):
+        raise ValueError("attention backward kernel: out and row values contiguous")
     return dout.to(q.dtype).contiguous()
 
 
 def _launch_backward(
-    q, k, v, out, lse, q_len, k_len, seed, scale, rate, causal, band, dout, out_lo=None
+    q, k, v, out, stats, q_len, k_len, seed, scale, rate, causal, band, dout, out_lo=None
 ):
     """Launch K2 on tensors and int32 lengths that have been checked (by
     ``attention_backward_kernel``, or by the forward of the autograd
-    Function, whose one host sync also covers the backward's refusal).
-    ``out_lo``: what K1 wrote beside a bf16 ``out``; without it D comes
-    from the rounded output alone."""
+    Function, whose one host sync covers the backward too). ``stats``: K1's
+    row statistics; ``out_lo``: what K1 wrote beside a bf16 ``out``;
+    without it D comes from the rounded output alone."""
     bsz, heads, tq, d = q.shape
-    dout = _check_backward_tensors(q, lse, dout, out)
+    dout = _check_backward_tensors(q, stats, dout, out, per_row=2)
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
     delta = torch.empty((bsz, heads, tq), dtype=torch.float32, device=q.device)
     lib = load_library()
     with torch.cuda.device(q.device):
         err = lib.asr_attention_bwd(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-            _residual_ptr(q, out_lo), dout.data_ptr(), lse.data_ptr(),
+            _residual_ptr(q, out_lo), dout.data_ptr(), stats.data_ptr(),
             q_len.data_ptr(), k_len.data_ptr(),
             delta.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
             bsz, heads, tq, k.shape[2], d, int(q.dtype == torch.bfloat16),
@@ -411,17 +401,18 @@ def _launch_backward(
 
 
 def attention_backward_kernel(
-    q, k, v, out, lse, q_lengths, k_lengths, seed, scale, rate, causal, band, dout,
+    q, k, v, out, stats, q_lengths, k_lengths, seed, scale, rate, causal, band, dout,
     out_lo=None,
 ):
     """K2: (dq, dk, dv) in the inputs' dtype, from the forward's output and
-    row log-sum-exp (``lse``, (B, H, Tq) f32), and for bf16 the output's
-    rounding residual (``out_lo``) where K1 wrote it. CUDA tensors only.
-    Under a band every query row below its q_length must see a key:
-    q_length <= k_length + band, else ValueError."""
-    q_len, k_len = _check_kernel_inputs(q, k, v, q_lengths, k_lengths, int(band))
+    row statistics (``stats``, (B, H, Tq, 2) f32 as K1 writes them), and
+    for bf16 the output's rounding residual (``out_lo``) where K1 wrote it.
+    CUDA tensors only. A query row that sees no key (a band, and the row
+    more than the band past its k_length) weighs every key alike, as in
+    the plain version."""
+    q_len, k_len = _check_kernel_inputs(q, k, v, q_lengths, k_lengths)
     return _launch_backward(
-        q, k, v, out, lse, q_len, k_len, seed, scale, rate, causal, band, dout, out_lo
+        q, k, v, out, stats, q_len, k_len, seed, scale, rate, causal, band, dout, out_lo
     )
 
 
@@ -472,8 +463,8 @@ def _launch_banded_backward(q, k, v, lse, n, seed, scale, rate, band, dout):
 
 def banded_attention_backward_kernel(q, k, v, lse, lengths, seed, scale, rate, band, dout):
     """K7: (dq, dk, dv) in the inputs' dtype, from K6's row log-sum-exp
-    (``lse``, (B, H, T) f32). CUDA tensors only. No refusal as K2's: on
-    this route row i below its length sees key i."""
+    (``lse``, (B, H, T) f32; on this route row i below its length sees key
+    i, so a single log-sum-exp serves). CUDA tensors only."""
     _, n = _check_kernel_inputs(q, k, v, lengths, lengths)
     if k.shape != q.shape:
         raise ValueError("banded attention backward kernel: q/k/v shapes")
@@ -484,33 +475,35 @@ def _forward_kernels(
     q, k, v, q_lengths, k_lengths, seed, scale, rate, causal, band, banded, needs_grad
 ):
     """K1, or K6 on the windowed route, after the call's one validation and
-    host sync; returns (out, what the backward needs or None). When a
-    gradient is needed the sync also covers K2's refusal of a query row
-    without a visible key (a band, and q_length > k_length + band; K7 has
-    no such row), so the backward launches on these lengths unchecked."""
-    refuse = int(band) if needs_grad and not banded else 0
-    q_len, k_len = _check_kernel_inputs(q, k, v, q_lengths, k_lengths, refuse)
-    lse = out_lo = None
-    if needs_grad:
-        lse = torch.empty(q.shape[:3], dtype=torch.float32, device=q.device)
+    host sync; returns (out, what the backward needs or None), and the
+    backward launches on these lengths unchecked. What the backward needs
+    of each row: K6's log-sum-exp (B, H, T), or K1's row max and log-sum
+    apart (B, H, Tq, 2), which serve a row that sees no key too."""
+    q_len, k_len = _check_kernel_inputs(q, k, v, q_lengths, k_lengths)
+    rows = out_lo = None
     if banded:
-        out = banded_attention_kernel(q, k, v, k_len, seed, scale, rate, band, lse)
+        if needs_grad:
+            rows = torch.empty(q.shape[:3], dtype=torch.float32, device=q.device)
+        out = banded_attention_kernel(q, k, v, k_len, seed, scale, rate, band, rows)
     else:
-        if needs_grad and q.dtype == torch.bfloat16:
-            out_lo = torch.empty_like(q)
-        out = _launch(q, k, v, q_len, k_len, seed, scale, rate, causal, band, lse, out_lo)
+        if needs_grad:
+            rows = row_stats_like(q)
+            if q.dtype == torch.bfloat16:
+                out_lo = torch.empty_like(q)
+        out = _launch(q, k, v, q_len, k_len, seed, scale, rate, causal, band, rows, out_lo)
     if not needs_grad:
         return out, None
     # K7 needs no forward output; K2 takes D from a bf16 output and its residual
-    return out, (q, k, v, q_len, k_len, None if banded else out, lse, out_lo)
+    return out, (q, k, v, q_len, k_len, None if banded else out, rows, out_lo)
 
 
 class _FusedAttention(torch.autograd.Function):
     """Forward K1 and backward K2, or K6 and K7 on the windowed route
     (plain versions on the CPU). The route is chosen once, in ``forward``.
     Saves q, k, v and, on the card, the checked int32 lengths and the row
-    log-sum-exp (and the output, with its rounding residual in bf16, which
-    K2 needs and K7 does not): no (Tq, Tk) tensor is kept for the backward,
+    values (K6's log-sum-exp, or K1's max and log-sum; and the output, with
+    its rounding residual in bf16, which K2 needs and K7 does not): no
+    (Tq, Tk) tensor is kept for the backward,
     and the backward makes no host sync of its own. The windowed route
     passes ``k_lengths`` as its one length, as the JAX package does."""
 
@@ -555,14 +548,14 @@ class _FusedAttention(torch.autograd.Function):
                     dout,
                 )
         else:
-            q, k, v, q_len, k_len, out, lse, out_lo = saved
+            q, k, v, q_len, k_len, out, rows, out_lo = saved
             if banded:
                 grads = _launch_banded_backward(
-                    q, k, v, lse, k_len, seed, scale, rate, band, dout
+                    q, k, v, rows, k_len, seed, scale, rate, band, dout
                 )
             else:
                 grads = _launch_backward(
-                    q, k, v, out, lse, q_len, k_len, seed, scale, rate, causal, band,
+                    q, k, v, out, rows, q_len, k_len, seed, scale, rate, causal, band,
                     dout, out_lo,
                 )
         return (*grads, None, None, None, None, None, None, None)
@@ -576,11 +569,9 @@ def fused_attention_general(
     valid query/key counts; seed: int (dropout stream). Returns (B, H, Tq,
     D) in q's dtype with padded query rows zeroed; differentiable in q, k
     and v. ``causal`` masks kpos > qpos; ``band`` > 0 restricts keys to
-    [q-band, q] (causal) or |q-k| <= band. Every k_length must be >= 1;
-    on the card a call that needs a gradient under a band also needs
-    q_length <= k_length + band (every query row sees a key: the backward
-    kernel's precondition, checked in the forward's one host sync), else
-    it raises ValueError.
+    [q-band, q] (causal) or |q-k| <= band; a query row that sees no key
+    averages over all Tk keys, forward and backward, as the JAX package's
+    kernels do. Every k_length must be >= 1, else ValueError.
     With ``ASR_BANDED_WINDOW=1`` a causal, banded, square call takes the
     windowed route (K6/K7), where ``k_lengths`` masks keys and zeroes
     query rows."""

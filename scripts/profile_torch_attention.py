@@ -90,7 +90,7 @@ def main() -> None:
             fwd = chip_smoke._attention_fwd_entry(qb, kb, vb, *call)
             fwd()
             bwd = chip_smoke._attention_bwd_entry(
-                qb, kb, vb, fwd.out, fwd.lse, *call, gb, fwd.out_lo)
+                qb, kb, vb, fwd.out, fwd.stats, *call, gb, fwd.out_lo)
             mask = f"causal band {band}" if band else "no mask"
             profile_pair(f"K1/K2 {shape}, {mask}, hash dropout {rate}", fwd, bwd)
     for rate in (0.1, 0.0):

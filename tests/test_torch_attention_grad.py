@@ -97,3 +97,27 @@ def test_gradcheck_float64(causal, band, rate):
         return fused_attention_general(q, k, v, q_len, k_len, 9, 0.5, rate, causal, band)
 
     assert torch.autograd.gradcheck(f, (q, k, v), eps=1e-6, atol=1e-6)
+
+
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+def test_backward_over_keyless_rows_matches_jax_kernel(rate):
+    """Causal band 20 with k_len [40, 9]: the rows past 59 and past 28 see
+    no key, weigh every key alike, and take their gradient as the JAX
+    package's ``_bwd_kernel`` gives it (K2 on the card rebuilds those rows
+    from the row max and log-sum that K1 saves apart). T = 128: the JAX
+    kernel pads its key tile to max(8-aligned Tk, 128) and averages such a
+    row over the padded tile, where its ``_xla_attention`` and the port
+    average over Tk (the difference inside the reference that ROADMAP §3
+    records for k_len = 0); at Tk = 128 the two are the same."""
+    q, k, v, g, _, _ = _inputs(128, 128, seed=7)
+    q_len, k_len = np.asarray([128, 128], np.int32), np.asarray([40, 9], np.int32)
+    want = _jax_grads(q, k, v, g, q_len, k_len, True, 20, rate)
+    leaves = [torch.tensor(a, requires_grad=True) for a in (q, k, v)]
+    out = fused_attention_general(
+        *leaves, torch.from_numpy(q_len), torch.from_numpy(k_len), SEED, SCALE, rate, True, 20,
+    )
+    out.backward(torch.from_numpy(g))
+    for got, ref in zip(leaves, want):
+        np.testing.assert_allclose(got.grad.numpy(), ref, atol=TOL, rtol=0)
+    # the keyless rows reach every key, those past k_len too
+    assert torch.all(leaves[2].grad[1, :, 9:].abs().sum(-1) > 0)

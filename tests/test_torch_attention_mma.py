@@ -3,13 +3,17 @@ inputs, ``ops/csrc/fused_attention_{fwd,bwd}.cu``): a plain torch emulation
 of their arithmetic with their rounding points, held against the f32 plain
 versions within the bounds the kernels are held to on the card.
 
-What the emulation keeps of the kernels: bf16 q, k, v and dO; f32 scores;
-the online (max, sum) softmax over key tiles of 64 per block of 64 query
-rows; the weights times the keep mask (and, in the backward, dS) split into
-hi + lo bf16 parts before each product that takes them as an operand; D =
-rowsum(dO o O) from the bf16-rounded output plus what that rounding took
-away, which the forward keeps as a second bf16 array (``out_lo``); W
-recomputed from the row log-sum-exp; outputs rounded to bf16; and the tile ranges of
+What the emulation keeps of the kernels: bf16 q, k, v and dO; f32 scores
+in units of log 2 (the scale and the -1e9 bias times log2 e, one fused
+multiply-add, as both kernels round them); the online (max, sum) softmax
+over key tiles of 64 per block of 64 query rows; the weights times the keep
+mask (and, in the backward, dS) split into hi + lo bf16 parts before each
+product that takes them as an operand; D = rowsum(dO o O) from the
+bf16-rounded output plus what that rounding took away, which the forward
+keeps as a second bf16 array (``out_lo``); the row max m and log-sum log2 l
+kept apart, and W recomputed as 2^((s - m) - log2 l), which a row that sees
+no key needs (its scores all sit at the bias); outputs rounded to bf16; and
+the tile ranges of
 ``mma.cuh::key_tile_range`` and ``fused_attention_bwd.cu::
 query_tile_range``, whose skips must leave every result bit-identical.
 Those two ranges are mirrored here by hand (``key_tile_range`` and
@@ -25,6 +29,7 @@ Also the bound figures ``chip_smoke.py`` prints beside K1 and K2.
 import functools
 import math
 
+import numpy as np
 import pytest
 import torch
 
@@ -33,6 +38,7 @@ from asr_chinese_e2e_tpu_torch.ops import fused_attention as fa
 
 TILE = 64  # ATT_TILE: rows of a query block and of a key tile
 NEG_BIAS = -1e9
+LOG2E = 1.4426950408889634
 BOUND = 2e-2  # the card's bf16 bound, absolute, against the f32 plain version
 
 
@@ -80,7 +86,8 @@ def key_tile_range(i0, i_last, tk, kn, causal, band):
 
 
 def query_tile_range(j0, qn, kn, causal, band):
-    """Every query row below qn sees a key: the backward's precondition."""
+    """The query rows a key block meets; the rows that see no key (a band,
+    rows kn + band and on) weigh every key, so every key block meets them."""
     first, last = 0, qn
     if j0 >= kn:
         last = 0
@@ -92,17 +99,32 @@ def query_tile_range(j0, qn, kn, causal, band):
             first = max(0, j0 - band)
         if band > 0:
             last = min(qn, j_last + band + 1)
+    if band > 0 and qn > kn + band:
+        if last == 0:
+            first = kn + band
+        last = qn
     return first // TILE, -(-last // TILE)
 
 
+def scores2(q, k, rows, cols, kn, scale, causal, band):
+    """Scores in units of log 2 as the kernels round them: fma(q . k,
+    scale log2 e, bias log2 e), the product of two f32 exact in f64."""
+    scale2 = float(torch.tensor(scale, dtype=torch.float32) * torch.tensor(LOG2E))
+    bias2 = float(torch.tensor(NEG_BIAS, dtype=torch.float32) * torch.tensor(LOG2E))
+    acc = (q @ k.transpose(-1, -2)).double()
+    bias = torch.where(visible(rows, cols, kn, causal, band), 0.0, bias2).double()
+    return (acc * scale2 + bias).float()
+
+
 def emulate_forward(q, k, v, q_len, k_len, seed, scale, rate, causal, band, skip):
-    """(out bf16, lse f32, out_lo bf16) as attention_fwd_mma_kernel computes
-    them."""
+    """(out bf16, stats f32, out_lo bf16) as attention_fwd_mma_kernel
+    computes them; stats (B, H, Tq, 2): each row's max and log2 of its sum,
+    in units of log 2."""
     bsz, heads, tq, d = q.shape
     tk = k.shape[2]
     qf, kf, vf = q.float(), k.float(), v.float()
     out = torch.zeros(bsz, heads, tq, d)
-    lse = torch.zeros(bsz, heads, tq)
+    stats = torch.zeros(bsz, heads, tq, 2)
     keep = fa.keep_mask_reference(seed, bsz, heads, tq, tk, rate) if rate > 0 else None
     for b in range(bsz):
         qn, kn = int(q_len[b]), min(int(k_len[b]), tk)
@@ -118,11 +140,11 @@ def emulate_forward(q, k, v, q_len, k_len, seed, scale, rate, causal, band, skip
             for t in range(t_lo, t_hi):
                 j0, j1 = t * TILE, min((t + 1) * TILE, tk)
                 cols = torch.arange(j0, j1)[None, :]
-                s = (qf[b, :, i0:i1] @ kf[b, :, j0:j1].transpose(-1, -2)) * scale
-                s = s + torch.where(visible(rows, cols, kn, causal, band), 0.0, NEG_BIAS)
+                s = scores2(qf[b, :, i0:i1], kf[b, :, j0:j1], rows, cols, kn, scale, causal,
+                            band)
                 m_new = torch.maximum(m, s.max(-1).values)
-                corr = torch.exp(m - m_new)
-                p = torch.exp(s - m_new[..., None])
+                corr = torch.exp2(m - m_new)
+                p = torch.exp2(s - m_new[..., None])
                 l = l * corr + p.sum(-1)
                 if keep is not None:
                     p = p * keep[b, :, i0:i1, j0:j1]
@@ -130,13 +152,13 @@ def emulate_forward(q, k, v, q_len, k_len, seed, scale, rate, causal, band, skip
                 m = m_new
             norm = torch.where(rows[:, 0] < qn, 1.0 / l, torch.zeros(()))
             out[b, :, i0:i1] = o * norm[..., None]
-            lse[b, :, i0:i1] = m + torch.log(l)
+            stats[b, :, i0:i1] = torch.stack([m, torch.log2(l)], -1)
     hi = out.to(torch.bfloat16)
-    return hi, lse, (out - hi.float()).to(torch.bfloat16)
+    return hi, stats, (out - hi.float()).to(torch.bfloat16)
 
 
 def emulate_backward(
-    q, k, v, out, lse, q_len, k_len, seed, scale, rate, causal, band, dout, skip,
+    q, k, v, out, stats, q_len, k_len, seed, scale, rate, causal, band, dout, skip,
     out_lo=None,
 ):
     """(dq, dk, dv) bf16 as the D pass, attention_bwd_dkdv_mma_kernel and
@@ -156,9 +178,9 @@ def emulate_backward(
         """(W o M, dS) of one (query tile, key tile), f32."""
         rows = torch.arange(i0, i1)[:, None]
         cols = torch.arange(j0, j1)[None, :]
-        s = (qf[b, :, i0:i1] @ kf[b, :, j0:j1].transpose(-1, -2)) * scale
-        s = s + torch.where(visible(rows, cols, kn, causal, band), 0.0, NEG_BIAS)
-        w = torch.exp(s - lse[b, :, i0:i1, None]) * (rows < qn)
+        s = scores2(qf[b, :, i0:i1], kf[b, :, j0:j1], rows, cols, kn, scale, causal, band)
+        m, log2l = stats[b, :, i0:i1, 0, None], stats[b, :, i0:i1, 1, None]
+        w = torch.exp2((s - m) - log2l) * (rows < qn)
         dp = gf[b, :, i0:i1] @ vf[b, :, j0:j1].transpose(-1, -2)
         kp = keep[b, :, i0:i1, j0:j1] if keep is not None else 1.0
         return w * kp, w * (dp * kp - delta[b, :, i0:i1, None])
@@ -206,11 +228,17 @@ CASES = [
 ] + [
     ("head-dim-32", "full", 0.1), ("single-query", "full", 0.0),
     ("short-keys", "causal-band50", 0.1), ("short-keys", "band50", 0.1),
+    ("keyless-rows", "causal-band50", 0.1), ("keyless-rows", "band50", 0.0),
 ]
 SHAPES["head-dim-32"] = (4, 267, 267, 32)
 SHAPES["single-query"] = (4, 1, 267, 64)
 # the keys end a band before the queries do: the last rows see one key
 SHAPES["short-keys"] = (4, 267, 267, 64)
+# the keys end more than a band before: rows that see no key at all (a
+# single key would gather a band of rows' gradient, whose bf16 rounding
+# alone passes the bound)
+SHAPES["keyless-rows"] = (4, 267, 267, 64)
+KEYLESS_K_LEN = [267, 100, 30, 25]
 
 
 @functools.lru_cache(maxsize=None)
@@ -224,15 +252,18 @@ def run_case(shape, mask, rate):
     q, k, v, q_len, k_len = chip_smoke._attn_inputs(bsz, 8, tq, tk, d, "cpu", seed)
     if shape == "short-keys":
         k_len = chip_smoke.short_keys(q_len, band)
-        assert int(fa.keyless_row_gap(q_len, k_len, tq, tk).max()) == band
+        assert int((q_len - k_len).max()) == band
+    if shape == "keyless-rows":
+        k_len = torch.tensor(KEYLESS_K_LEN, dtype=torch.int32)
+        assert bool(((q_len - k_len) > band).any())
     g = torch.randn(q.shape, generator=torch.Generator().manual_seed(seed))
     qb, kb, vb, gb = (x.to(torch.bfloat16) for x in (q, k, v, g))
     args = (q_len, k_len, 777, d**-0.5, rate, causal, band)
     res = {}
     for skip in (True, False):
-        out, lse, out_lo = emulate_forward(qb, kb, vb, *args, skip)
-        grads = emulate_backward(qb, kb, vb, out, lse, *args, gb, skip, out_lo)
-        res[skip] = (out, lse, *grads, out_lo)
+        out, stats, out_lo = emulate_forward(qb, kb, vb, *args, skip)
+        grads = emulate_backward(qb, kb, vb, out, stats, *args, gb, skip, out_lo)
+        res[skip] = (out, stats, *grads, out_lo)
     plain = (qb.float(), kb.float(), vb.float())
     res["want"] = fa.attention_reference(*plain, *args)
     res["want_grads"] = fa.attention_backward_reference(*plain, *args, gb.float())
@@ -258,7 +289,7 @@ def test_backward_rounding_within_card_bound(shape, mask, rate):
 @pytest.mark.parametrize("shape,mask,rate", CASES)
 def test_tile_skipping_is_bit_identical(shape, mask, rate):
     res = run_case(shape, mask, rate)
-    names = ("out", "lse", "dq", "dk", "dv", "out_lo")
+    names = ("out", "stats", "dq", "dk", "dv", "out_lo")
     for name, a, b in zip(names, res[True], res[False]):
         assert torch.equal(a, b), name
 
@@ -275,14 +306,14 @@ def test_what_d_from_the_rounded_output_alone_costs():
     g = torch.randn(64, *q.shape[1:], generator=torch.Generator().manual_seed(3))[:8]
     qb, kb, vb, gb = (x.to(torch.bfloat16) for x in (q, k, v, g))
     args = (n, n, 7, 0.125, 0.1, True, 50)
-    out, lse, out_lo = emulate_forward(qb, kb, vb, *args, True)
+    out, stats, out_lo = emulate_forward(qb, kb, vb, *args, True)
     plain = (qb.float(), kb.float(), vb.float())
     want = fa.attention_backward_reference(*plain, *args, gb.float())
     out32 = out.float() + out_lo.float()  # the f32 output to 2^-17
     assert (out32 - fa.attention_reference(*plain, *args)).abs().max().item() <= 1e-4
 
     def errs(*d_from):
-        got = emulate_backward(qb, kb, vb, *d_from[:1], lse, *args, gb, True, *d_from[1:])
+        got = emulate_backward(qb, kb, vb, *d_from[:1], stats, *args, gb, True, *d_from[1:])
         return [(a.float() - w).abs().max().item() for a, w in zip(got, want)]
 
     rounded, kept, exact = errs(out), errs(out, out_lo), errs(out32)
@@ -302,23 +333,29 @@ def test_tile_ranges_skip_something():
     assert query_tile_range(128, 267, 100, False, 0) == (0, 0)
     assert query_tile_range(64, 267, 267, True, 50) == (1, 3)
     assert query_tile_range(192, 267, 217, True, 50) == (3, 5)  # keys 192-216, short keys
+    assert query_tile_range(0, 156, 1, True, 20) == (0, 3)  # rows 21-155 see no key
+    assert query_tile_range(64, 156, 1, True, 20) == (0, 3)  # and weigh keys past kn
 
 
-def test_keyless_row_gap_marks_rows_without_a_key():
-    """The backward wrapper refuses lengths whose gap exceeds the band: with
-    band 20 the utterances with 100, 30 and 1 keys under 267 query rows
-    have rows that see no key, and the plain forward gives those rows the
-    mean of all Tk values."""
+def test_keyless_rows_weigh_every_key_alike():
+    """A row more than the band past the key length sees no key: the plain
+    forward gives it the mean of all Tk values, and the kernels' row
+    statistics come out as m = the bias and l = Tk, so the weights rebuilt
+    from them are 1 / Tk, where one log-sum-exp m + log2 l would have
+    absorbed log2 Tk (and given weights of 1)."""
     q_len = torch.tensor([267, 267, 267, 300], dtype=torch.int32)
     k_len = torch.tensor([267, 100, 247, 1], dtype=torch.int32)
-    gap = fa.keyless_row_gap(q_len, k_len, 267, 267)
-    assert gap.tolist() == [0, 167, 20, 266]
-    assert (gap > 20).tolist() == [False, True, False, True]
     g = torch.Generator().manual_seed(0)
     q, k, v = (torch.randn(4, 2, 267, 32, generator=g) for _ in range(3))
     out = fa.attention_reference(q, k, v, q_len, k_len, 0, 32**-0.5, 0.0, True, 20)
     assert torch.allclose(out[1, :, 121], v[1].mean(1), atol=1e-5)  # 121 - 20 > 99
     assert not torch.allclose(out[1, :, 119], v[1].mean(1), atol=1e-2)
+    qb, kb, vb = (x.to(torch.bfloat16) for x in (q, k, v))
+    _, stats, _ = emulate_forward(qb, kb, vb, q_len, k_len, 0, 32**-0.5, 0.0, True, 20, True)
+    m, log2l = stats[1, :, 121, 0], stats[1, :, 121, 1]
+    bias2 = float(torch.tensor(NEG_BIAS) * torch.tensor(LOG2E))
+    assert torch.all(m == bias2) and torch.allclose(log2l, torch.tensor(np.log2(267.0)).float())
+    assert torch.all((m + log2l) == m)  # what a single log-sum-exp keeps
 
 
 def test_bounds_at_the_training_shape():

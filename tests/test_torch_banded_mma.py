@@ -378,12 +378,15 @@ def test_one_bf16_rounding_costs_part_of_the_bound():
 def _card_branch(monkeypatch):
     """Run the card branch of the autograd Function's forward on CPU
     tensors: the device check is taken out and the launches are recorded
-    and answered by the plain versions."""
-    calls = []
+    and answered by the plain versions (``calls.k1.stats``: what K1 was
+    handed for its row statistics)."""
+    calls = type("Calls", (list,), {})()
     monkeypatch.setattr(fa, "_check_tensors", lambda q, k, v: None)
 
-    def fake_k1(q, k, v, q_len, k_len, seed, scale, rate, causal, band, lse=None, out_lo=None):
+    def fake_k1(q, k, v, q_len, k_len, seed, scale, rate, causal, band, stats=None,
+                out_lo=None):
         calls.append("K1")
+        fake_k1.stats = stats
         return fa.attention_reference(q, k, v, q_len, k_len, seed, scale, rate, causal, band)
 
     def fake_k6(q, k, v, n, seed, scale, rate, band, lse=None):
@@ -394,6 +397,7 @@ def _card_branch(monkeypatch):
         calls.append("backward")
         return None
 
+    calls.k1 = fake_k1
     monkeypatch.setattr(fa, "_launch", fake_k1)
     monkeypatch.setattr(fa, "banded_attention_kernel", fake_k6)
     monkeypatch.setattr(fa, "_launch_backward", fake_bwd)
@@ -401,7 +405,7 @@ def _card_branch(monkeypatch):
     return calls
 
 
-def _refused_inputs():
+def _keyless_inputs():
     g = torch.Generator().manual_seed(0)
     q, k, v = (torch.randn(2, 2, 40, 32, generator=g) for _ in range(3))
     q_len = torch.tensor([40, 40], dtype=torch.int32)
@@ -410,35 +414,38 @@ def _refused_inputs():
 
 
 @pytest.mark.parametrize("needs_grad", [True, False])
-def test_forward_refuses_keyless_rows_only_when_a_gradient_is_needed(monkeypatch, needs_grad):
+def test_forward_saves_row_stats_and_checks_only_key_lengths(monkeypatch, needs_grad):
+    """Rows that see no key take the full-tile route like any other, with a
+    gradient or without: K1 is handed a (B, H, Tq, 2) f32 tensor for each
+    row's max and log-sum exactly when a gradient is needed, the backward
+    gets it with the int32 lengths, and the one check is k_length >= 1."""
     calls = _card_branch(monkeypatch)
-    q, k, v, q_len, k_len = _refused_inputs()
+    q, k, v, q_len, k_len = _keyless_inputs()
     args = (q, k, v, q_len, k_len, 5, 0.25, 0.0, True, 20, False, needs_grad)
+    out, saved = fa._forward_kernels(*args)
+    assert calls == ["K1"] and out.shape == q.shape
+    stats = calls.k1.stats
     if needs_grad:
-        with pytest.raises(ValueError, match=r"a query row sees no key \(q_length exceeds "
-                                             r"k_length by 31 > band 20\)"):
-            fa._forward_kernels(*args)
-        assert calls == []  # refused before any launch
+        assert stats.shape == (2, 2, 40, 2) and stats.dtype == torch.float32
+        assert saved[6] is stats and saved[5] is out
+        assert saved[3].dtype == saved[4].dtype == torch.int32
     else:
-        out, saved = fa._forward_kernels(*args)
-        assert calls == ["K1"] and saved is None and out.shape == q.shape
-    # lengths inside the band pass either way, and save int32 lengths
-    ok_len = torch.tensor([40, 25], dtype=torch.int64)
+        assert stats is None and saved is None
     calls.clear()
-    out, saved = fa._forward_kernels(q, k, v, q_len, ok_len, 5, 0.25, 0.0, True, 20, False,
-                                     needs_grad)
-    assert calls == ["K1"]
-    if needs_grad:
-        assert saved[3].dtype == saved[4].dtype == torch.int32 and saved[5] is out
+    with pytest.raises(ValueError, match="every k_length must be >= 1"):
+        fa._forward_kernels(q, k, v, q_len, k_len * 0, 5, 0.25, 0.0, True, 20, False,
+                            needs_grad)
+    assert calls == []
 
 
 def test_windowed_forward_has_no_refusal(monkeypatch):
-    """K7 recomputes no keyless row: on the windowed route the one length
-    masks keys and zeroes rows, so the same lengths pass, with a gradient."""
+    """On the windowed route the one length masks keys and zeroes rows (no
+    row without a key), and K6 keeps its single log-sum-exp per row."""
     calls = _card_branch(monkeypatch)
-    q, k, v, q_len, k_len = _refused_inputs()
+    q, k, v, q_len, k_len = _keyless_inputs()
     out, saved = fa._forward_kernels(q, k, v, q_len, k_len, 5, 0.25, 0.0, True, 20, True, True)
     assert calls == ["K6"] and saved[5] is None  # K7 takes no forward output
+    assert saved[6].shape == q.shape[:3]
     with pytest.raises(ValueError, match="every k_length must be >= 1"):
         fa._forward_kernels(q, k, v, q_len, k_len * 0, 5, 0.25, 0.0, True, 20, True, True)
 
@@ -449,7 +456,7 @@ def test_forward_keeps_the_output_residual_for_k2_in_bf16_only(monkeypatch, dtyp
     forward has K1 write that beside the output when a gradient is needed;
     f32, K6/K7 and a call without a gradient keep none."""
     _card_branch(monkeypatch)
-    q, k, v, q_len, _ = _refused_inputs()
+    q, k, v, q_len, _ = _keyless_inputs()
     q, k, v = (x.to(dtype) for x in (q, k, v))
     args = (q, k, v, q_len, q_len, 5, 0.25, 0.0, True, 20)
     _, saved = fa._forward_kernels(*args, False, True)
@@ -464,28 +471,37 @@ def test_forward_keeps_the_output_residual_for_k2_in_bf16_only(monkeypatch, dtyp
 
 
 def test_public_backward_functions_still_validate(monkeypatch):
-    q, k, v, q_len, k_len = _refused_inputs()
+    q, k, v, q_len, k_len = _keyless_inputs()
     lse = torch.zeros(q.shape[:3])
+    stats = torch.zeros(*q.shape[:3], 2)
     # CPU tensors: refused by the device check, nothing launched
     with pytest.raises(ValueError, match="unsupported device"):
-        fa.attention_backward_kernel(q, k, v, q, lse, q_len, k_len, 5, 0.25, 0.0, True, 20, q)
+        fa.attention_backward_kernel(q, k, v, q, stats, q_len, k_len, 5, 0.25, 0.0, True, 20, q)
     with pytest.raises(ValueError, match="unsupported device"):
         fa.banded_attention_backward_kernel(q, k, v, lse, k_len, 5, 0.25, 0.0, 20, q)
-    # past the device check: K2's refusal and the length check, before a launch
+    # past the device check: the length check before a launch; rows that see
+    # no key go to K2 like any other
     calls = _card_branch(monkeypatch)
-    with pytest.raises(ValueError, match="a query row sees no key"):
-        fa.attention_backward_kernel(q, k, v, q, lse, q_len, k_len, 5, 0.25, 0.0, True, 20, q)
-    with pytest.raises(ValueError, match="every k_length must be >= 1"):
-        fa.banded_attention_backward_kernel(q, k, v, lse, k_len * 0, 5, 0.25, 0.0, 20, q)
+    for zero in (
+        lambda: fa.attention_backward_kernel(
+            q, k, v, q, stats, q_len, k_len * 0, 5, 0.25, 0.0, True, 20, q),
+        lambda: fa.banded_attention_backward_kernel(q, k, v, lse, k_len * 0, 5, 0.25, 0.0, 20, q),
+    ):
+        with pytest.raises(ValueError, match="every k_length must be >= 1"):
+            zero()
     assert calls == []
+    fa.attention_backward_kernel(q, k, v, q, stats, q_len, k_len, 5, 0.25, 0.0, True, 20, q)
     fa.banded_attention_backward_kernel(q, k, v, lse, k_len, 5, 0.25, 0.0, 20, q)
-    assert calls == ["backward"]
+    assert calls == ["backward", "backward"]
 
 
 def test_backward_launches_check_their_tensors():
-    q, k, v, _, _ = _refused_inputs()
-    with pytest.raises(ValueError, match="lse must be"):
+    q, k, v, _, _ = _keyless_inputs()
+    with pytest.raises(ValueError, match=r"row values must be \(2, 2, 40\) f32"):
         fa._check_backward_tensors(q, torch.zeros(2, 2, 39), q)
+    with pytest.raises(ValueError, match=r"row values must be \(2, 2, 40, 2\) f32"):
+        fa._check_backward_tensors(q, torch.zeros(q.shape[:3]), q, q, per_row=2)
+    fa._check_backward_tensors(q, fa.row_stats_like(q), q, q, per_row=2)
     with pytest.raises(ValueError, match="out/dout shapes"):
         fa._check_backward_tensors(q, torch.zeros(q.shape[:3]), q[:, :, :5])
     dout = fa._check_backward_tensors(q, torch.zeros(q.shape[:3]), q.double(), q)
