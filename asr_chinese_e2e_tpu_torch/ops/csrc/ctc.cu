@@ -26,21 +26,29 @@
 // (2 x 145 MB in bf16 at the flagship's B=64, T=267, C=4233: K4 moves 293.8
 // MB, 88 us at 3.35 TB/s).
 //
-// Design: K3 is two launches: a log-sum-exp pass with one block per (b, t)
-// row, then one block per utterance with one thread per extended-label
-// position; alpha is carried across T in shared memory (two buffers, one
-// barrier per step) and each step is written to the (B, T, S) alpha table
-// in device memory, which K4 reads (at T = 501 the table of one utterance
-// would not fit a block's shared memory). K4 is two launches too: the
-// reverse beta' recursion, one block per utterance and a thread per
-// state, with every load of a step copied by cp.async eight steps ahead
-// (no load of device memory in the step-to-step chain), writing the
-// posteriors z (ctc_beta_recursion_kernel); then the gradient rows, a warp
-// per (b, t) row, in 16-byte loads and stores of the logits' type, with the
-// label positions written again after a warp barrier (ctc_grad_rows_kernel).
+// Design: K3 is two launches. The row pass (ctc_emission_rows_kernel) gives
+// a warp to each (b, t) row and reads the row once, in 16-byte loads, with
+// an online (max, sum) per lane merged by the xor butterfly; it writes the
+// row's log-sum-exp and gathers the row's S emissions (L1-hot just after the
+// stream) into a (B, T, S) f32 emission table, K3's scratch. The recursion
+// (ctc_alpha_recursion_kernel) runs one block per utterance with one thread
+// per extended-label position; alpha is carried across T in shared memory
+// (two buffers, one barrier a step) and each step is written to the (B, T,
+// S) alpha table in device memory, which K4 reads (at T = 501 the table of
+// one utterance would not fit a block's shared memory). Each thread copies
+// its own emission by cp.async eight steps ahead into a ring in shared
+// memory, so no load of device memory sits in the chain from one step to
+// the next, and the step is two branch-free log-add-exps. K4 is two
+// launches too: the reverse beta' recursion, one block per utterance and a
+// thread per state, with every load of a step copied by cp.async eight
+// steps ahead, writing the posteriors z (ctc_beta_recursion_kernel); then
+// the gradient rows, a warp per (b, t) row, in 16-byte loads and stores of
+// the logits' type, with the label positions written again after a warp
+// barrier (ctc_grad_rows_kernel).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+#include <float.h>
 #include <math.h>
 
 #include "common.cuh"
@@ -49,7 +57,6 @@
 namespace {
 
 constexpr float BIG_NEG = -1e30f;
-constexpr int ROW_THREADS = 256;
 
 using asr::from_f32;
 using asr::to_f32;
@@ -59,112 +66,228 @@ __device__ __forceinline__ float lae(float a, float b) {
   return m + log1pf(expf(-fabsf(a - b)));
 }
 
-__device__ __forceinline__ float block_reduce(float x, float* red, bool is_max) {
-  for (int off = 16; off > 0; off >>= 1) {
-    const float y = __shfl_xor_sync(0xffffffffu, x, off);
-    x = is_max ? fmaxf(x, y) : x + y;
-  }
-  const int warp = threadIdx.x / 32, lane = threadIdx.x & 31;
-  __syncthreads();  // red is free
-  if (lane == 0) red[warp] = x;
-  __syncthreads();
-  const int n_warps = blockDim.x / 32;
-  x = lane < n_warps ? red[lane] : (is_max ? -INFINITY : 0.0f);
-  for (int off = 16; off > 0; off >>= 1) {
-    const float y = __shfl_xor_sync(0xffffffffu, x, off);
-    x = is_max ? fmaxf(x, y) : x + y;
-  }
-  return x;
-}
-
-// lse[row] = log sum_c exp(logits[row][c]), one block per (b, t) row
-template <typename T>
-__global__ void __launch_bounds__(ROW_THREADS)
-ctc_lse_kernel(const T* __restrict__ logits, float* __restrict__ lse, int C) {
-  __shared__ float red[32];
-  const T* x = logits + (size_t)blockIdx.x * C;
-  float m = -INFINITY;
-  for (int c = threadIdx.x; c < C; c += blockDim.x) m = fmaxf(m, to_f32(x[c]));
-  m = block_reduce(m, red, true);
-  float s = 0.0f;
-  for (int c = threadIdx.x; c < C; c += blockDim.x) s += expf(to_f32(x[c]) - m);
-  s = block_reduce(s, red, false);
-  if (threadIdx.x == 0) lse[blockIdx.x] = m + logf(s);
+// The recursions' log-add-exp: lae's formula on the hardware's exp2 and
+// log2 (ex2.approx, lg2.approx), branch-free, 1e-7 from lae: the
+// step-to-step chain is two of them.
+__device__ __forceinline__ float lae_fast(float a, float b) {
+  const float m = fmaxf(a, b);
+  return m + __logf(1.0f + __expf(-fabsf(a - b)));
 }
 
 __device__ __forceinline__ bool can_skip(const int* ext, int s, int S, int blank) {
   return s >= 2 && s < S && ext[s] != blank && ext[s] != ext[s - 2];
 }
 
+// 16 bytes of T as floats, and back
 template <typename T>
-__device__ __forceinline__ float emission(const T* logits, const float* lse,
-                                          int row, int C, int label, bool valid) {
-  return valid ? to_f32(logits[(size_t)row * C + label]) - lse[row] : BIG_NEG;
+struct Vec16;
+template <>
+struct Vec16<float> {
+  static constexpr int N = 4;
+  static __device__ __forceinline__ void unpack(uint4 r, float (&f)[4]) {
+    f[0] = __uint_as_float(r.x);
+    f[1] = __uint_as_float(r.y);
+    f[2] = __uint_as_float(r.z);
+    f[3] = __uint_as_float(r.w);
+  }
+  static __device__ __forceinline__ uint4 pack(const float (&f)[4]) {
+    return make_uint4(__float_as_uint(f[0]), __float_as_uint(f[1]), __float_as_uint(f[2]),
+                      __float_as_uint(f[3]));
+  }
+};
+template <>
+struct Vec16<__nv_bfloat16> {
+  static constexpr int N = 8;
+  static __device__ __forceinline__ void unpack(uint4 r, float (&f)[8]) {
+    const uint32_t w[4] = {r.x, r.y, r.z, r.w};
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const float2 p = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&w[i]));
+      f[2 * i] = p.x;
+      f[2 * i + 1] = p.y;
+    }
+  }
+  static __device__ __forceinline__ uint4 pack(const float (&f)[8]) {
+    uint32_t w[4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const __nv_bfloat162 p = __floats2bfloat162_rn(f[2 * i], f[2 * i + 1]);
+      w[i] = *reinterpret_cast<const uint32_t*>(&p);
+    }
+    return make_uint4(w[0], w[1], w[2], w[3]);
+  }
+};
+
+constexpr int ROW_DEPTH = 4;  // 16-byte loads in flight a lane
+
+// A row's log-sum-exp by one warp, the row read once and cut as row_parts
+// cuts it, ROW_DEPTH 16-byte loads a lane issued before their arithmetic
+// (one row a warp, ROW_ROWS rows a block: 8 rows and 4 loads beat 16 rows,
+// 8 loads and row_parts' unrolled loop, PERF.md): an online (max, sum) per
+// lane, the sum rescaled when the max grows, each term 2^(x log2 e - max
+// log2 e) by one fused multiply-add and one ex2, then the lanes merged by
+// the xor butterfly. Every lane returns it.
+template <typename T>
+__device__ __forceinline__ float warp_row_lse(const T* x, int C, int lane) {
+  using V = Vec16<T>;
+  using asr::ex2;
+  using asr::LOG2E;
+  constexpr int W = V::N;
+  float m = -FLT_MAX, sum = 0.0f;
+  auto update = [&](const float* f, int n) {
+    float mn = m;
+#pragma unroll
+    for (int k = 0; k < n; ++k) mn = fmaxf(mn, f[k]);
+    const float nb = -mn * LOG2E;
+    float add = 0.0f;
+#pragma unroll
+    for (int k = 0; k < n; ++k) add += ex2(fmaf(f[k], LOG2E, nb));
+    sum = fmaf(sum, ex2((m - mn) * LOG2E), add);  // exactly 1 while the max holds
+    m = mn;
+  };
+  const int mis = (int)((reinterpret_cast<uintptr_t>(x) / sizeof(T)) & (W - 1));
+  const int head = min(C, (W - mis) & (W - 1));
+  const int n_vec = (C - head) / W;
+  for (int c = lane; c < head; c += 32) {
+    const float v = to_f32(x[c]);
+    update(&v, 1);
+  }
+  const uint4* xv = reinterpret_cast<const uint4*>(x + head);
+  int i = lane;
+  for (; i + 32 * (ROW_DEPTH - 1) < n_vec; i += 32 * ROW_DEPTH) {
+    uint4 r[ROW_DEPTH];
+#pragma unroll
+    for (int k = 0; k < ROW_DEPTH; ++k) r[k] = xv[i + 32 * k];
+#pragma unroll
+    for (int k = 0; k < ROW_DEPTH; ++k) {
+      float f[W];
+      V::unpack(r[k], f);
+      update(f, W);
+    }
+  }
+  for (; i < n_vec; i += 32) {
+    float f[W];
+    V::unpack(xv[i], f);
+    update(f, W);
+  }
+  for (int c = head + n_vec * W + lane; c < C; c += 32) {
+    const float v = to_f32(x[c]);
+    update(&v, 1);
+  }
+  for (int off = 16; off > 0; off >>= 1) {
+    const float mo = __shfl_xor_sync(0xffffffffu, m, off);
+    const float so = __shfl_xor_sync(0xffffffffu, sum, off);
+    const float mn = fmaxf(m, mo);
+    sum = sum * __expf(m - mn) + so * __expf(mo - mn);
+    m = mn;
+  }
+  return m + __logf(sum);
 }
 
-// K3: one block per utterance, thread s = extended-label position
+constexpr int ROW_WARPS = 8;   // one row (b, t) at a time per warp
+constexpr int ROW_ROWS = 8;    // rows of one utterance per block
+
+// K3, part 1: the row pass, ROW_ROWS rows of one utterance per block, a warp
+// per row: lse[row], and for rows t < max(len, 1) the S emissions
+// emit[row][s] = logits[row][ext[s]] - lse[row], the classes staged once per
+// block in shared memory.
 template <typename T>
-__global__ void ctc_alpha_kernel(const T* __restrict__ logits,
-                                 const float* __restrict__ lse,
-                                 const int* __restrict__ ext_all,
-                                 const int* __restrict__ logit_len,
-                                 const int* __restrict__ label_len,
-                                 float* __restrict__ alpha,
-                                 float* __restrict__ loss, int Tt, int C, int S,
-                                 int blank) {
-  extern __shared__ float buf[];  // two buffers of S + 2, two log-zero pads each
+__global__ void __launch_bounds__(32 * ROW_WARPS)
+ctc_emission_rows_kernel(const T* __restrict__ logits, const int* __restrict__ ext_all,
+                         const int* __restrict__ logit_len, float* __restrict__ lse,
+                         float* __restrict__ emit, int Tt, int C, int S) {
+  extern __shared__ int ext[];  // S classes
+  const int tid = threadIdx.x;
+  const int warp = tid >> 5;
+  const int lane = tid & 31;
+  const int b = blockIdx.y;
+  const int t0 = blockIdx.x * ROW_ROWS;
+  const int n = max(min(logit_len[b], Tt), 1);
+  for (int s = tid; s < S; s += blockDim.x) ext[s] = ext_all[(size_t)b * S + s];
+  __syncthreads();
+  for (int r = warp; r < ROW_ROWS; r += ROW_WARPS) {
+    const int t = t0 + r;
+    if (t >= Tt) break;
+    const size_t row = (size_t)b * Tt + t;
+    const T* x = logits + row * C;
+    const float l = warp_row_lse(x, C, lane);
+    if (lane == 0) lse[row] = l;
+    if (t >= n) continue;
+    for (int s = lane; s < S; s += 32) emit[row * S + s] = to_f32(x[ext[s]]) - l;
+  }
+}
+
+// K3, part 2: the forward recursion, one block per utterance and one thread
+// per extended-label position, alpha carried in shared memory (two buffers
+// of S + 2, two log-zero pads in front, one barrier a step). Each thread
+// copies its own emission of step t + P by cp.async into its slot of a ring
+// in shared memory, so the chain from one step to the next holds no load of
+// device memory. Writes alpha for t < max(len, 1) and the loss.
+template <int P>
+__global__ void __launch_bounds__(1024)
+ctc_alpha_recursion_kernel(const float* __restrict__ emit, const int* __restrict__ ext_all,
+                           const int* __restrict__ logit_len, const int* __restrict__ label_len,
+                           float* __restrict__ alpha, float* __restrict__ loss, int Tt, int S,
+                           int blank) {
+  extern __shared__ float recur[];  // two buffers of S + 2, then P x blockDim slots
   const int b = blockIdx.x;
   const int s = threadIdx.x;
+  const int nth = blockDim.x;
   const bool valid = s < S;
   const int* ext = ext_all + (size_t)b * S;
-  const int label = valid ? ext[s] : blank;
   const bool skip = can_skip(ext, s, S, blank);
-  const int len = min(logit_len[b], Tt);
+  const int n = max(min(logit_len[b], Tt), 1);
   const int stride = S + 2;
+  float* buf = recur;
+  float* ring = recur + 2 * stride;
+  const float* e_b = emit + (size_t)b * Tt * S;
   float* a = alpha + (size_t)b * Tt * S;
-  const int row0 = b * Tt;
-
+  auto fetch = [&](int u, int t) {
+    if (t < n) asr::cp_async4(ring + u * nth + s, e_b + (size_t)t * S + (valid ? s : 0), valid);
+  };
   if (s < 2) {
     buf[s] = BIG_NEG;
     buf[stride + s] = BIG_NEG;
   }
-  float val = (valid && s <= 1) ? emission(logits, lse, row0, C, label, true) : BIG_NEG;
-  if (valid) {
-    buf[s + 2] = val;
-    a[s] = val;
+#pragma unroll
+  for (int u = 0; u < P; ++u) {
+    fetch(u, u);
+    asr::cp_async_commit();
   }
   int cur = 0;
-  for (int t = 1; t < len; ++t) {
-    const float e = emission(logits, lse, row0 + t, C, label, valid);
-    __syncthreads();  // step t-1 is in buffer cur
-    if (valid) {
-      const float* prev = buf + cur * stride;
-      float stay = lae(prev[s + 2], prev[s + 1]);
-      if (skip) stay = lae(stay, prev[s]);
-      val = stay + e;
-    }
-    cur ^= 1;
-    if (valid) {
-      buf[cur * stride + s + 2] = val;
-      a[(size_t)t * S + s] = val;
+  for (int tt = 0; tt < n; tt += P) {
+#pragma unroll
+    for (int u = 0; u < P; ++u) {
+      const int t = tt + u;
+      if (t >= n) break;
+      asr::cp_async_wait<P - 1>();
+      const float e = ring[u * nth + s];
+      float val = BIG_NEG;
+      if (t == 0) {
+        if (s <= 1) val = e;
+      } else {
+        __syncthreads();  // step t-1 is in buffer cur
+        const float* prev = buf + cur * stride;
+        if (valid)
+          val = lae_fast(lae_fast(prev[s + 2], prev[s + 1]), skip ? prev[s] : BIG_NEG) + e;
+        cur ^= 1;
+      }
+      if (valid) {
+        buf[cur * stride + s + 2] = val;
+        a[(size_t)t * S + s] = val;
+      }
+      fetch(u, t + P);
+      asr::cp_async_commit();
     }
   }
   __syncthreads();
-  if (threadIdx.x == 0) {
+  if (s == 0) {
     const float* fin = buf + cur * stride;
     const int last = min(2 * label_len[b], S - 1);
     const float a_last = fin[last + 2];
     const float a_prev = last > 0 ? fin[last + 1] : BIG_NEG;
     loss[b] = -lae(a_last, a_prev);
   }
-}
-
-// K4's log-add-exp: lae's formula on the hardware's exp2 and log2
-// (ex2.approx, lg2.approx), branch-free, 1e-7 from lae: the step-to-step
-// chain is two of them.
-__device__ __forceinline__ float lae_fast(float a, float b) {
-  const float m = fmaxf(a, b);
-  return m + __logf(1.0f + __expf(-fabsf(a - b)));
 }
 
 // K4, part 1: the reverse beta' recursion, one block per utterance and
@@ -285,46 +408,6 @@ __device__ __forceinline__ void row_parts(const T* x, int C, int lane, Scalar fn
   for (int c = head + n_vec * V + lane; c < C; c += 32) fn(c);
 }
 
-// 16 bytes of T as floats, and back
-template <typename T>
-struct Vec16;
-template <>
-struct Vec16<float> {
-  static constexpr int N = 4;
-  static __device__ __forceinline__ void unpack(uint4 r, float (&f)[4]) {
-    f[0] = __uint_as_float(r.x);
-    f[1] = __uint_as_float(r.y);
-    f[2] = __uint_as_float(r.z);
-    f[3] = __uint_as_float(r.w);
-  }
-  static __device__ __forceinline__ uint4 pack(const float (&f)[4]) {
-    return make_uint4(__float_as_uint(f[0]), __float_as_uint(f[1]), __float_as_uint(f[2]),
-                      __float_as_uint(f[3]));
-  }
-};
-template <>
-struct Vec16<__nv_bfloat16> {
-  static constexpr int N = 8;
-  static __device__ __forceinline__ void unpack(uint4 r, float (&f)[8]) {
-    const uint32_t w[4] = {r.x, r.y, r.z, r.w};
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const float2 p = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&w[i]));
-      f[2 * i] = p.x;
-      f[2 * i + 1] = p.y;
-    }
-  }
-  static __device__ __forceinline__ uint4 pack(const float (&f)[8]) {
-    uint32_t w[4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const __nv_bfloat162 p = __floats2bfloat162_rn(f[2 * i], f[2 * i + 1]);
-      w[i] = *reinterpret_cast<const uint32_t*>(&p);
-    }
-    return make_uint4(w[0], w[1], w[2], w[3]);
-  }
-};
-
 // K4, part 2: the gradient rows, GRAD_ROWS of one utterance per block, a
 // warp per row. Every class gets g softmax sum(z), in 16-byte loads and
 // stores; then, after the warp's barrier, the <= S label positions are
@@ -414,15 +497,20 @@ int recursion_threads(int S) { return ((S + 31) / 32) * 32; }
 
 template <typename T>
 int alpha_launch(const void* logits, const int* ext, const int* logit_len,
-                 const int* label_len, float* lse, float* alpha, float* loss,
+                 const int* label_len, float* lse, float* emit, float* alpha, float* loss,
                  int B, int Tt, int C, int S, int blank, cudaStream_t st) {
-  ctc_lse_kernel<T><<<B * Tt, ROW_THREADS, 0, st>>>((const T*)logits, lse, C);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  const size_t smem = 2 * (S + 2) * sizeof(float);
-  ctc_alpha_kernel<T><<<B, recursion_threads(S), smem, st>>>(
-      (const T*)logits, lse, ext, logit_len, label_len, alpha, loss, Tt, C, S,
-      blank);
+  // steps fetched ahead: 8 floats a thread in the ring, which with the two
+  // buffers is 41 KB at S = 1024, under the 48 KB a launch gets by default
+  constexpr int P = 8;
+  dim3 grid((Tt + ROW_ROWS - 1) / ROW_ROWS, B);
+  ctc_emission_rows_kernel<T><<<grid, 32 * ROW_WARPS, sizeof(int) * S, st>>>(
+      (const T*)logits, ext, logit_len, lse, emit, Tt, C, S);
+  int err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  const int nth = recursion_threads(S);
+  const size_t smem = sizeof(float) * (2 * (S + 2) + P * nth);
+  ctc_alpha_recursion_kernel<P><<<B, nth, smem, st>>>(emit, ext, logit_len, label_len, alpha,
+                                                      loss, Tt, S, blank);
   return (int)cudaGetLastError();
 }
 
@@ -454,20 +542,21 @@ int beta_launch(const void* logits, const int* ext, const int* logit_len,
 }  // namespace
 
 // K3. logits: (B, T, C) bf16 (is_bf16=1) or f32, contiguous; ext: (B, S)
-// int32 extended labels; logit_len/label_len: (B,) int32. Writes lse
-// (B, T) f32, the alpha table (B, T, S) f32 (rows t < len only) and the
-// loss (B,) f32. S <= 1024. Returns the first launch error or 0.
+// int32 extended labels; logit_len/label_len: (B,) int32; emit: (B, T, S)
+// f32 scratch (the emission table). Writes lse (B, T) f32, the alpha table
+// (B, T, S) f32 (rows t < len only) and the loss (B,) f32. S <= 1024.
+// Returns the first launch error or 0.
 extern "C" int asr_ctc_alpha(const void* logits, const int* ext,
                              const int* logit_len, const int* label_len,
-                             float* lse, float* alpha, float* loss, int B,
-                             int Tt, int C, int S, int blank, int is_bf16,
+                             float* lse, float* emit, float* alpha, float* loss,
+                             int B, int Tt, int C, int S, int blank, int is_bf16,
                              void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
   if (S > 1024) return (int)cudaErrorInvalidValue;
   if (is_bf16)
-    return alpha_launch<__nv_bfloat16>(logits, ext, logit_len, label_len, lse,
+    return alpha_launch<__nv_bfloat16>(logits, ext, logit_len, label_len, lse, emit,
                                        alpha, loss, B, Tt, C, S, blank, st);
-  return alpha_launch<float>(logits, ext, logit_len, label_len, lse, alpha,
+  return alpha_launch<float>(logits, ext, logit_len, label_len, lse, emit, alpha,
                              loss, B, Tt, C, S, blank, st);
 }
 

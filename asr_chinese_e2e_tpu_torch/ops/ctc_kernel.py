@@ -115,18 +115,22 @@ def _check_kernel_inputs(logits, ext, logit_lengths, label_lengths):
 def ctc_alpha_kernel(logits, ext, logit_lengths, label_lengths, blank_id=0):
     """K3 on checked CUDA tensors (int32 ext and lengths on the logits'
     device): returns (loss (B,), alpha (B, T, S), lse (B, T)), float32.
-    Alpha rows at t >= the logit length are left unwritten."""
+    Alpha rows at t >= the logit length are left unwritten. Two launches:
+    the row pass, a warp per (b, t) row, writing the log-sum-exp and the
+    (B, T, S) emission table (scratch, allocated here); the recursion, a
+    block per utterance and a thread per state."""
     bsz, t_max, c = logits.shape
     s = ext.shape[1]
     dev = logits.device
     lse = torch.empty((bsz, t_max), dtype=torch.float32, device=dev)
+    emit = torch.empty((bsz, t_max, s), dtype=torch.float32, device=dev)
     alpha = torch.empty((bsz, t_max, s), dtype=torch.float32, device=dev)
     loss = torch.empty((bsz,), dtype=torch.float32, device=dev)
     lib = load_library()
     with torch.cuda.device(dev):
         err = lib.asr_ctc_alpha(
             logits.data_ptr(), ext.data_ptr(), logit_lengths.data_ptr(),
-            label_lengths.data_ptr(), lse.data_ptr(), alpha.data_ptr(),
+            label_lengths.data_ptr(), lse.data_ptr(), emit.data_ptr(), alpha.data_ptr(),
             loss.data_ptr(), bsz, t_max, c, s, int(blank_id),
             int(logits.dtype == torch.bfloat16),
             torch.cuda.current_stream().cuda_stream,

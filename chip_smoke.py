@@ -80,8 +80,12 @@ print the seconds they took):
    32, at (8, 501, 4233) with label pad 200 (S = 401) and at (64, 267,
    4233) with repeated labels, f32 and bf16:
    loss rel <= 1e-4, gradient abs <= 1e-3 (f32; 1e-2 in bf16, where both
-   sides round the gradient to bf16); times at the first two, and K4's
-   two launches (recursion, gradient rows) timed apart under the profiler;
+   sides round the gradient to bf16); K3's alpha table on the rows t < len
+   within 1e-4 of max(1, |plain|) on the cells the plain version reaches
+   and log-zero (<= -1e29) on both sides on the others, its log-sum-exp
+   within 1e-5 abs; times at the first two, and the two launches of K3 (row
+   pass, recursion) and of K4 (recursion, gradient rows) timed apart under
+   the profiler;
 8. the serving path: a 512-wide, 6+6-layer, bf16 SpeechTransformer with a
    4233-token vocabulary decodes 16 synthetic utterances of 2-8 s (beam
    10, batches of 8); every utterance needs a finite-scored hypothesis,
@@ -342,7 +346,9 @@ def fbank_bound(b, n_samples, cfg=None) -> dict:
 def ctc_alpha_bound(b, t, c, s, itemsize=2) -> dict:
     """K3: the logits read; the (B, T, S) f32 alpha table, the (B, T) f32
     log-sum-exp and the loss written; max, subtract, exp, add per logit and
-    the three-way log-add-exp per table cell, in f32."""
+    the three-way log-add-exp per table cell, in f32. The (B, T, S) emission
+    table that the row pass writes and the recursion reads is the kernel's
+    own scratch, not an output of the function, and is not counted."""
     n_bytes = itemsize * b * t * c + 4.0 * (b * t * s + b * t + b)
     return bound(n_bytes, 4.0 * b * t * c + 8.0 * b * t * s, H100_SXM_F32_PEAK)
 
@@ -1140,7 +1146,11 @@ CTC_CASES = [
     ("long-labels", 8, 501, 200, "long"),
     ("repeats", 64, 267, 32, "repeats"),
 ]
+K3_KERNELS = {"row pass": "ctc_emission_rows_kernel", "recursion": "ctc_alpha_recursion_kernel"}
 K4_KERNELS = {"recursion": "ctc_beta_recursion_kernel", "gradient": "ctc_grad_rows_kernel"}
+ALPHA_REL = 1e-4  # K3's alpha on reachable cells: of max(1, |plain|), as the loss
+LSE_ABS = 1e-5  # a row's log-sum-exp (~10 at C = 4233), in f32 with the hardware's exp
+LOG_ZERO = -1e29  # an unreachable cell: log-zero (-1e30) plus emissions
 
 
 def _launch_device_ms(fn, names: dict, n=DEVICE_REPS) -> dict:
@@ -1164,11 +1174,35 @@ def _launch_device_ms(fn, names: dict, n=DEVICE_REPS) -> dict:
     return out
 
 
+def _check_alpha_table(what, logits, ext, lens, lab_lens, want_alpha, want_lse) -> float:
+    """K3's alpha table on the rows t < len and its log-sum-exp against the
+    plain version's: alpha within ``ALPHA_REL`` of max(1, |plain|) where the
+    plain version reaches the cell, both log-zero (<= ``LOG_ZERO``) where it
+    does not; lse within ``LSE_ABS``. Returns the largest alpha error."""
+    ext_i, lens_i, lab_i = ctc._check_kernel_inputs(logits, ext, lens, lab_lens)
+    _, alpha, lse = ctc.ctc_alpha_kernel(logits, ext_i, lens_i, lab_i)
+    t_idx = torch.arange(alpha.shape[1], device=alpha.device)
+    rows = (t_idx[None, :] < lens_i.long()[:, None])[..., None].expand_as(alpha)
+    reach = rows & (want_alpha > LOG_ZERO)
+    err = (alpha - want_alpha).abs()
+    a_err = err[reach].max().item()
+    a_rel = (err / want_alpha.abs().clamp(min=1.0))[reach].max().item()
+    unreached_ok = bool((alpha[rows & ~reach] <= LOG_ZERO).all())
+    l_err = (lse - want_lse).abs().max().item()
+    print(f"{what}: K3 alpha on rows t < len max_abs={a_err:.3e} (of max(1, |plain|): "
+          f"{a_rel:.3e}) over {int(reach.sum())} reachable cells, "
+          f"{int((rows & ~reach).sum())} unreachable ones log-zero on both sides: "
+          f"{unreached_ok}; lse max_abs={l_err:.3e}")
+    require(a_rel <= ALPHA_REL and unreached_ok, f"{what}: K3's alpha table disagrees")
+    require(l_err <= LSE_ABS, f"{what}: K3's log-sum-exp disagrees")
+    return a_err
+
+
 def check_ctc(dev) -> tuple[dict, dict]:
     """K3 and K4 through the autograd Function vs their plain versions (and
-    the loss vs F.ctc_loss) at every case of ``CTC_CASES``, f32 and bf16;
-    times at the flagship's shape and at the long one, K4's two launches
-    apart."""
+    the loss vs F.ctc_loss) at every case of ``CTC_CASES``, f32 and bf16,
+    and K3's alpha table and log-sum-exp directly; times at the flagship's
+    shape and at the long one, each kernel's two launches apart."""
     worst = {"alpha": 0.0, "beta": 0.0}
     timed = {}
     for name, b, t, label_pad, kind in CTC_CASES:
@@ -1202,6 +1236,7 @@ def check_ctc(dev) -> tuple[dict, dict]:
             # f32: 1e-3; bf16: the gradient is rounded to bf16 on both sides
             require(g_err <= (1e-3 if dtype == torch.float32 else 1e-2),
                     f"ctc {name} {dname} gradient disagrees")
+            _check_alpha_table(f"ctc {name} {dname}", logits, ext, lens, lab_lens, alpha, lse)
             worst["alpha"] = max(worst["alpha"], (loss - want_loss).abs().max().item())
             worst["beta"] = max(worst["beta"], g_err)
             if dtype == torch.bfloat16 and name != "repeats":
@@ -1216,7 +1251,7 @@ def check_ctc(dev) -> tuple[dict, dict]:
 def _time_ctc(logits, ext, lens, labels, lab_lens, g, lse, alpha, want_loss, shape,
               errs) -> dict:
     """K3's and K4's times in turns with the library's pair and the plain
-    versions (median of 5), their device times, and K4's two launches
+    versions (median of 5), their device times, and each one's two launches
     apart; each beside its bound."""
     ext_i, lens_i, lab_i = ctc._check_kernel_inputs(logits, ext, lens, lab_lens)
     k_loss, k_alpha, k_lse = ctc.ctc_alpha_kernel(logits, ext_i, lens_i, lab_i)
@@ -1260,10 +1295,12 @@ def _time_ctc(logits, ext, lens, labels, lab_lens, g, lse, alpha, want_loss, sha
         "alpha": _wrapper_device_times("ctc alpha bf16", shape, k3, limits["alpha"]),
         "beta": _wrapper_device_times("ctc beta bf16", shape, k4, limits["beta"]),
     }
-    parts = _launch_device_ms(k4, K4_KERNELS)
-    print(f"ctc beta bf16 {shape} S = {ext.shape[1]}, device ms per launch under the profiler "
-          f"({DEVICE_REPS} calls): " + ", ".join(f"{k} {v:.4f}" for k, v in parts.items()))
-    device["beta"]["device_ms_launches"] = parts
+    for part, fn, names in (("alpha", k3, K3_KERNELS), ("beta", k4, K4_KERNELS)):
+        parts = _launch_device_ms(fn, names)
+        print(f"ctc {part} bf16 {shape} S = {ext.shape[1]}, device ms per launch under the "
+              f"profiler ({DEVICE_REPS} calls): "
+              + ", ".join(f"{k} {v:.4f}" for k, v in parts.items()))
+        device[part]["device_ms_launches"] = parts
     return {p: {**_measured(shape, errs[p], timing[p], limits[p]), "S": ext.shape[1],
                 **device[p]} for p in ("alpha", "beta")}
 

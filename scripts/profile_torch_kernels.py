@@ -7,7 +7,10 @@ under ``torch.profiler``: K5 at the training batch (64, 128000) and the
 serving batch (8, 128000) f32, K3 and K4 at the flagship's CTC shape (64,
 267, 4233) bf16 with label pad 32 (S = 65) and at (8, 501, 4233) with label
 pad 200 (S = 401). How a wrapper's time splits over its launches
-(``chip_smoke.py`` times the wrappers as wholes).
+(``chip_smoke.py`` times the wrappers as wholes): K3's row pass
+(``ctc_emission_rows_kernel``) and recursion (``ctc_alpha_recursion_kernel``),
+K4's recursion (``ctc_beta_recursion_kernel``) and gradient rows
+(``ctc_grad_rows_kernel``).
 
     python3 scripts/profile_torch_kernels.py
 
@@ -99,7 +102,8 @@ def main() -> None:
         loss, alpha, lse = ctc.ctc_alpha_kernel(logits, ext, lens, lab_lens)
         g = torch.linspace(0.5, 1.5, b, device=dev)
         shape = f"({b}, {t}, 4233) bf16, S = {ext.shape[1]}"
-        profile_calls(f"K3 CTC alpha {shape}",
+        profile_calls(f"K3 CTC alpha (ctc_emission_rows_kernel + ctc_alpha_recursion_kernel) "
+                      f"{shape}",
                       lambda: ctc.ctc_alpha_kernel(logits, ext, lens, lab_lens))
         profile_calls(f"K4 CTC beta + gradient {shape}",
                       lambda: ctc.ctc_beta_kernel(
