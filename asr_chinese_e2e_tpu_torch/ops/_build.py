@@ -55,6 +55,7 @@ SIGNATURES = {
     "asr_ctc_beta": [
         _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P,
     ],
+    "asr_ctc_prefix_registers": [_P, _P, _P, _P, _P, _P, _I, _P, _P, _I, _I, _I, _I, _I, _P],
 }
 
 

@@ -1,21 +1,29 @@
 """Inference CLI of the port: decode wavs / a manifest with an experiment.
 
     python -m asr_chinese_e2e_tpu_torch.recognize --exp ckpt/<name> \
-        --vocab data/vocab.json --manifest data/test.jsonl --beam_size 10 \
-        --out results.json [--device cuda]
+        --vocab data/vocab.json --manifest data/test.jsonl --mode beam \
+        --beam_size 10 --out results.json [--device cuda]
 
-Same batches, output and CER line as the JAX package's ``recognize.py``:
-duration-bucketed int16 batches padded to ``batch_size`` rows by
-repeating row 0, features -> encoder -> batched beam search, and the
+Same batches, modes, output and CER line as the JAX package's
+``recognize.py``: duration-bucketed int16 batches padded to ``batch_size``
+rows by repeating row 0, features -> encoder -> the mode's search, and the
 Kaldi-style n-best JSON ``{"utts": {id: {"output": [{"rec_text",
-"rec_token", "score", "text"?}]}}}``. Only ``mode="beam"`` is ported; the
-other modes, mesh decode and pipelined batches are ROADMAP items. Batches
-run one after another.
+"rec_token", "score", "text"?}]}}}``.
+
+Modes: ctc_greedy | attention_greedy | beam | rescore | joint (``rescore``:
+CTC prefix beam, ``ctc_beam_impl`` "device" (tensors on the card) or
+"host" (the exact numpy search), then attention rescoring; ``joint``: the
+one-pass joint CTC/attention beam, ``ctc_weight`` and ``ctc_prune``).
+``pipeline_depth`` batches are dispatched before the oldest is drained,
+with the wav reading on a prefetch thread; 0 runs batch after batch. Mesh
+decode (``mesh_data``) is not ported (ROADMAP §1, item 7).
 """
 
 from __future__ import annotations
 
+import collections
 import json
+import os
 import sys
 import time
 import wave as wavelib
@@ -23,13 +31,18 @@ import wave as wavelib
 import numpy as np
 import torch
 
+from .data.batching import _prefetched
 from .data.features import parse_batch
 from .data.io import DEFAULT_BUCKET_SECONDS, load_wav
 from .data.manifest import read_manifest
 from .decode.beam import beam_search
 from .decode.cer import corpus_cer
+from .decode.ctc_prefix import attention_rescore, ctc_prefix_beam_batch
+from .decode.ctc_prefix_device import ctc_prefix_beam_device, device_nbest_to_lists
+from .decode.greedy import attention_greedy_decode, ctc_greedy_decode, tokens_to_ids
+from .decode.joint import joint_beam_search
 from .utils.cli import parse_kwargs
-from .utils.experiment import load_experiment
+from .utils.experiment import CKPT_DIR, load_experiment
 
 
 def _num_samples(record) -> int:
@@ -80,6 +93,29 @@ def batched(
             yield chunk, wave, lengths
 
 
+MODES = ("ctc_greedy", "attention_greedy", "beam", "rescore", "joint")
+_EXP_CACHE: dict = {}
+
+
+def _mtime(path: str) -> float:
+    return os.path.getmtime(path) if os.path.exists(path) else 0.0
+
+
+def _load_experiment_cached(exp, vocab, which, device):
+    """Memoized ``load_experiment``: repeated ``recognize`` calls in one
+    process reuse one model on ``device`` and restore the checkpoint once.
+    Keyed on the modification times of the training index and of the
+    port's checkpoint directory, so a new save or export reloads."""
+    key = (
+        os.path.abspath(exp), os.path.abspath(vocab), which, str(device),
+        _mtime(os.path.join(exp, "checkpoints", "index.json")),
+        _mtime(os.path.join(exp, CKPT_DIR)),
+    )
+    if key not in _EXP_CACHE:
+        _EXP_CACHE[key] = load_experiment(exp, vocab, which, device=device)
+    return _EXP_CACHE[key]
+
+
 def _sync(device: torch.device) -> None:
     if device.type == "cuda":
         torch.cuda.synchronize(device)
@@ -97,8 +133,12 @@ def recognize(
     max_decode_len: int = 64,
     batch_size: int = 8,
     max_seconds: float = 15.0,
+    ctc_weight: float = 0.3,
     length_penalty: float = 0.0,
+    ctc_beam_impl: str = "device",
+    ctc_prune: int = 30,
     mesh_data: int = 0,
+    pipeline_depth: int = 1,
     out: str = None,
     device: str = "cuda",
     **_,
@@ -106,17 +146,14 @@ def recognize(
     """Decode and return ``{"utts": ..., "cer"?: ..., "timing": ...}``;
     ``timing`` (wall seconds of the encode and search phases, batch count
     and audio seconds) is returned but not written to ``out``."""
-    if mode != "beam":
-        raise NotImplementedError(
-            f"mode {mode!r} is not ported yet (ROADMAP §1, items 2-3: joint and "
-            "rescore decoding, the remaining recognize modes)"
-        )
+    if mode not in MODES:
+        raise SystemExit(f"unknown mode {mode}")
     if mesh_data:
         raise NotImplementedError(
             "mesh_data is not ported yet (ROADMAP §1, item 7: parallelism)"
         )
     dev = torch.device(device)
-    model, _, feat_cfg, voc = load_experiment(exp, vocab, which, device=dev)
+    model, _, feat_cfg, voc = _load_experiment_cached(exp, vocab, which, dev)
     if manifest:
         records = read_manifest(manifest)
     elif wav:
@@ -128,36 +165,86 @@ def recognize(
     hyps_all, refs_all = [], []
     timing = {"batches": 0, "encode_s": 0.0, "search_s": 0.0, "audio_s": 0.0}
     max_samples = int(max_seconds * feat_cfg.sample_rate)
-    for chunk, wave, lengths in batched(
-        records, batch_size, max_samples, feat_cfg.sample_rate
-    ):
+
+    def search(enc_out, enc_lens):
+        """The mode's search on one batch; returns what ``drain`` reads."""
+        if mode == "ctc_greedy":
+            return model.ctc_log_probs(enc_out), enc_lens
+        if mode == "attention_greedy":
+            return attention_greedy_decode(model, enc_out, enc_lens, max_decode_len)
+        if mode == "beam":
+            return beam_search(
+                model, enc_out, enc_lens, beam_size, max_decode_len, length_penalty
+            )
+        if mode == "joint":
+            return joint_beam_search(
+                model, enc_out, enc_lens, beam_size, max_decode_len,
+                ctc_weight=ctc_weight, ctc_prune=ctc_prune,
+            )
+        # rescore: the host n-best feeds the rescoring forward, so this
+        # mode drains here
+        lp = model.ctc_log_probs(enc_out)
+        if ctc_beam_impl == "device":
+            ctc_nbest = device_nbest_to_lists(
+                *ctc_prefix_beam_device(lp, enc_lens, beam_size=beam_size)
+            )
+        else:
+            ctc_nbest = ctc_prefix_beam_batch(
+                lp.cpu().numpy(), enc_lens.cpu().numpy(), beam_size
+            )
+        best = attention_rescore(model, enc_out, enc_lens, ctc_nbest, ctc_weight)
+        return [[(ids, 0.0)] for ids in best]
+
+    def dispatch(chunk, wave, lengths):
+        """Features, encoder and the mode's search for one batch; reads
+        nothing back but what the search itself syncs on."""
         t0 = time.perf_counter()
         with torch.inference_mode():
             wave_d = torch.from_numpy(wave).to(dev)
             lengths_d = torch.from_numpy(lengths).to(dev)
             feats, feat_lens = parse_batch(wave_d, lengths_d, feat_cfg)
             enc_out, enc_lens = model.encode(feats, feat_lens)
-        _sync(dev)
-        t1 = time.perf_counter()
-        res = beam_search(
-            model, enc_out, enc_lens, beam_size, max_decode_len, length_penalty
-        ).materialize()
-        t2 = time.perf_counter()
+            _sync(dev)
+            t1 = time.perf_counter()
+            pending = search(enc_out, enc_lens)
         timing["batches"] += 1
         timing["encode_s"] += t1 - t0
-        timing["search_s"] += t2 - t1
+        timing["search_s"] += time.perf_counter() - t1
         timing["audio_s"] += float(lengths[: len(chunk)].sum()) / feat_cfg.sample_rate
+        return chunk, pending
 
-        ids_nb = res.nbest_ids(nbest)
-        for b, record in enumerate(chunk):
+    def drain(chunk, pending):
+        """Read one batch's results back: per utterance [(ids, score)]."""
+        t0 = time.perf_counter()
+        if mode == "ctc_greedy":
+            nbest_out = [[(ids, 0.0)] for ids in ctc_greedy_decode(*pending)]
+        elif mode == "attention_greedy":
+            tokens, scores = pending
+            nbest_out = [
+                [(ids, float(s))]
+                for ids, s in zip(tokens_to_ids(tokens), scores.cpu().numpy())
+            ]
+        elif mode in ("beam", "joint"):
+            ids_nb = pending.nbest_ids(nbest)
+            nbest_out = [
+                [(ids, float(pending.scores[b, k])) for k, ids in enumerate(ids_nb[b])]
+                for b in range(len(chunk))
+            ]
+        else:  # rescore drained in dispatch
+            nbest_out = pending
+        timing["search_s"] += time.perf_counter() - t0
+        return nbest_out
+
+    def consume(chunk, nbest_out):
+        for record, hyps in zip(chunk, nbest_out):
             utt_id = record["wave"].rsplit("/", 1)[-1].rsplit(".", 1)[0]
             outputs = []
-            for rank, ids in enumerate(ids_nb[b]):
+            for ids, score in hyps:
                 toks = voc.ids_to_tokens(ids)
                 entry = {
                     "rec_text": "".join(toks),
                     "rec_token": " ".join(toks),
-                    "score": float(res.scores[b, rank]),
+                    "score": score,
                 }
                 if "tgt" in record:
                     entry["text"] = record["tgt"]
@@ -168,6 +255,19 @@ def recognize(
             if "tgt" in record:
                 hyps_all.append(best_text)
                 refs_all.append(record["tgt"])
+
+    chunks = batched(records, batch_size, max_samples, feat_cfg.sample_rate)
+    if pipeline_depth > 0:
+        chunks = _prefetched(chunks, depth=max(2, pipeline_depth + 1))
+    pending_q: collections.deque = collections.deque()
+    for item in chunks:
+        pending_q.append(dispatch(*item))
+        while len(pending_q) > pipeline_depth:
+            c, p = pending_q.popleft()
+            consume(c, drain(c, p))
+    while pending_q:
+        c, p = pending_q.popleft()
+        consume(c, drain(c, p))
 
     if refs_all:
         cer = corpus_cer(hyps_all, refs_all)

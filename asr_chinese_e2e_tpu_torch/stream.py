@@ -12,14 +12,15 @@ decode (``asr_chinese_e2e_tpu/stream.py``).
   fixed CMVN): each cadence featurizes and encodes only the new frames
   against per-layer left-context tails (``encode_chunk``), in plain torch,
   exactly as the offline pass would. Partials are CTC greedy; finals use
-  ``mode`` (ctc_greedy | beam).
+  ``mode`` (ctc_greedy | beam | joint; joint reads the segment's CTC
+  log-probs, which the incremental path keeps chunk by chunk).
 
 The duration buckets stay although torch compiles nothing per shape: they
 define the featurization (segments are zero-padded to their bucket before
 framing) that the incremental final must reproduce exactly.
 
     python -m asr_chinese_e2e_tpu_torch.stream --exp <exp_dir> \
-        --vocab <vocab.json> --wav <audio.wav> [--mode beam] \
+        --vocab <vocab.json> --wav <audio.wav> [--mode beam|joint] \
         [--incremental auto|on|off] [--chunk_ms 125] [--device cuda]
 """
 
@@ -37,6 +38,7 @@ from .data.io import DEFAULT_BUCKET_SECONDS, load_wav
 from .data.vocab import BLANK_ID, Vocab
 from .decode.beam import beam_search
 from .decode.greedy import ctc_greedy_decode
+from .decode.joint import joint_beam_search
 from .models.transformer import init_chunk_state
 
 
@@ -165,7 +167,8 @@ class StreamingRecognizer:
     CTC head, ``cmvn_mode='fixed'`` and no delta features; the conformer's
     conv carry is not ported), "off" re-encodes the padded prefix, "auto"
     picks "on" when the model allows it. Partials are CTC greedy; finals
-    use ``mode``: "ctc_greedy" or "beam" ("joint" is not ported)."""
+    use ``mode``: "ctc_greedy", "beam" or "joint" (the joint CTC/attention
+    beam at ``ctc_weight``)."""
 
     def __init__(
         self,
@@ -177,16 +180,12 @@ class StreamingRecognizer:
         partial_every_s: float = 1.0,
         beam_size: int = 10,
         max_len: int = 64,
+        ctc_weight: float = 0.3,
         gate: Optional[EnergyGate] = None,
         incremental: str = "auto",  # "auto" | "on" | "off"
         chunk_frames: int = 32,  # LFR frames per incremental chunk (~0.96 s)
     ) -> None:
-        if mode == "joint":
-            raise NotImplementedError(
-                "stream mode 'joint' is not ported yet (ROADMAP §1, item 2: joint "
-                "and rescore decoding)"
-            )
-        if mode not in ("ctc_greedy", "beam"):
+        if mode not in ("ctc_greedy", "beam", "joint"):
             raise ValueError(f"unknown stream decode mode {mode!r}")
         if incremental not in ("auto", "on", "off"):
             raise ValueError(
@@ -199,6 +198,7 @@ class StreamingRecognizer:
         self.buckets = [int(s * self.sr) for s in bucket_seconds]
         self.partial_every = int(partial_every_s * self.sr)
         self.beam_size, self.max_len = beam_size, max_len
+        self.ctc_weight = ctc_weight
         self.gate = gate or EnergyGate(max_segment_samples=self.buckets[-1])
         self.chunk_frames = chunk_frames
         cfg = model.cfg
@@ -247,15 +247,22 @@ class StreamingRecognizer:
     def _ctc_text(self, lp, enc_lens) -> str:
         return self.vocab.ids_to_str(ctc_greedy_decode(lp, enc_lens)[0])
 
-    def _beam_text(self, enc_out, enc_lens) -> str:
-        res = beam_search(self.model, enc_out, enc_lens, self.beam_size, self.max_len)
+    def _search_text(self, enc_out, enc_lens, lp) -> str:
+        """The ``beam`` or ``joint`` final's best hypothesis."""
+        if self.mode == "beam":
+            res = beam_search(self.model, enc_out, enc_lens, self.beam_size, self.max_len)
+        else:
+            res = joint_beam_search(
+                self.model, enc_out, enc_lens, self.beam_size, self.max_len,
+                ctc_weight=self.ctc_weight, ctc_log_probs=lp,
+            )
         return self.vocab.ids_to_str(res.nbest_ids(1)[0][0])
 
     def _final_text(self, samples: np.ndarray) -> str:
         enc_out, enc_lens, lp = self._run_encode(samples)
         if self.mode == "ctc_greedy":
             return self._ctc_text(lp, enc_lens)
-        return self._beam_text(enc_out, enc_lens)
+        return self._search_text(enc_out, enc_lens, lp)
 
     # -- incremental (chunked causal) path -----------------------------------
     def _chunk_indices(self):
@@ -276,8 +283,8 @@ class StreamingRecognizer:
     def _run_chunk(self, wave_slice: np.ndarray, base_valid: int, offset: int):
         """Featurize a pre-padded sample slice (framing, log-mel, fixed
         CMVN, chunk-local LFR clipped at ``base_valid`` base frames) and
-        encode it against the carried tails. Returns (enc (E, d), argmax
-        ids of the CTC log-probs (E,))."""
+        encode it against the carried tails. Returns (enc (E, d), CTC
+        log-probs (E, V), their argmax ids (E,))."""
         cfg = self.feat_cfg
         fidx, lidx = self._chunk_indices()
         w = torch.from_numpy(wave_slice).to(self.device).float() * (1.0 / 32768.0)
@@ -292,13 +299,13 @@ class StreamingRecognizer:
         idx = lidx.clamp(max=base_valid - 1)
         st = feats[0][idx].reshape(1, self.chunk_frames, -1)
         enc, self._inc_tails, lp = self.model.encode_chunk(st, self._inc_tails, offset)
-        return enc[0], lp[0].argmax(dim=-1)
+        return enc[0], lp[0], lp[0].argmax(dim=-1)
 
     def _inc_reset(self, start: int) -> None:
         self._inc_start = start
         self._inc_lfr_done = 0
         self._inc_tails = init_chunk_state(self.model.cfg, 1, self.device)
-        self._inc_enc, self._inc_ids = [], []
+        self._inc_enc, self._inc_lp, self._inc_ids = [], [], []
 
     def _inc_advance(self, start: int, prefix: np.ndarray, final: bool) -> None:
         """Encode the newly complete LFR frames of the open segment.
@@ -346,10 +353,11 @@ class StreamingRecognizer:
                 sl = np.pad(sl, (0, samp - len(sl)))
             base_valid = nb if not final else min(total_base - j0 * n, nb)
             n_valid = min(e, todo)
-            enc, ids = self._run_chunk(sl, base_valid, j0)
-            # enc stays on the device until a beam final needs it; partials
-            # fetch only the argmax ids
+            enc, lp, ids = self._run_chunk(sl, base_valid, j0)
+            # enc and lp stay on the device until a beam or joint final
+            # needs them; partials fetch only the argmax ids
             self._inc_enc.append(enc[:n_valid])
+            self._inc_lp.append(lp[:n_valid])
             self._inc_ids.append(ids[:n_valid].cpu().numpy())
             self._inc_lfr_done = j0 + n_valid
 
@@ -369,16 +377,21 @@ class StreamingRecognizer:
             text = self._inc_text()
         else:
             # the bucket-length encoder output the prefix path would give,
-            # zero past the accumulated frames (the search masks by length)
+            # zero past the accumulated frames (the search masks by length),
+            # and CTC rows padded blank-certain
             bucket = self._bucket_of(min(len(seg), self.buckets[-1]))
             t_b = self.feat_cfg.num_lfr_frames(self.feat_cfg.num_frames(bucket))
             with torch.inference_mode():
                 enc_cat = torch.cat(self._inc_enc, dim=0)  # (T, d)
+                lp_cat = torch.cat(self._inc_lp, dim=0)  # (T, V)
                 t = enc_cat.shape[0]
                 enc = enc_cat.new_zeros((1, t_b, enc_cat.shape[1]))
                 enc[0, :t] = enc_cat
+                lp = lp_cat.new_full((1, t_b, lp_cat.shape[1]), -1e9)
+                lp[0, :, BLANK_ID] = 0.0
+                lp[0, :t] = lp_cat
                 enc_lens = torch.tensor([t], dtype=torch.int32, device=enc.device)
-            text = self._beam_text(enc, enc_lens)
+            text = self._search_text(enc, enc_lens, lp)
         self._inc_start = None  # segment closed; the next one resets
         return text
 
@@ -392,7 +405,7 @@ class StreamingRecognizer:
         self._inc_start: Optional[int] = None
         self._inc_lfr_done = 0
         self._inc_tails = None
-        self._inc_enc, self._inc_ids = [], []
+        self._inc_enc, self._inc_lp, self._inc_ids = [], [], []
 
     def _final_event(self, start: int, seg: np.ndarray) -> Event:
         text = (
@@ -454,6 +467,7 @@ def main(argv=None) -> None:
     rec = StreamingRecognizer(
         model, vocab, feat_cfg, mode=kw.get("mode", "ctc_greedy"),
         beam_size=int(kw.get("beam_size", 10)),
+        ctc_weight=float(kw.get("ctc_weight", 0.3)),
         incremental=kw.get("incremental", "auto"),
     )
     print(

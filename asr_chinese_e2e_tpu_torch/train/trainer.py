@@ -10,9 +10,13 @@ checkpoint, with the best pointer driven by the dev metric
 (with the schedule's update count), step and epoch. A non-finite loss in
 a log window raises.
 
+``eval_decode`` (none | ctc_greedy | attention_greedy | beam | joint, beam
+width ``eval_beam_size``) adds a decoded CER: ``evaluate`` re-encodes each
+batch, decodes it in that mode and records ``decoded_cer`` beside the
+teacher-forced ``cer``.
+
 Left out of the port (ROADMAP §1): the device mesh, ``steps_per_dispatch``
-and in-flight pacing (TPU remote-link workarounds), xprof tracing, and
-decoding modes in evaluation other than ``eval_decode="none"`` (item 3).
+and in-flight pacing (TPU remote-link workarounds), and xprof tracing.
 """
 
 from __future__ import annotations
@@ -27,11 +31,18 @@ import torch
 from ..core.config import Config
 from ..data.batching import Batch, BucketedLoader
 from ..data.features import FeatureConfig
-from ..decode.cer import batch_cer_from_ids
+from ..data.features import parse_batch
+from ..decode.beam import beam_search
+from ..decode.cer import batch_cer_from_ids, corpus_cer
+from ..decode.greedy import attention_greedy_decode, ctc_greedy_decode, tokens_to_ids
+from ..decode.joint import joint_beam_search
 from .checkpoint import CheckpointManager
 from .metrics import MetricsAccumulator, ScalarWriter, ThroughputMeter
 from .optimizer import Optimizer, current_lr
 from .train_step import make_step_fns
+
+
+EVAL_DECODE_MODES = ("none", "ctc_greedy", "attention_greedy", "beam", "joint")
 
 
 def default_exp_name() -> str:
@@ -50,12 +61,9 @@ class Trainer:
         dev_loader: Optional[BucketedLoader] = None,
         test_loader: Optional[BucketedLoader] = None,
     ) -> None:
-        eval_decode = cfg.get("eval_decode", "none")
-        if eval_decode != "none":
-            raise NotImplementedError(
-                f"eval_decode={eval_decode!r} is not ported yet (ROADMAP §1, item 3: "
-                "the remaining recognize modes)"
-            )
+        self._eval_decode = cfg.get("eval_decode", "none")
+        if self._eval_decode not in EVAL_DECODE_MODES:
+            raise ValueError(f"unknown eval_decode {self._eval_decode!r}")
         self.model, self.optimizer, self.cfg = model, optimizer, cfg
         self.feat_cfg, self.vocab = feat_cfg, vocab
         self.train_loader = train_loader
@@ -160,7 +168,8 @@ class Trainer:
         loader; returns the reference metric (None for an empty loader)."""
         acc = MetricsAccumulator()
         for batch in loader.epoch(0):
-            metrics = self.eval_step(*self._put_batch(batch))
+            arrays = self._put_batch(batch)
+            metrics = self.eval_step(*arrays)
             names = [k for k in metrics if k not in ("pred_ids", "gold_ids")]
             values = torch.stack([metrics[k].float() for k in names]).tolist()
             host = dict(zip(names, values))
@@ -168,6 +177,8 @@ class Trainer:
                 metrics["pred_ids"].cpu().numpy(), metrics["gold_ids"].cpu().numpy(),
                 self.vocab,
             )
+            if self._eval_decode != "none":
+                host["decoded_cer"] = corpus_cer(self._decode(*arrays[:2]), batch.texts)
             acc.update(host, num_samples=len(batch.texts))
         means = acc.means()
         if not means:
@@ -182,6 +193,33 @@ class Trainer:
         self.writer.write(self.state.step, {prefix + k: v for k, v in means.items()})
         key = self.cfg.get("reference", "-loss").lstrip("+-")
         return means.get(key, means.get("loss", 0.0))
+
+    @torch.inference_mode()
+    def _decode(self, wave, wave_lengths) -> list:
+        """Re-encode one eval batch and decode it in the ``eval_decode``
+        mode; returns the hypothesis texts."""
+        model = self.model
+        feats, feat_lens = parse_batch(wave, wave_lengths, self.feat_cfg)
+        enc_out, enc_lens = model.encode(feats, feat_lens)
+        max_len = self.cfg.get("max_target_len", 64)
+        beam = self.cfg.get("eval_beam_size", 10)
+        if self._eval_decode == "ctc_greedy":
+            hyp_ids = ctc_greedy_decode(model.ctc_log_probs(enc_out), enc_lens)
+        elif self._eval_decode == "attention_greedy":
+            tokens, _ = attention_greedy_decode(model, enc_out, enc_lens, max_len)
+            hyp_ids = tokens_to_ids(tokens)
+        else:
+            if self._eval_decode == "beam":
+                res = beam_search(model, enc_out, enc_lens, beam, max_len)
+            else:
+                # the configured weight as it is: 0 is the attention beam
+                # over the pruned candidates
+                res = joint_beam_search(
+                    model, enc_out, enc_lens, beam, max_len,
+                    ctc_weight=float(self.cfg.get("ctc_weight", 0.3)),
+                )
+            hyp_ids = [h[0] for h in res.nbest_ids(1)]
+        return ["".join(self.vocab.ids_to_tokens(ids)) for ids in hyp_ids]
 
     def save(self, metric: Optional[float] = None,
              resume_epoch: Optional[int] = None) -> str:

@@ -1,7 +1,7 @@
 #!/usr/bin/env python
 """Smoke test of the PyTorch/CUDA port on one GPU: builds the CUDA kernels,
 holds each against its plain PyTorch version on the card, then drives the
-serving path (``asr_chinese_e2e_tpu_torch.recognize``, beam mode) and the
+serving path (``asr_chinese_e2e_tpu_torch.recognize``, every mode) and the
 training path (``asr_chinese_e2e_tpu_torch.main.train``) on the flagship
 configuration with random weights, then trains and serves the streaming
 model family (causal-banded encoder) through ``main.train`` and
@@ -10,8 +10,8 @@ through its kernels. Run from the repository root:
 
     python3 chip_smoke.py
 
-Phases (any failure raises, so the exit code is non-zero; phases 3-14 each
-print the seconds they took):
+Phases (any failure raises, so the exit code is non-zero; phases 3-14, 8b
+and 9b each print the seconds they took; 8b runs after 8, 9b after 9):
 
 1. require CUDA; print the card (``nvidia-smi``); TF32 off;
 2. build the kernels (``ops/_build.py``, one nvcc per source in parallel)
@@ -93,6 +93,28 @@ print the seconds they took):
    batch, and the kernel path's f32 encoder output must agree with the
    CPU run of the plain path (which the CPU tests hold to the JAX
    package);
+8b. decoding modes and K8: the joint search's CTC prefix registers kernel
+   vs ``ctc_selected_registers_reference`` at the serving shape (8, 10,
+   288) with ragged frame masks and at 15 s (8, 10, 512), parents empty
+   and not, tokens equal to the parent's last on every third
+   hypothesis (1e-5 of max(1, |plain|) on reachable cells, log-zero on
+   both sides elsewhere; ``ms``, ``plain_ms``, ``device_ms`` of 20
+   launches back to back, ``bound_ms``; no PyTorch call computes it);
+   then phase 8's experiment and 16 utterances through ``recognize`` in
+   every mode (``ctc_greedy``, ``attention_greedy``, ``beam``, ``rescore``
+   with the device and the host prefix beam, ``joint`` at ctc_weight 0.3
+   and prune 30): a hypothesis for every utterance, finite scores (beam,
+   joint, attention_greedy), K5 1 and K1 6 per batch, K8 once per decode
+   step in ``joint`` and never in the others, encode and search ms per
+   batch of 8 and audio-s/s; the device prefix beam's frame loop (wall,
+   kernels a frame, device time); and on one batch of 8 the joint search
+   with K8 and with the plain recursion forced (identical tokens, scores
+   within 1e-4), in f32 at ctc_weight 0 with the whole vocabulary as
+   prune (the tokens of ``beam_search``), and at ctc_weight 1 on 2
+   utterances (the best hypothesis' score within 1e-3 of max(1, |oracle|)
+   of the float64 host oracle ``ctc_prefix_scores_host``: the
+   complete-sequence probability if it finished, else the prefix
+   probability of its last extension);
 9. the training path: ``main.train`` with the flagship recipe (bf16,
    CTC 0.3 through K3/K4, fused attention with hash dropout 0.1,
    SpecAugment, Noam + Adam, clip 5) on 128 synthetic 8 s utterances (2
@@ -102,6 +124,9 @@ print the seconds they took):
    written; a second ``train(from_ckpt="latest", num_epoch=3)`` resumes
    at the saved step and epoch; the best checkpoint decodes the dev set
    through ``recognize`` on the card;
+9b. ``Trainer.evaluate`` on that best checkpoint with ``eval_decode``
+   ``ctc_greedy``, ``attention_greedy``, ``beam`` and ``joint`` (beam 10):
+   a finite ``dev/decoded_cer`` each;
 10. one f32 flagship-width train step (2 utterances, no dropout, no
     SpecAugment) on the card vs the same step on the CPU's plain path:
     loss and gradient norm within 1e-3 relative;
@@ -118,8 +143,9 @@ print the seconds they took):
     followed by 1 s of zeros, fed in 2000-sample chunks, partials every
     1 s; prefix re-encode (``ASR_BANDED_WINDOW=1``: each encode launches
     K5 1 and K6 6) and incremental (no kernel launch), each with
-    ``ctc_greedy`` and ``beam`` (10) finals, in bf16 and in f32 (the same
-    weights); in f32 the incremental finals must equal the prefix
+    ``ctc_greedy``, ``beam`` (10) and ``joint`` (10, ctc_weight 0.3; the
+    first 2 streams) finals, in bf16 and in f32 (the same weights; K8 once
+    per decode step of a joint final); in f32 the incremental finals must equal the prefix
     re-encode finals and the accumulated incremental encoder output must
     be within 1e-3 of the offline encode of the bucketed segment; in
     bf16 the number of agreeing finals is printed; median and p90 ms of
@@ -135,7 +161,8 @@ print the seconds they took):
     how many pairs the window won;
 15. print the kernels' JSON line (per kernel: route, source, the TPU
     kernel it replaces, launches on the main paths and per flagship
-    train step, streaming train step and serving batch, and at the
+    train step, streaming train step, beam and joint serving batch (K8
+    also per joint decode step), and at the
     training shape ``shape``, ``max_abs_err``, ``ms``, ``plain_ms``,
     ``bound_ms``, ``bound_by``, ``library_ms``, ``device_ms`` (20 launches
     back to back: of the C entry point for the attention kernels, of the
@@ -161,6 +188,7 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, ROOT)
 
 from asr_chinese_e2e_tpu_torch.core.config import Config  # noqa: E402
+from asr_chinese_e2e_tpu_torch.data.batching import BucketedLoader  # noqa: E402
 from asr_chinese_e2e_tpu_torch.data.features import (  # noqa: E402
     FeatureConfig,
     dft_basis,
@@ -172,6 +200,11 @@ from asr_chinese_e2e_tpu_torch.data.features import (  # noqa: E402
 from asr_chinese_e2e_tpu_torch.data.io import load_wav  # noqa: E402
 from asr_chinese_e2e_tpu_torch.data.manifest import read_manifest  # noqa: E402
 from asr_chinese_e2e_tpu_torch.data.vocab import Vocab  # noqa: E402
+from asr_chinese_e2e_tpu_torch.decode import joint as joint_mod  # noqa: E402
+from asr_chinese_e2e_tpu_torch.decode.beam import beam_search  # noqa: E402
+from asr_chinese_e2e_tpu_torch.decode.ctc_prefix_device import (  # noqa: E402
+    ctc_prefix_beam_device,
+)
 from asr_chinese_e2e_tpu_torch.main import train as main_train  # noqa: E402
 from asr_chinese_e2e_tpu_torch.models.transformer import (  # noqa: E402
     SpeechTransformer,
@@ -180,17 +213,24 @@ from asr_chinese_e2e_tpu_torch.models.transformer import (  # noqa: E402
 from asr_chinese_e2e_tpu_torch.ops import _build  # noqa: E402
 from asr_chinese_e2e_tpu_torch.ops import ctc as ctc_ops  # noqa: E402
 from asr_chinese_e2e_tpu_torch.ops import ctc_kernel as ctc  # noqa: E402
+from asr_chinese_e2e_tpu_torch.ops import ctc_prefix_kernel as k8  # noqa: E402
 from asr_chinese_e2e_tpu_torch.ops import fused_attention as fa  # noqa: E402
 from asr_chinese_e2e_tpu_torch.ops.fbank import log_mel_spectrogram_kernel  # noqa: E402
-from asr_chinese_e2e_tpu_torch.recognize import recognize  # noqa: E402
+from asr_chinese_e2e_tpu_torch.recognize import (  # noqa: E402
+    _load_experiment_cached,
+    batched,
+    recognize,
+)
 from asr_chinese_e2e_tpu_torch.stream import StreamingRecognizer  # noqa: E402
 from asr_chinese_e2e_tpu_torch.train.optimizer import (  # noqa: E402
     default_train_config,
     make_optimizer,
 )
 from asr_chinese_e2e_tpu_torch.train.train_step import make_step_fns  # noqa: E402
+from asr_chinese_e2e_tpu_torch.train.trainer import Trainer  # noqa: E402
 from asr_chinese_e2e_tpu_torch.utils.experiment import (  # noqa: E402
     checkpoint_path,
+    feature_config_from,
     load_experiment,
     save_torch_checkpoint,
 )
@@ -219,6 +259,7 @@ COUNTERS = {
     "banded_attention_bwd": fa.banded_attention_backward_kernel,
     "ctc_alpha": ctc.ctc_alpha_kernel,
     "ctc_beta": ctc.ctc_beta_kernel,
+    "ctc_prefix": k8.ctc_selected_registers_kernel,
 }
 
 
@@ -389,13 +430,13 @@ def _wrapper_device_times(what, shape, fn, limits: dict) -> dict:
     return {"device_ms": device_ms}
 
 
-def _print_times(what, shape, times: dict, limits: dict) -> None:
+def _print_times(what, shape, times: dict, limits: dict, n=N_TIMED // 2) -> None:
     parts = [f"{k} {v:.4f} ms" for k, v in times.items()]
     print(f"{what} {shape}: " + ", ".join(parts) + f"; bound {limits['bound_ms']:.4f} ms "
           f"by {limits['bound_by']} ({limits['bytes'] / 1e6:.1f} MB, "
           f"{limits['flops'] / 1e9:.2f} GFLOP): kernel at "
           f"{limits['bound_ms'] / times['kernel'] * 100:.1f} % of it (in turns, median of "
-          f"{2 * (N_TIMED // 2)})")
+          f"{2 * n})")
 
 
 def require(cond: bool, what: str) -> None:
@@ -1392,7 +1433,294 @@ def run_serving_path(dev) -> dict:
           f"load; audio-s/s {tm['audio_s'] / (tm['encode_s'] + tm['search_s']):.3f} "
           f"(encode+search), {tm['audio_s'] / wall:.3f} (wall)")
     print(f"launches in the recognize run: {counts}")
-    return counts, n
+    return counts, n, corpus, exp
+
+
+# -- phase 8b: every recognize mode, and the joint search's kernel --------------
+
+K8_REL = 1e-5  # K8's registers on reachable cells: of max(1, |plain|)
+JOINT_SCORE_ABS = 1e-4  # joint scores, kernel vs plain recursion (f32 sums alike)
+ORACLE_REL = 1e-3  # f32 search vs the float64 host oracle: of max(1, |oracle|)
+DECODE_MODES = {
+    "ctc_greedy": {}, "attention_greedy": {}, "beam": {},
+    "rescore-device": dict(mode="rescore", ctc_beam_impl="device"),
+    "rescore-host": dict(mode="rescore", ctc_beam_impl="host"),
+    "joint": dict(ctc_weight=0.3, ctc_prune=30),
+}
+
+
+def ctc_prefix_bound(b, k, t) -> dict:
+    """K8: the hypotheses' token rows and the utterances' blank rows of the
+    table, the parents' two register rows, the frame mask, token and last
+    read; the two register rows written; per (hypothesis, frame) three
+    log-add-exps (max, difference, exp, log1p, add: 5 operations each) and
+    three adds, in f32."""
+    n_bytes = 4.0 * (b * k * t + b * t + 4 * b * k * t) + b * t + 16.0 * b * k
+    return bound(n_bytes, 18.0 * b * k * t, H100_SXM_F32_PEAK)
+
+
+def _k8_inputs(dev, b, k, t, seed):
+    """Class-major CTC log-probs of the flagship's vocabulary, ragged frame
+    masks (the first utterance full), parent registers with log-zero
+    stretches, and tokens equal to the parent's last token on every third
+    hypothesis."""
+    g = torch.Generator().manual_seed(seed)
+    lp = torch.log_softmax(torch.randn(b, t, VOCAB, generator=g) * 3.0, dim=-1)
+    flat = lp.transpose(1, 2).reshape(b * VOCAB, t).contiguous()
+    lens = torch.randint(t // 4, t + 1, (b,), generator=g)
+    lens[0] = t
+    mask = torch.arange(t)[None, :] < lens[:, None]
+    r_nb = torch.randn(b, k, t, generator=g) * 5.0 - 40.0
+    r_nb[:, ::2, : t // 8] = k8.LOG_ZERO
+    r_b = torch.randn(b, k, t, generator=g) * 5.0 - 40.0
+    token = torch.randint(4, VOCAB, (b, k), generator=g)
+    last = torch.randint(4, VOCAB, (b, k), generator=g)
+    last[:, ::3] = token[:, ::3]
+    return [x.to(dev) for x in (flat, mask, r_nb, r_b, token, last)]
+
+
+def _check_registers(what, got, want) -> float:
+    """K8's registers against the plain version's: within ``K8_REL`` of
+    max(1, |plain|) where the plain version reaches the cell, log-zero on
+    both sides where it does not. Returns the largest abs error."""
+    worst = 0.0
+    for name, a, w in zip(("r_nb", "r_b"), got, want):
+        reach = w > LOG_ZERO
+        err = (a - w).abs()
+        rel = (err / w.abs().clamp(min=1.0))[reach].max().item()
+        unreached_ok = bool((a[~reach] <= LOG_ZERO).all())
+        worst = max(worst, err[reach].max().item())
+        print(f"{what} {name}: max_rel={rel:.3e} over {int(reach.sum())} reachable cells, "
+              f"{int((~reach).sum())} log-zero on both sides: {unreached_ok}")
+        require(rel <= K8_REL and unreached_ok, f"{what}: K8's {name} disagrees")
+    return worst
+
+
+def check_ctc_prefix_kernel(dev) -> dict:
+    """K8 vs ``ctc_selected_registers_reference`` at the serving shape (8,
+    10, 288) and at 15 s (8, 10, 512), parents empty and not; times at both
+    shapes."""
+    worst, timed = 0.0, []
+    for b, k, t in ((8, 10, 288), (8, 10, 512)):
+        args = _k8_inputs(dev, b, k, t, seed=t)
+        for empty in (True, False):
+            got = k8.ctc_selected_registers(*args, empty)
+            want = k8.ctc_selected_registers_reference(*args, empty)
+            torch.cuda.synchronize()
+            worst = max(worst, _check_registers(f"K8 {(b, k, t)} empty={empty}", got, want))
+        limits = ctc_prefix_bound(b, k, t)
+        # 5 samples a visit: the plain loop takes 30-80 ms a call
+        times = turns_ms({
+            "kernel": lambda: k8.ctc_selected_registers(*args, False),
+            "plain": lambda: k8.ctc_selected_registers_reference(*args, False),
+        }, n=5)
+        _print_times("K8 ctc prefix registers", [b, k, t], times, limits, n=5)
+        print(f"K8 {(b, k, t)}: no PyTorch call computes this recursion (library_ms null)")
+        device = _wrapper_device_times("K8 ctc prefix registers", [b, k, t],
+                                       lambda: k8.ctc_selected_registers(*args, False), limits)
+        timed.append({**_measured([b, k, t], worst, times, limits), **device})
+    return {**timed[0], "max_abs_err": worst, "other_shapes": timed[1:]}
+
+
+@contextlib.contextmanager
+def counted_steps(model):
+    """Count the model's lazy decode steps (the joint and beam searches
+    call ``decode_step_lazy`` once a step) while the block runs."""
+    n = [0]
+    inner = model.decode_step_lazy
+
+    def step(*a, **kw):
+        n[0] += 1
+        return inner(*a, **kw)
+
+    model.decode_step_lazy = step
+    try:
+        yield n
+    finally:
+        del model.decode_step_lazy
+
+
+def _first_batch(model, feat_cfg, manifest, dev, b=8):
+    """Encoder output and lengths of the manifest's first decode batch."""
+    _, wave, lengths = next(batched(read_manifest(manifest), b, 15 * 16000, 16000))
+    with torch.inference_mode():
+        feats, feat_lens = parse_batch(torch.from_numpy(wave).to(dev),
+                                       torch.from_numpy(lengths).to(dev), feat_cfg)
+        return model.encode(feats, feat_lens)
+
+
+def _host_ctc_score(xs, ids, finished) -> float:
+    """The float64 host oracle's CTC score of a hypothesis: its
+    complete-sequence probability if it finished, else the prefix
+    probability of its last extension."""
+    if finished:
+        return joint_mod.ctc_prefix_scores_host(xs, list(ids), [1])[3]
+    return float(joint_mod.ctc_prefix_scores_host(xs, list(ids[:-1]), [ids[-1]])[0][0])
+
+
+def check_joint_search(exp, corpus, dev) -> None:
+    """The joint search on one batch of 8: kernel vs the plain recursion
+    forced, ctc_weight 0 in f32 vs the attention beam, ctc_weight 1 vs the
+    host oracle on 2 utterances."""
+    model, _, feat_cfg, _ = load_experiment(exp, corpus["vocab"], "best", device=dev)
+    enc, lens = _first_batch(model, feat_cfg, corpus["test"], dev)
+    kw = dict(ctc_weight=0.3, ctc_prune=30)
+    out = {}
+    for route in ("kernel", "plain"):
+        original = joint_mod.ctc_selected_registers
+        if route == "plain":
+            joint_mod.ctc_selected_registers = k8.ctc_selected_registers_reference
+        try:
+            with counted_steps(model) as n_steps:
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                res = joint_mod.joint_beam_search(model, enc, lens, 10, 64, **kw).materialize()
+                out[route] = (res, (time.perf_counter() - t0) * 1e3)
+        finally:
+            joint_mod.ctc_selected_registers = original
+    (got, ms), (want, plain_ms) = out["kernel"], out["plain"]
+    diff = float(np.abs(got.scores - want.scores).max())
+    print(f"joint (batch of 8, {enc.shape[1]} frames, beam 10, ctc 0.3, prune 30): "
+          f"{n_steps[0]} decode steps; search ms with K8 {ms:.1f}, with the plain recursion "
+          f"{plain_ms:.1f}; tokens equal {np.array_equal(got.tokens, want.tokens)}, scores "
+          f"max_abs={diff:.3e}")
+    require(np.array_equal(got.tokens, want.tokens) and diff <= JOINT_SCORE_ABS,
+            "joint search: the kernel and the plain recursion disagree")
+
+    model32 = SpeechTransformer(flagship_config("float32"), VOCAB,
+                                torch.Generator().manual_seed(0)).to(dev).eval()
+    enc32, lens32 = _first_batch(model32, FeatureConfig(fbank_impl="pallas"), corpus["test"],
+                                 dev)
+    beam = beam_search(model32, enc32, lens32, 10, 64).materialize()
+    j0 = joint_mod.joint_beam_search(model32, enc32, lens32, 10, 64, ctc_weight=0.0,
+                                     ctc_prune=VOCAB).materialize()
+    s_diff = float(np.abs(beam.scores - j0.scores).max())
+    print(f"joint f32 ctc_weight 0, prune {VOCAB} vs beam: tokens equal "
+          f"{np.array_equal(beam.tokens, j0.tokens)}, scores max_abs={s_diff:.3e}")
+    require(np.array_equal(beam.tokens, j0.tokens), "joint at ctc_weight 0 != beam")
+    del model32
+
+    j1 = joint_mod.joint_beam_search(model, enc[:2], lens[:2], 10, 64, ctc_weight=1.0,
+                                     ctc_prune=30).materialize()
+    with torch.inference_mode():
+        lp = model.ctc_log_probs(enc[:2]).double().cpu().numpy()
+    for b, ids in enumerate(j1.nbest_ids(1)):
+        xs = lp[b, : int(lens[b])]
+        want_sc = _host_ctc_score(xs, ids[0], bool(j1.finished[b, 0]))
+        err = abs(float(j1.scores[b, 0]) - want_sc)
+        print(f"joint ctc_weight 1, utterance {b}: {len(ids[0])} tokens, finished "
+              f"{bool(j1.finished[b, 0])}, score {float(j1.scores[b, 0]):.4f} vs host oracle "
+              f"{want_sc:.4f} (abs {err:.3e})")
+        require(err <= ORACLE_REL * max(1.0, abs(want_sc)), "joint score != host oracle")
+
+
+def _device_prefix_beam_cost(exp, corpus, dev) -> None:
+    """Wall time and kernel launches of the device CTC prefix beam's frame
+    loop on one batch of 8."""
+    from torch.profiler import ProfilerActivity, profile
+
+    model, _, feat_cfg, _ = load_experiment(exp, corpus["vocab"], "best", device=dev)
+    enc, lens = _first_batch(model, feat_cfg, corpus["test"], dev)
+    with torch.inference_mode():
+        lp = model.ctc_log_probs(enc)
+    ctc_prefix_beam_device(lp, lens, beam_size=10)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ctc_prefix_beam_device(lp, lens, beam_size=10)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        ctc_prefix_beam_device(lp, lens, beam_size=10)
+        torch.cuda.synchronize()
+    kernels = [e for e in prof.events() if str(e.device_type).endswith("CUDA")]
+    device_ms = sum(e.device_time for e in kernels) / 1e3
+    t = lp.shape[1]
+    print(f"device CTC prefix beam (8 x {t} frames, beam 10, prune 8): {ms:.1f} ms wall, "
+          f"{len(kernels)} kernels ({len(kernels) / t:.1f} a frame), {device_ms:.2f} ms of "
+          f"device time")
+
+
+def run_decoding_modes(exp, corpus, dev) -> tuple:
+    """K8 against its plain version, every ``recognize`` mode on phase 8's
+    experiment and corpus (16 utterances, batches of 8, beam 10), the cost
+    of the device prefix beam's frame loop, then the joint search's checks.
+    Returns the joint run's launch counts, its batch count and K8's times
+    with the decode steps of that run."""
+    k8_times = check_ctc_prefix_kernel(dev)
+    # the model ``recognize`` memoizes, so its decode steps can be counted
+    model, *_ = _load_experiment_cached(exp, corpus["vocab"], "best", torch.device("cuda"))
+    joint_counts, joint_batches, joint_steps = None, 0, 0
+    for name, kw in DECODE_MODES.items():
+        mode = kw.get("mode", name)
+        with counted_steps(model) as n_steps:
+            reset_counters()
+            t0 = time.perf_counter()
+            res = recognize(exp, corpus["vocab"], manifest=corpus["test"], mode=mode,
+                            beam_size=10, batch_size=8, max_decode_len=64, device="cuda",
+                            **{k: v for k, v in kw.items() if k != "mode"})
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            counts = read_counters()
+        tm = res["timing"]
+        n = tm["batches"]
+        utts = res["utts"]
+        require(len(utts) == 16, f"{name}: {len(utts)} of 16 decoded")
+        for utt, entry in utts.items():
+            require(len(entry["output"]) >= 1, f"{name} {utt}: no hypothesis")
+            if mode in ("beam", "joint", "attention_greedy"):
+                require(all(np.isfinite(o["score"]) for o in entry["output"]),
+                        f"{name} {utt}: score not finite")
+        require(counts["fbank"] == n and counts["fused_attention_fwd"] == 6 * n,
+                f"{name}: launches {counts} for {n} batches")
+        want_k8 = n_steps[0] if mode == "joint" else 0
+        require(counts["ctc_prefix"] == want_k8,
+                f"{name}: K8 launches {counts['ctc_prefix']} != {want_k8} decode steps")
+        if mode == "joint":
+            joint_counts, joint_batches, joint_steps = counts, n, n_steps[0]
+        print(f"recognize {name}: {n} batches, {tm['audio_s']:.3f} s audio; per batch of 8 "
+              f"encode {tm['encode_s'] / n * 1e3:.3f} ms, search {tm['search_s'] / n * 1e3:.3f} "
+              f"ms; audio-s/s {tm['audio_s'] / (tm['encode_s'] + tm['search_s']):.3f} "
+              f"(encode+search), {tm['audio_s'] / wall:.3f} (wall); K8 launches "
+              f"{counts['ctc_prefix']} over {n_steps[0]} decode steps")
+    _device_prefix_beam_cost(exp, corpus, dev)
+    check_joint_search(exp, corpus, dev)
+    return joint_counts, joint_batches, {"k8": k8_times, "steps_run": joint_steps}
+
+
+# -- phase 9b: decoded CER in evaluation ---------------------------------------
+
+
+def check_eval_decode(exp_dir, corpus, dev) -> None:
+    """``Trainer.evaluate`` on phase 9's best checkpoint in each
+    ``eval_decode`` mode: a finite ``dev/decoded_cer``."""
+    base = Config.load(os.path.join(exp_dir, "config.json"))
+    vocab = Vocab.load(corpus["vocab"])
+    blob = torch.load(checkpoint_path(exp_dir, "best"), map_location="cpu",
+                      weights_only=True)
+    loader = BucketedLoader(
+        corpus["dev"], vocab, batch_size=base.batch_size, max_target_len=base.max_target_len,
+        shuffle=False, use_native_io=False, wire_dtype="int16", drop_last=False,
+    )
+    for mode in ("ctc_greedy", "attention_greedy", "beam", "joint"):
+        cfg = Config(**{**base.to_dict(), "eval_decode": mode, "eval_beam_size": 10,
+                        "exp_root": os.path.join(WORK, "eval_decode"), "exp_name": mode})
+        model = SpeechTransformer(cfg, vocab.vocab_size)
+        model.load_state_dict(blob["state_dict"])
+        model = model.to(dev)
+        trainer = Trainer(model, make_optimizer(model.parameters(), cfg, cfg.d_model), cfg,
+                          feature_config_from(cfg), vocab, train_loader=loader,
+                          dev_loader=loader)
+        trainer.state = trainer.init_fn()
+        t0 = time.perf_counter()
+        trainer.evaluate(loader, "dev/")
+        torch.cuda.synchronize()
+        with open(os.path.join(trainer.exp_dir, "scalars.jsonl")) as f:
+            row = [json.loads(line) for line in f][-1]
+        cer = row.get("dev/decoded_cer")
+        print(f"eval_decode {mode}: dev/decoded_cer {cer} (teacher-forced cer "
+              f"{row['dev/cer']:.2f}), evaluate {time.perf_counter() - t0:.3f} s")
+        require(cer is not None and np.isfinite(cer), f"eval_decode {mode}: no decoded_cer")
+        del trainer, model
 
 
 # -- phase 9: the training path ------------------------------------------------
@@ -1480,7 +1808,7 @@ def run_training_path(dev):
                 f"{utt}: no finite hypothesis")
     print(f"best checkpoint decodes the dev set on the card: CER {res['cer']:.2f}% "
           f"after 6 steps")
-    return counts, corpus
+    return counts, corpus, exp_dir
 
 
 # -- phase 10: one f32 step, card vs CPU ----------------------------------------
@@ -1562,11 +1890,11 @@ def run_streaming_training(corpus) -> tuple[dict, str]:
     print(f"streaming train: {steps} steps in 2 epochs, {n_eval} dev batches, wall "
           f"{wall:.3f} s; launches {counts}")
     require(steps == 4, f"streaming train ran {steps} steps, want 4")
-    want = {
-        "fbank": steps + n_eval, "fused_attention_fwd": 0, "fused_attention_bwd": 0,
-        "banded_attention_fwd": 6 * (steps + n_eval), "banded_attention_bwd": 6 * steps,
-        "ctc_alpha": steps + n_eval, "ctc_beta": steps,
-    }
+    want = {k: 0 for k in COUNTERS}
+    want.update({
+        "fbank": steps + n_eval, "banded_attention_fwd": 6 * (steps + n_eval),
+        "banded_attention_bwd": 6 * steps, "ctc_alpha": steps + n_eval, "ctc_beta": steps,
+    })
     require(counts == want, f"streaming training launches {counts} != {want}")
     rows = _logged_losses(trainer.exp_dir)
     require(len(rows) == steps and all(np.isfinite(r["train/loss"]) for r in rows),
@@ -1659,7 +1987,7 @@ def run_streaming_serving(exp_dir: str, vocab_path: str, dev) -> dict:
     launches = {k: 0 for k in COUNTERS}
     finals = {}
     for dtype, m in (("bfloat16", model), ("float32", model32)):
-        for mode in ("ctc_greedy", "beam"):
+        for mode in ("ctc_greedy", "beam", "joint"):
             for inc in ("off", "on"):
                 rec = StreamingRecognizer(m, vocab, feat_cfg, mode=mode, beam_size=10,
                                           partial_every_s=1.0, incremental=inc)
@@ -1672,18 +2000,22 @@ def run_streaming_serving(exp_dir: str, vocab_path: str, dev) -> dict:
                     return _encode(samples)
 
                 rec._run_encode = counted
-                with banded_window("1"):
+                with banded_window("1"), counted_steps(m) as n_steps:
                     reset_counters()
-                    out, t_p, t_f, segs = serve_streams(rec, streams)
+                    # joint finals on the first 2 streams: they cost as
+                    # much as beam finals, and the phase's time is bounded
+                    out, t_p, t_f, segs = serve_streams(
+                        rec, streams[:2] if mode == "joint" else streams)
                     counts = read_counters()
                 n = n_encodes[0]
+                # K8: one launch per decode step of a joint final
+                want = {k: 0 for k in COUNTERS}
+                want["ctc_prefix"] = n_steps[0] if mode == "joint" else 0
                 if inc == "off":
-                    want = {k: 0 for k in COUNTERS}
                     want.update(fbank=n, banded_attention_fwd=6 * n)
                     if dtype == "bfloat16":
                         launches = {k: launches[k] + counts[k] for k in COUNTERS}
                 else:
-                    want = {k: 0 for k in COUNTERS}
                     require(n == 0, "the incremental path re-encoded a prefix")
                 require(counts == want, f"stream {dtype} {mode} {inc}: launches "
                         f"{counts} != {want}")
@@ -1705,7 +2037,7 @@ def run_streaming_serving(exp_dir: str, vocab_path: str, dev) -> dict:
                           f"max_abs={err:.3e}")
                     require(err <= 1e-3, "incremental encoder output disagrees")
     for dtype in ("bfloat16", "float32"):
-        for mode in ("ctc_greedy", "beam"):
+        for mode in ("ctc_greedy", "beam", "joint"):
             a, b = finals[dtype, mode, "on"], finals[dtype, mode, "off"]
             require([x[1:] for x in a] == [x[1:] for x in b], "final segment bounds differ")
             same = sum(x[0] == y[0] for x, y in zip(a, b))
@@ -1920,8 +2252,11 @@ def main() -> None:
     attn_bwd = phase(5, check_attention_bwd, dev)
     banded_fwd, banded_bwd = phase(6, check_banded, dev)
     ctc_alpha, ctc_beta = phase(7, check_ctc, dev)
-    serve, serve_batches = phase(8, run_serving_path, dev)
-    trained, corpus = phase(9, run_training_path, dev)
+    serve, serve_batches, serve_corpus, serve_exp = phase(8, run_serving_path, dev)
+    decoded, joint_batches, joint = phase("8b", run_decoding_modes, serve_exp, serve_corpus,
+                                          dev)
+    trained, corpus, train_exp = phase(9, run_training_path, dev)
+    phase("9b", check_eval_decode, train_exp, corpus, dev)
     phase(10, check_step_against_cpu, corpus, dev)
     stream_trained, stream_exp = phase(11, run_streaming_training, corpus)
     stream_served = phase(12, run_streaming_serving, stream_exp, corpus["vocab"], dev)
@@ -1930,7 +2265,8 @@ def main() -> None:
 
     # launches: the main paths' runs, each counted from 0
     launches = {
-        k: serve[k] + trained[k] + stream_trained[k] + stream_served[k] for k in COUNTERS
+        k: serve[k] + decoded[k] + trained[k] + stream_trained[k] + stream_served[k]
+        for k in COUNTERS
     }
     require(all(n > 0 for n in launches.values()), f"a kernel never launched: {launches}")
     sources = {
@@ -1945,6 +2281,9 @@ def main() -> None:
                                  "asr_chinese_e2e_tpu/ops/fused_attention.py:405", banded_bwd),
         "ctc_alpha": ("ctc.cu", "asr_chinese_e2e_tpu/ops/ctc_pallas.py:47", ctc_alpha),
         "ctc_beta": ("ctc.cu", "asr_chinese_e2e_tpu/ops/ctc_pallas.py:75", ctc_beta),
+        "ctc_prefix": ("ctc_prefix.cu",
+                       "none (lax.scan): asr_chinese_e2e_tpu/decode/joint.py:253",
+                       joint["k8"]),
     }
     kernels = [
         {"name": name, "route": "cuda",
@@ -1954,9 +2293,12 @@ def main() -> None:
              "flagship_train_step": flagship_step[name],
              "streaming_train_step": streaming_step[name],
              "serving_batch": serve[name] / serve_batches,
+             "joint_serving_batch": decoded[name] / joint_batches,
          }, **measured}
         for name, (src, rep, measured) in sources.items()
     ]
+    kernels[-1]["launches_per_step"]["joint_decode_step"] = (
+        decoded["ctc_prefix"] / joint["steps_run"])
     print(json.dumps({"kernels": kernels}))
     print(f"card: {card}")
     print(json.dumps({"ok": True, "device": {

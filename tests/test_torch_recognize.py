@@ -3,8 +3,11 @@ independence from JAX, and its copies of the JAX package's host modules.
 
 - ``recognize`` on a tiny synthetic corpus (fbank kernel and fused
   attention selected, as on the flagship) gives the same n-best text as
-  JAX's ``batched`` -> ``parse_batch`` -> ``encode`` -> ``beam_search`` on
-  the same weights, scores within 1e-4.
+  JAX's ``batched`` -> ``parse_batch`` -> ``encode`` -> the mode's search on
+  the same weights, scores within 1e-4, in every mode (``ctc_greedy``,
+  ``attention_greedy``, ``beam``, ``rescore`` with the device and the host
+  prefix beam, ``joint``), and the same n-best JSON for pipeline depths 0,
+  1 and 2; an unknown mode and mesh decode raise.
 - Every port module imports with jax, flax, optax and orbax blocked, and
   the JAX package never enters ``sys.modules``; an AST scan of the
   sources backs that up.
@@ -31,7 +34,11 @@ from asr_chinese_e2e_tpu.data.batching import load_wav as jax_load_wav
 from asr_chinese_e2e_tpu.data.features import parse_batch as jax_parse_batch
 from asr_chinese_e2e_tpu.data.manifest import read_manifest as jax_read_manifest
 from asr_chinese_e2e_tpu.data.vocab import Vocab as JaxVocab
+from asr_chinese_e2e_tpu.decode import ctc_prefix as jax_prefix
+from asr_chinese_e2e_tpu.decode import ctc_prefix_device as jax_prefix_device
+from asr_chinese_e2e_tpu.decode import greedy as jax_greedy
 from asr_chinese_e2e_tpu.decode.beam import beam_search as jax_beam_search
+from asr_chinese_e2e_tpu.decode.joint import joint_beam_search as jax_joint_beam_search
 from asr_chinese_e2e_tpu.decode.cer import corpus_cer as jax_corpus_cer
 from asr_chinese_e2e_tpu.utils.cli import parse_kwargs as jax_parse_kwargs
 from asr_chinese_e2e_tpu.utils.experiment import (
@@ -43,6 +50,7 @@ from asr_chinese_e2e_tpu_torch.data.io import load_wav
 from asr_chinese_e2e_tpu_torch.data.manifest import read_manifest
 from asr_chinese_e2e_tpu_torch.data.vocab import Vocab
 from asr_chinese_e2e_tpu_torch.decode.cer import corpus_cer
+from asr_chinese_e2e_tpu_torch import recognize as rec_mod
 from asr_chinese_e2e_tpu_torch.recognize import recognize
 from asr_chinese_e2e_tpu_torch.utils.cli import parse_kwargs
 from asr_chinese_e2e_tpu_torch.utils.experiment import save_torch_checkpoint
@@ -82,12 +90,53 @@ def experiment(tmp_path_factory):
     return str(exp), corpus, jm, params, jcfg
 
 
-def test_recognize_matches_jax_pipeline(experiment, tmp_path):
+def _jax_search(mode, jm, params, enc, enc_len, kw):
+    """JAX's per-batch n-best [(ids, score)] of ``mode``, as its
+    ``recognize`` drains it."""
+    if mode == "ctc_greedy":
+        lp = jm.apply(params, enc, method="ctc_log_probs")
+        return [[(ids, 0.0)] for ids in jax_greedy.ctc_greedy_decode(lp, enc_len)]
+    if mode == "attention_greedy":
+        tokens, scores = jax_greedy.attention_greedy_decode(
+            jm, params, enc, enc_len, kw["max_decode_len"])
+        return [[(ids, float(s))] for ids, s in
+                zip(jax_greedy.tokens_to_ids(tokens), np.asarray(scores))]
+    if mode.startswith("rescore"):
+        lp = jm.apply(params, enc, method="ctc_log_probs")
+        if mode == "rescore-device":
+            nbest = jax_prefix_device.device_nbest_to_lists(
+                *jax_prefix_device.ctc_prefix_beam_device(lp, enc_len, beam_size=kw["beam_size"]))
+        else:
+            nbest = jax_prefix.ctc_prefix_beam_batch(
+                np.asarray(lp), np.asarray(enc_len), kw["beam_size"])
+        best = jax_prefix.attention_rescore(jm, params, enc, enc_len, nbest, 0.3)
+        return [[(ids, 0.0)] for ids in best]
+    if mode == "beam":
+        r = jax_beam_search(jm, params, enc, enc_len, kw["beam_size"], kw["max_decode_len"])
+    else:
+        r = jax_joint_beam_search(jm, params, enc, enc_len, kw["beam_size"],
+                                  kw["max_decode_len"], ctc_weight=0.3, ctc_prune=6)
+    ids = r.nbest_ids(kw["nbest"])
+    return [[(h, float(r.scores[b, k])) for k, h in enumerate(ids[b])]
+            for b in range(len(ids))]
+
+
+RECOGNIZE_MODES = {
+    "ctc_greedy": {}, "attention_greedy": {}, "beam": {},
+    "rescore-device": dict(mode="rescore", ctc_beam_impl="device"),
+    "rescore-host": dict(mode="rescore", ctc_beam_impl="host"),
+    "joint": dict(ctc_prune=6),
+}
+
+
+@pytest.mark.parametrize("mode", list(RECOGNIZE_MODES))
+def test_recognize_matches_jax_pipeline(experiment, tmp_path, mode):
     exp, corpus, jm, params, jcfg = experiment
     kw = dict(beam_size=3, batch_size=4, max_decode_len=8, nbest=2)
     out = tmp_path / "res.json"
+    port_kw = {"mode": mode, **RECOGNIZE_MODES[mode]}
     res = recognize(exp, corpus["vocab"], manifest=corpus["test"], device="cpu",
-                    out=str(out), **kw)
+                    out=str(out), **kw, **port_kw)
 
     voc = JaxVocab.load(corpus["vocab"])
     feat_cfg = jax_feature_config_from(jcfg)
@@ -98,17 +147,11 @@ def test_recognize_matches_jax_pipeline(experiment, tmp_path):
     ):
         feats, fl = jax_parse_batch(jnp.asarray(wave), jnp.asarray(lengths), feat_cfg)
         enc, enc_len = jm.apply(params, feats, fl, method="encode")
-        r = jax_beam_search(
-            jm, params, enc, enc_len, kw["beam_size"], kw["max_decode_len"]
-        )
-        ids = r.nbest_ids(kw["nbest"])
+        nbest = _jax_search(mode, jm, params, enc, enc_len, kw)
         n_batches += 1
         for b, rec in enumerate(chunk):
             utt = rec["wave"].rsplit("/", 1)[-1].rsplit(".", 1)[0]
-            want[utt] = [
-                ("".join(voc.ids_to_tokens(h)), float(r.scores[b, k]))
-                for k, h in enumerate(ids[b])
-            ]
+            want[utt] = [("".join(voc.ids_to_tokens(h)), s) for h, s in nbest[b]]
 
     assert set(res["utts"]) == set(want)
     for utt, hyps in want.items():
@@ -118,6 +161,8 @@ def test_recognize_matches_jax_pipeline(experiment, tmp_path):
             [g["score"] for g in got], [h[1] for h in hyps], atol=1e-4, rtol=0
         )
         assert all("text" in g for g in got)
+    if mode in ("beam", "joint", "attention_greedy"):
+        assert any(any(h[1] != 0.0 for h in hyps) for hyps in want.values())
     hyps = [res["utts"][u]["output"][0]["rec_text"] for u in want]
     refs = [res["utts"][u]["output"][0]["text"] for u in want]
     assert res["cer"] == pytest.approx(jax_corpus_cer(hyps, refs))
@@ -126,11 +171,35 @@ def test_recognize_matches_jax_pipeline(experiment, tmp_path):
     assert res["timing"]["batches"] == n_batches
 
 
-def test_recognize_other_modes_raise(experiment):
+@pytest.mark.parametrize("mode", ["beam", "joint", "ctc_greedy"])
+def test_pipeline_depth_gives_the_same_json(experiment, tmp_path, mode):
     exp, corpus, *_ = experiment
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        recognize(exp, corpus["vocab"], manifest=corpus["test"], mode="joint",
-                  device="cpu")
+    written = []
+    for depth in (0, 1, 2):
+        out = tmp_path / f"res{depth}.json"
+        recognize(exp, corpus["vocab"], manifest=corpus["test"], device="cpu", mode=mode,
+                  beam_size=3, batch_size=2, max_decode_len=6, nbest=2, ctc_prune=6,
+                  pipeline_depth=depth, out=str(out))
+        written.append(out.read_text(encoding="utf-8"))
+    assert written[0] == written[1] == written[2]
+    assert len(json.loads(written[0])["utts"]) == CORPUS_KW["n_test"]
+
+
+@pytest.mark.parametrize("kw,error", [
+    (dict(mode="greedy"), SystemExit),
+    (dict(mode="beam", mesh_data=2), NotImplementedError),
+])
+def test_recognize_refuses_unknown_modes_and_mesh(experiment, kw, error):
+    exp, corpus, *_ = experiment
+    with pytest.raises(error, match="mode|ROADMAP"):
+        recognize(exp, corpus["vocab"], manifest=corpus["test"], device="cpu", **kw)
+
+
+def test_experiment_load_is_memoized(experiment):
+    exp, corpus, *_ = experiment
+    a = rec_mod._load_experiment_cached(exp, corpus["vocab"], "best", torch.device("cpu"))
+    b = rec_mod._load_experiment_cached(exp, corpus["vocab"], "best", torch.device("cpu"))
+    assert a[0] is b[0]
 
 
 _IMPORT_ALL = """
@@ -159,6 +228,15 @@ TRAINING_MODULES = {
 }
 
 
+# the joint / rescore decoding slice's modules
+DECODE_MODULES = {
+    "asr_chinese_e2e_tpu_torch." + m for m in (
+        "decode.joint", "decode.ctc_prefix", "decode.ctc_prefix_device",
+        "ops.ctc_prefix_kernel", "recognize",
+    )
+}
+
+
 def test_port_imports_with_jax_blocked():
     """The test environment may import jax before a test starts, so the
     subprocess blocks the import rather than checking jax is absent."""
@@ -170,6 +248,7 @@ def test_port_imports_with_jax_blocked():
     names = set(proc.stdout.strip().splitlines()[-1].split())
     assert len(names) >= 37
     assert TRAINING_MODULES <= names, TRAINING_MODULES - names
+    assert DECODE_MODULES <= names, DECODE_MODULES - names
 
 
 def _imported_modules(path: Path):
@@ -185,6 +264,7 @@ CARD_SCRIPTS = [
     REPO / "chip_smoke.py",
     REPO / "scripts" / "profile_torch_train.py",
     REPO / "scripts" / "profile_torch_attention.py",
+    REPO / "scripts" / "profile_torch_kernels.py",
 ]
 
 

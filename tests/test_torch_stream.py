@@ -1,7 +1,8 @@
 """The port's streaming recognizer against the JAX package's, on converted
 weights: ``EnergyGate`` segments identical on the same int16 streams;
 ``StreamingRecognizer`` events (kind, text, t0, t1) identical for
-``ctc_greedy`` and ``beam`` finals, prefix re-encode and incremental;
+``ctc_greedy``, ``beam`` and ``joint`` finals, prefix re-encode and
+incremental;
 ``reset_stream`` isolation; the argument checks; ``ctc_greedy_decode`` and
 ``attention_greedy_decode`` against JAX's; and the ``stream`` CLI on the
 CPU."""
@@ -122,7 +123,7 @@ def _speech():
 
 
 @pytest.mark.parametrize("incremental", ["on", "off"])
-@pytest.mark.parametrize("mode", ["ctc_greedy", "beam"])
+@pytest.mark.parametrize("mode", ["ctc_greedy", "beam", "joint"])
 def test_recognizer_events_match_jax(parts, mode, incremental):
     jm, params, jvocab, jfeat, tm, vocab, feat = parts
     kw = dict(mode=mode, bucket_seconds=(1.0, 2.0), partial_every_s=0.4,
@@ -138,11 +139,12 @@ def test_recognizer_events_match_jax(parts, mode, incremental):
     assert any(text for _, text, *_ in got)  # the tiny model emits characters
 
 
-def test_incremental_finals_equal_prefix_reencode(parts):
+@pytest.mark.parametrize("mode", ["beam", "joint"])
+def test_incremental_finals_equal_prefix_reencode(parts, mode):
     _, _, _, _, tm, vocab, feat = parts
     finals = {}
     for inc in ("on", "off"):
-        rec = StreamingRecognizer(tm, vocab, feat, mode="beam", bucket_seconds=(1.0, 2.0),
+        rec = StreamingRecognizer(tm, vocab, feat, mode=mode, bucket_seconds=(1.0, 2.0),
                                   beam_size=3, max_len=8, chunk_frames=8, incremental=inc)
         finals[inc] = [(e.text, e.t0, e.t1) for e in feed_chunked(rec, _speech())
                        if e.kind == "final"]
@@ -166,8 +168,6 @@ def test_reset_stream_isolates_streams(parts):
 
 def test_argument_checks(parts):
     _, _, _, _, tm, vocab, feat = parts
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        StreamingRecognizer(tm, vocab, feat, mode="joint")
     with pytest.raises(ValueError, match="mode"):
         StreamingRecognizer(tm, vocab, feat, mode="rescore")
     with pytest.raises(ValueError, match="incremental"):

@@ -4,7 +4,12 @@ attention, CTC kernel, hash dropout, SpecAugment; their plain versions run
 on the CPU) and Python wav reading, so the test counts the same on every
 machine. Checks that the loss falls, that checkpoints and ``index.json``
 are written, that a resumed run continues at the saved step and epoch, and
-that the best checkpoint decodes through the port's ``recognize``."""
+that the best checkpoint decodes through the port's ``recognize``.
+
+``Trainer.evaluate`` with each ``eval_decode`` mode (ctc_greedy,
+attention_greedy, beam, joint) on converted weights records a
+``decoded_cer`` equal to the JAX package's ``corpus_cer`` of the matching
+JAX decode on the same dev batches."""
 
 import json
 import os
@@ -13,10 +18,25 @@ import numpy as np
 import pytest
 import torch
 
+import jax.numpy as jnp
+
+from asr_chinese_e2e_tpu.data.features import parse_batch as jax_parse_batch
+from asr_chinese_e2e_tpu.decode import greedy as jax_greedy
+from asr_chinese_e2e_tpu.decode.beam import beam_search as jax_beam_search
+from asr_chinese_e2e_tpu.decode.cer import corpus_cer as jax_corpus_cer
+from asr_chinese_e2e_tpu.decode.joint import joint_beam_search as jax_joint_beam_search
+from asr_chinese_e2e_tpu.utils.experiment import feature_config_from as jax_feature_config_from
+from asr_chinese_e2e_tpu_torch.core.config import Config
 from asr_chinese_e2e_tpu_torch.core.registry import get_model
+from asr_chinese_e2e_tpu_torch.data.batching import BucketedLoader
+from asr_chinese_e2e_tpu_torch.data.vocab import Vocab
 from asr_chinese_e2e_tpu_torch.main import train
 from asr_chinese_e2e_tpu_torch.recognize import recognize
+from asr_chinese_e2e_tpu_torch.train.optimizer import default_train_config, make_optimizer
+from asr_chinese_e2e_tpu_torch.train.trainer import Trainer
+from asr_chinese_e2e_tpu_torch.utils.experiment import feature_config_from
 from asr_chinese_e2e_tpu_torch.utils.synth import make_synth_corpus
+from tests.test_torch_model import model_pair, tiny_config
 
 torch.set_num_threads(2)
 
@@ -130,3 +150,80 @@ def test_cli_takes_key_value_words(monkeypatch, capsys):
     monkeypatch.setattr("sys.argv", ["main"])
     port_main.main()
     assert "Training CLI" in capsys.readouterr().out
+
+
+# -- decoded CER in evaluation, against the JAX decodes ------------------------
+
+EVAL_MAX_LEN, EVAL_BEAM = 12, 3
+
+
+@pytest.fixture(scope="module")
+def eval_parts(tmp_path_factory):
+    """A tiny model pair with the flagship's kernel selections, the dev
+    loader of a synthetic corpus, and JAX's encoder output per dev batch."""
+    root = tmp_path_factory.mktemp("torch_eval_decode")
+    corpus = make_synth_corpus(str(root / "corpus"), **{**CORPUS_KW, "n_dev": 6})
+    vocab = Vocab.load(corpus["vocab"])
+    jcfg = tiny_config(input_dim=80, n_mels=20, fbank_impl="pallas", attn_impl="fused",
+                       max_target_len=EVAL_MAX_LEN)
+    jm, params, tm = model_pair(jcfg, vocab_size=vocab.vocab_size, seed=5)
+    loader = BucketedLoader(
+        corpus["dev"], vocab, batch_size=4, max_target_len=EVAL_MAX_LEN, shuffle=False,
+        use_native_io=False, wire_dtype="int16", drop_last=False,
+    )
+    jfeat = jax_feature_config_from(jcfg)
+    batches = []
+    for batch in loader.epoch(0):
+        feats, fl = jax_parse_batch(jnp.asarray(batch.wave), jnp.asarray(batch.wave_lengths),
+                                    jfeat)
+        enc, enc_len = jm.apply(params, feats, fl, method="encode")
+        batches.append((batch.texts, enc, enc_len))
+    return str(root), jcfg, jm, params, tm, vocab, loader, batches
+
+
+def _jax_hyp_ids(mode, jm, params, enc, enc_len):
+    if mode == "ctc_greedy":
+        return jax_greedy.ctc_greedy_decode(
+            jm.apply(params, enc, method="ctc_log_probs"), enc_len)
+    if mode == "attention_greedy":
+        tokens, _ = jax_greedy.attention_greedy_decode(jm, params, enc, enc_len, EVAL_MAX_LEN)
+        return jax_greedy.tokens_to_ids(tokens)
+    fn = jax_beam_search if mode == "beam" else jax_joint_beam_search
+    res = fn(jm, params, enc, enc_len, EVAL_BEAM, EVAL_MAX_LEN)
+    return [h[0] for h in res.nbest_ids(1)]
+
+
+@pytest.mark.parametrize("mode", ["ctc_greedy", "attention_greedy", "beam", "joint"])
+def test_evaluate_decoded_cer_matches_jax(eval_parts, mode):
+    root, jcfg, jm, params, tm, vocab, loader, batches = eval_parts
+    cfg = default_train_config().combine(Config(**jcfg.to_dict())).build(
+        batch_size=4, eval_decode=mode, eval_beam_size=EVAL_BEAM, device="cpu",
+        exp_root=os.path.join(root, "exp"), exp_name=mode, n_mels=20, fbank_impl="pallas",
+        log_every_iter=1, eval_every_iter=0, save_every_iter=0, lr_schedule="constant",
+        lr=1e-3,
+    )
+    optimizer = make_optimizer(tm.parameters(), cfg, cfg.d_model)
+    trainer = Trainer(tm, optimizer, cfg, feature_config_from(cfg), vocab,
+                      train_loader=loader, dev_loader=loader)
+    trainer.state = trainer.init_fn()
+    trainer.evaluate(loader, "dev/")
+    row = _scalars(trainer.exp_dir)[-1]
+
+    cers, counts = [], []
+    for texts, enc, enc_len in batches:
+        ids = _jax_hyp_ids(mode, jm, params, enc, enc_len)
+        cers.append(jax_corpus_cer(["".join(vocab.ids_to_tokens(h)) for h in ids], texts))
+        counts.append(len(texts))
+    want = float(np.dot(cers, counts) / np.sum(counts))
+    assert row["dev/decoded_cer"] == pytest.approx(want, rel=1e-6, abs=1e-9)
+    assert "dev/cer" in row and len(batches) >= 2
+
+
+def test_unknown_eval_decode_raises(eval_parts):
+    root, jcfg, _, _, tm, vocab, loader, _ = eval_parts
+    cfg = default_train_config().combine(Config(**jcfg.to_dict())).build(
+        eval_decode="rescore", exp_root=os.path.join(root, "exp"), exp_name="bad",
+        lr_schedule="constant", lr=1e-3)
+    with pytest.raises(ValueError, match="eval_decode"):
+        Trainer(tm, make_optimizer(tm.parameters(), cfg, cfg.d_model), cfg,
+                feature_config_from(cfg), vocab, train_loader=loader)
