@@ -1,6 +1,6 @@
 """String-keyed model registry (``asr_chinese_e2e_tpu/core/registry.py``):
 each name maps to (model class, default config function). The transformer
-names resolve to ``SpeechTransformer``; the RNN family and the example
+names and ``Conformer`` resolve to ``SpeechTransformer``; the RNN family and the example
 model are not ported yet, and asking for them raises naming the ROADMAP
 item.
 """
@@ -45,7 +45,8 @@ def _populate() -> None:
         lambda: default().build(d_model=256, num_heads=4, d_ff=256, attention_band=50),
     )
     register("TransformerNew2", st, default)
-    # the conformer encoder itself is not ported yet: the model raises
+    # conv-augmented encoder blocks (Gulati et al. 2020) over the same
+    # decoder, CTC head and decoding modes
     register(
         "Conformer", st,
         lambda: default().build(encoder_type="conformer", norm_type="pre"),

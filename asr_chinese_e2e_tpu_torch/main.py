@@ -63,7 +63,9 @@ def train(**cli_kwargs) -> Trainer:
     model_cls, model_default = get_model(model_name)
     cfg = resolve_config(base, model_default(), cli_kwargs)
     feat_cfg = feature_config_from(cfg)
-    if "input_dim" not in cli_kwargs and cfg.get("frontend", "linear") == "linear":
+    if "input_dim" not in cli_kwargs or cfg.get("frontend", "linear") == "conv2d":
+        # the conv2d frontend's projection width follows the features
+        # whatever input_dim says (flax infers it from the data)
         cfg.build(input_dim=feat_cfg.feature_dim)
 
     vocab = Vocab.load(cfg.vocab_path)

@@ -11,7 +11,10 @@ Layouts:
 - ``Dense`` kernels (in, out) -> weight (out, in);
 - the tied ``Embed`` table (V, D) -> ``decoder.embed.weight``;
 - LayerNorm scale/bias -> weight/bias (the port's LayerNorms use flax's
-  epsilon, 1e-6).
+  epsilon, 1e-6);
+- the conformer's depthwise ``Conv`` kernel (k, 1, D) -> ``nn.Conv1d``
+  weight (D, 1, k); the conv2d frontend's HWIO kernels (3, 3, in, out) ->
+  OIHW (out, in, 3, 3).
 
 No jax import: the card's machine can convert arrays saved anywhere.
 """
@@ -36,6 +39,27 @@ def _norm(p, out: dict, name: str) -> None:
     out[f"{name}.bias"] = _t(p["bias"])
 
 
+def _conv(p, out: dict, name: str) -> None:
+    # flax (*spatial, in, out) -> torch (out, in, *spatial)
+    kern = np.asarray(p["kernel"])
+    out[f"{name}.weight"] = _t(np.moveaxis(kern, (-1, -2), (0, 1)))
+    out[f"{name}.bias"] = _t(p["bias"])
+
+
+def _conformer_block(lp, out: dict, name: str) -> None:
+    _mha(lp["attn"], out, f"{name}.attn")
+    for ffn in ("ffn1", "ffn2"):
+        _dense(lp[ffn]["w1"], out, f"{name}.{ffn}.w1")
+        _dense(lp[ffn]["w2"], out, f"{name}.{ffn}.w2")
+    conv = lp["conv"]
+    _dense(conv["pw1"], out, f"{name}.conv.pw1")
+    _conv(conv["dw"], out, f"{name}.conv.dw")
+    _norm(conv["norm"], out, f"{name}.conv.norm")
+    _dense(conv["pw2"], out, f"{name}.conv.pw2")
+    for ln in ("ln_ffn1", "ln_attn", "ln_conv", "ln_ffn2", "ln_final"):
+        _norm(lp[ln], out, f"{name}.{ln}")
+
+
 def _mha(p, out: dict, name: str) -> None:
     for src, dst in (("q", "q_proj"), ("k", "k_proj"), ("v", "v_proj")):
         kern = np.asarray(p[src]["kernel"])  # (D, H, dk)
@@ -53,10 +77,20 @@ def torch_state_from_flax(params, cfg, vocab_size: int) -> dict:
         params = params["params"]
     out: dict = {}
     enc, dec = params["encoder"], params["decoder"]
-    _dense(enc["input_proj"], out, "encoder.input_proj")
-    _norm(enc["input_norm"], out, "encoder.input_norm")
+    if "frontend_mod" in enc:  # conv2d frontend
+        front = enc["frontend_mod"]
+        _conv(front["conv0"], out, "encoder.frontend_mod.conv0")
+        _conv(front["conv1"], out, "encoder.frontend_mod.conv1")
+        _dense(front["proj"], out, "encoder.frontend_mod.proj")
+    else:
+        _dense(enc["input_proj"], out, "encoder.input_proj")
+        _norm(enc["input_norm"], out, "encoder.input_norm")
+    conformer = cfg.get("encoder_type", "transformer") == "conformer"
     for i in range(cfg.num_encoder_layers):
         lp, name = enc[f"layer{i}"], f"encoder.layers.{i}"
+        if conformer:
+            _conformer_block(lp, out, name)
+            continue
         _mha(lp["attn"], out, f"{name}.attn")
         _dense(lp["ffn"]["w1"], out, f"{name}.ffn.w1")
         _dense(lp["ffn"]["w2"], out, f"{name}.ffn.w2")

@@ -1,13 +1,16 @@
 """Shared torch layers: dropout, sinusoidal PE, multi-head attention with an
 explicit KV cache for decoding, position-wise FFN, residual + LayerNorm
-sublayer.
+sublayer, the conformer's convolution module and the conv2d subsampling
+frontend.
 
-Counterparts of ``asr_chinese_e2e_tpu/models/layers.py``; ``ConvModule``
-and ``ConvSubsampler`` are not ported yet (ROADMAP §1, item 4).
+Counterparts of ``asr_chinese_e2e_tpu/models/layers.py``. The convolutions
+are PyTorch calls (``F.conv1d`` depthwise, ``F.conv2d``), as the JAX
+package computes them in XLA (``nn.Conv``), not in a Pallas kernel.
 
 Precision follows flax's ``dtype`` / ``param_dtype`` split: parameters
 stay float32 (the optimizer's master weights) and each layer casts them
-to its compute dtype where it uses them (``Dense``, ``Embedding``);
+to its compute dtype where it uses them (``Dense``, ``Embedding``, the
+convolutions);
 LayerNorm statistics are f32 and its output is in the compute dtype.
 Attention logits and softmax are f32 whatever the compute dtype. A model
 moved to bf16 with ``.to(dtype=...)`` (the serving path) computes the
@@ -381,3 +384,101 @@ class SubLayer(nn.Module):
             y, aux = fn(x)
             return norm(a * x + y), aux
         return norm(a * x + fn(x))
+
+
+def _cast(t: torch.Tensor, dtype) -> torch.Tensor:
+    return t if t.dtype == dtype else t.to(dtype)
+
+
+def _ceil_div(n: int, d: int) -> int:
+    return -(-n // d)
+
+
+def same_padding(n: int, kernel: int, stride: int) -> tuple:
+    """flax / XLA ``"SAME"`` padding (lo, hi) of one axis of length ``n``:
+    the output has ceil(n / stride) rows and the odd pad goes on the right
+    (stride 2, kernel 3: (0, 1) for even n, (1, 1) for odd n)."""
+    out = _ceil_div(n, stride)
+    total = max((out - 1) * stride + kernel - n, 0)
+    return total // 2, total - total // 2
+
+
+class ConvModule(nn.Module):
+    """Conformer convolution module: pointwise (d -> 2d) + GLU -> frame
+    mask -> depthwise conv of width k -> LayerNorm -> swish -> pointwise
+    (d -> d) -> dropout.
+
+    Padded frames are zeroed in GLU space, before the depthwise conv, so
+    no padding reaches a valid frame. ``causal`` pads the conv with k - 1
+    zeros on the left only (output t reads inputs t-k+1..t); otherwise the
+    padding is flax's ``"SAME"``: (k-1)//2 on the left, the rest on the
+    right."""
+
+    def __init__(
+        self, d_model: int, kernel_size: int = 15, dropout_rate: float = 0.0,
+        causal: bool = False, dropout_impl: str = "rng", dtype=torch.float32,
+    ):
+        super().__init__()
+        self.kernel_size, self.causal = kernel_size, causal
+        self.compute_dtype = dtype
+        self.pw1 = Dense(d_model, 2 * d_model, dtype)
+        self.dw = nn.Conv1d(d_model, d_model, kernel_size, groups=d_model)
+        self.norm = LayerNorm(d_model, dtype)
+        self.pw2 = Dense(d_model, d_model, dtype)
+        self.drop = ConfigurableDropout(dropout_rate, dropout_impl)
+
+    def forward(self, x, lengths=None, rng=None, frame_mask=None):
+        """x: (B, T, d). ``frame_mask`` (B, T), 1 on valid frames, is taken
+        from ``lengths`` when not given (the chunked encode passes its own)."""
+        dt = self.compute_dtype
+        if frame_mask is None and lengths is not None:
+            frame_mask = (
+                torch.arange(x.shape[1], device=x.device)[None, :]
+                < lengths.to(x.device)[:, None]
+            )
+        y = F.glu(self.pw1(x), dim=-1)
+        if frame_mask is not None:
+            y = y * frame_mask.to(y.dtype)[..., None]
+        k = self.kernel_size
+        pad = (k - 1, 0) if self.causal else ((k - 1) // 2, k - 1 - (k - 1) // 2)
+        y = F.conv1d(
+            F.pad(y.transpose(1, 2), pad), _cast(self.dw.weight, dt),
+            _cast(self.dw.bias, dt), groups=self.dw.groups,
+        ).transpose(1, 2)
+        y = self.pw2(F.silu(self.norm(y)))
+        return self.drop(y, rng)
+
+
+class ConvSubsampler(nn.Module):
+    """Conv2d frontend: two 3x3 stride-2 convolutions to d/8 channels, each
+    followed by ReLU, over the (T, F) feature image, then a projection of
+    the (f, c) features of each frame to d: 4x fewer frames. ``n_features``
+    is F, which fixes the projection's width ceil(ceil(F/2)/2) * d/8 (flax
+    infers it from the data)."""
+
+    def __init__(self, d_model: int, n_features: int, dtype=torch.float32):
+        super().__init__()
+        c = d_model // 8
+        self.compute_dtype = dtype
+        self.conv0 = nn.Conv2d(1, c, 3, stride=2)
+        self.conv1 = nn.Conv2d(c, c, 3, stride=2)
+        f = _ceil_div(_ceil_div(n_features, 2), 2)
+        self.proj = Dense(f * c, d_model, dtype)
+
+    def forward(self, x, lengths):
+        """x: (B, T, F) -> ((B, ceil(ceil(T/2)/2), d), lengths (l+1)//2
+        twice)."""
+        dt = self.compute_dtype
+        y = _cast(x, dt)[:, None]  # (B, 1, T, F)
+        for conv in (self.conv0, self.conv1):
+            t_lo, t_hi = same_padding(y.shape[2], 3, 2)
+            f_lo, f_hi = same_padding(y.shape[3], 3, 2)
+            y = F.pad(y, (f_lo, f_hi, t_lo, t_hi))
+            y = torch.relu(F.conv2d(y, _cast(conv.weight, dt), _cast(conv.bias, dt),
+                                    stride=2))
+        b, c, t, f = y.shape
+        # flax flattens (B, t, f, c): the channel varies fastest
+        y = self.proj(y.permute(0, 2, 3, 1).reshape(b, t, f * c))
+        for _ in range(2):
+            lengths = (lengths + 1) // 2
+        return y, lengths

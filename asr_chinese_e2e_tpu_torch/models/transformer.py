@@ -5,10 +5,12 @@ teacher-forced training forward (with dropout), encode, the exact chunked
 encode of the streaming (causal-banded) encoder, the uncached and
 KV-cached decoder, and the CTC head; the encoder's and the decoder's
 attention through the fused kernels (``attn_impl`` / ``decoder_attn_impl``
-= "fused") or plain products ("xla"). The conformer encoder, the conv2d
-frontend, ``remat`` and the flash / ring attention paths are not ported
-yet; asking for them raises ``NotImplementedError`` naming the ROADMAP
-item.
+= "fused") or plain products ("xla"). Both encoder families
+(``encoder_type`` "transformer" or "conformer"), both frontends
+(``frontend`` "linear" or "conv2d") and ``remat`` (per-layer activation
+recomputation, ``torch.utils.checkpoint``) are ported. The flash / ring
+attention paths are not ported yet; asking for them raises
+``NotImplementedError`` naming the ROADMAP item.
 
 Weights are created from an explicit ``torch.Generator`` (the JAX
 package draws them from a PRNG key), or converted from flax with
@@ -20,6 +22,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from ..core.config import Config
 from ..data.vocab import BOS_ID, EOS_ID, PAD_ID
@@ -33,6 +36,8 @@ from ..ops.masks import (
 )
 from .layers import (
     ConfigurableDropout,
+    ConvModule,
+    ConvSubsampler,
     Dense,
     Embedding,
     LayerNorm,
@@ -95,13 +100,6 @@ def check_supported(cfg) -> None:
          "attn_impl='flash' (ROADMAP §1, item 1: training, the flash path)"),
         (cfg.get("attn_impl", "xla") == "ring",
          "attn_impl='ring' (ROADMAP §1, item 7: parallelism)"),
-        (cfg.get("frontend", "linear") == "conv2d",
-         "frontend='conv2d' (ROADMAP §1, item 4: conformer and conv2d frontend)"),
-        (cfg.get("encoder_type", "transformer") == "conformer",
-         "encoder_type='conformer' (ROADMAP §1, item 4: conformer and conv2d "
-         "frontend)"),
-        (cfg.get("remat", False),
-         "remat (ROADMAP §1, item 1: training, remat)"),
     ]
     for bad, what in unsupported:
         if bad:
@@ -110,6 +108,14 @@ def check_supported(cfg) -> None:
         raise ValueError(f"unknown attn_impl {cfg.attn_impl!r}")
     if cfg.get("decoder_attn_impl", "xla") not in ("xla", "fused"):
         raise ValueError(f"unknown decoder_attn_impl {cfg.decoder_attn_impl!r}")
+    if cfg.get("encoder_type", "transformer") not in ("transformer", "conformer"):
+        raise ValueError(f"unknown encoder_type {cfg.encoder_type!r}")
+    if cfg.get("frontend", "linear") not in ("linear", "conv2d"):
+        raise ValueError(f"unknown frontend {cfg.frontend!r}")
+
+
+def is_conformer(cfg) -> bool:
+    return cfg.get("encoder_type", "transformer") == "conformer"
 
 
 def compute_dtype_of(cfg) -> torch.dtype:
@@ -129,6 +135,33 @@ def _ffn(cfg) -> PositionwiseFFN:
         cfg.d_model, cfg.d_ff, cfg.dropout_rate,
         dropout_impl=cfg.get("dropout_impl", "rng"), dtype=compute_dtype_of(cfg),
     )
+
+
+def run_layer(layer, remat: bool, rng, *args):
+    """``layer(*args, rng)``; with ``remat`` (and a gradient to take) under
+    ``torch.utils.checkpoint``, which keeps only the layer's input and
+    recomputes its activations in the backward. The recomputation replays
+    the layer's dropout draws: the layer runs on a generator restored from
+    the state ``rng`` had before it (in the forward and in the recompute
+    alike), and ``rng`` is then left where the forward left it, so remat
+    on and off draw the same seeds."""
+    if not (remat and torch.is_grad_enabled()):
+        return layer(*args, rng)
+    if rng is None:
+        return checkpoint(layer, *args, None, use_reentrant=False)
+    start, end = rng.get_state(), []
+
+    def replay(*a):
+        gen = torch.Generator()
+        gen.set_state(start)
+        out = layer(*a, gen)
+        if not end:  # the forward, not the recompute
+            end.append(gen.get_state())
+        return out
+
+    out = checkpoint(replay, *args, use_reentrant=False)
+    rng.set_state(end[0])
+    return out
 
 
 def _encoder_self_attention(cfg, attn, x, bias, lengths, rng):
@@ -181,21 +214,87 @@ class EncoderLayer(nn.Module):
         return self.sub2.norm(a2 * x + self.ffn(x))
 
 
-def init_chunk_state(cfg, batch: int, device=None):
-    """Zero left-context carries for ``Encoder.encode_chunk``: one (B,
-    band, d) input tail per layer, in the compute dtype (zero rows are
-    never attended: ``encode_chunk`` masks keys with a negative global
-    index)."""
-    if cfg.get("encoder_type", "transformer") == "conformer":
-        raise NotImplementedError(
-            "streaming the conformer (its causal-conv carry) is not ported yet "
-            "(ROADMAP §1, item 4: conformer and conv2d frontend)"
+class ConformerBlock(nn.Module):
+    """Conformer block: half-step FFN, self-attention, convolution module,
+    half-step FFN, each pre-normed and residual, then a final LayerNorm
+    (pre-LN whatever ``norm_type``, which still governs the decoder). The
+    depthwise conv is causal exactly when the encoder is
+    (``causal_encoder``), so it reads no future frame."""
+
+    def __init__(self, cfg: Config):
+        super().__init__()
+        self.cfg = cfg
+        dt = compute_dtype_of(cfg)
+        self.ffn1 = _ffn(cfg)
+        self.ffn2 = _ffn(cfg)
+        self.attn = _attention(cfg)
+        self.conv = ConvModule(
+            cfg.d_model, cfg.get("conv_kernel_size", 15), cfg.dropout_rate,
+            causal=cfg.get("causal_encoder", False),
+            dropout_impl=cfg.get("dropout_impl", "rng"), dtype=dt,
         )
-    shape = (batch, cfg.attention_band, cfg.d_model)
-    return [
-        torch.zeros(shape, dtype=compute_dtype_of(cfg), device=device)
-        for _ in range(cfg.num_encoder_layers)
-    ]
+        self.ln_ffn1 = LayerNorm(cfg.d_model, dt)
+        self.ln_attn = LayerNorm(cfg.d_model, dt)
+        self.ln_conv = LayerNorm(cfg.d_model, dt)
+        self.ln_ffn2 = LayerNorm(cfg.d_model, dt)
+        self.ln_final = LayerNorm(cfg.d_model, dt)
+
+    def forward(self, x, bias, lengths=None, rng=None):
+        # dropout draws in the JAX block's order: ffn1, attn, conv, ffn2
+        x = x + 0.5 * self.ffn1(self.ln_ffn1(x), rng)
+        x = x + _encoder_self_attention(
+            self.cfg, self.attn, self.ln_attn(x), bias, lengths, rng
+        )
+        x = x + self.conv(self.ln_conv(x), lengths, rng)
+        x = x + 0.5 * self.ffn2(self.ln_ffn2(x), rng)
+        return self.ln_final(x)
+
+    def chunk_step(self, x, tail, conv_carry, bias, carry_mask):
+        """Incremental encode step of the streaming conformer. ``tail`` (B,
+        w, D): the block inputs of the previous w frames (their half-step
+        FFN is recomputed: it is pointwise); ``conv_carry`` (B, k-1, D):
+        the conv module's inputs (residual stream after attention) of the
+        previous k-1 frames; ``carry_mask`` (1, k-1): 1 where a carry row's
+        global frame index is >= 0. The zero carry is zero in residual
+        space, not in GLU space, so those rows are masked after pw1/GLU,
+        where the offline conv reads its zero padding. Returns (out (B, F,
+        D), new conv carry)."""
+        kc = conv_carry.shape[1]
+        tail1 = tail + 0.5 * self.ffn1(self.ln_ffn1(tail))
+        x1 = x + 0.5 * self.ffn1(self.ln_ffn1(x))
+        qn = self.ln_attn(x1)
+        kv = torch.cat([self.ln_attn(tail1), qn], dim=1)
+        x2 = x1 + self.attn(qn, kv, bias)
+        conv_in = torch.cat([conv_carry, x2], dim=1)
+        b, f = x.shape[:2]
+        fmask = torch.cat(
+            [carry_mask.expand(b, kc), carry_mask.new_ones((b, f))], dim=1
+        )
+        y = self.conv(self.ln_conv(conv_in), frame_mask=fmask)
+        x3 = x2 + y[:, kc:]
+        x4 = x3 + 0.5 * self.ffn2(self.ln_ffn2(x3))
+        return self.ln_final(x4), conv_in[:, -kc:]
+
+
+def init_chunk_state(cfg, batch: int, device=None):
+    """Zero left-context carries for ``Encoder.encode_chunk``, in the
+    compute dtype on ``device``, one per layer: a (B, band, d) input tail
+    (zero rows are never attended: ``encode_chunk`` masks keys with a
+    negative global index); for the conformer a dict of that ``"tail"``
+    and a (B, k-1, d) causal-conv input carry ``"conv"`` (its zero rows
+    are masked after GLU, see ``ConformerBlock.chunk_step``)."""
+    dt = compute_dtype_of(cfg)
+
+    def zeros(rows):
+        return torch.zeros((batch, rows, cfg.d_model), dtype=dt, device=device)
+
+    if is_conformer(cfg):
+        kc = cfg.get("conv_kernel_size", 15) - 1
+        return [
+            {"tail": zeros(cfg.attention_band), "conv": zeros(kc)}
+            for _ in range(cfg.num_encoder_layers)
+        ]
+    return [zeros(cfg.attention_band) for _ in range(cfg.num_encoder_layers)]
 
 
 class Encoder(nn.Module):
@@ -203,19 +302,36 @@ class Encoder(nn.Module):
         super().__init__()
         self.cfg = cfg
         dt = compute_dtype_of(cfg)
-        self.input_proj = Dense(cfg.input_dim, cfg.d_model, dt)
-        self.input_norm = LayerNorm(cfg.d_model, dt)
+        if cfg.get("frontend", "linear") == "conv2d":
+            # input_dim is the feature width F here (see main.train)
+            self.frontend_mod = ConvSubsampler(cfg.d_model, cfg.input_dim, dt)
+        else:
+            self.input_proj = Dense(cfg.input_dim, cfg.d_model, dt)
+            self.input_norm = LayerNorm(cfg.d_model, dt)
         self.pe = PositionalEncoding(cfg.d_model)
         self.dropout = ConfigurableDropout(cfg.dropout_rate, cfg.get("dropout_impl", "rng"))
-        self.layers = nn.ModuleList(
-            EncoderLayer(cfg) for _ in range(cfg.num_encoder_layers)
+        layer_cls = ConformerBlock if is_conformer(cfg) else EncoderLayer
+        self.layers = nn.ModuleList(layer_cls(cfg) for _ in range(cfg.num_encoder_layers))
+        # a conformer block ends in its own LayerNorm: the extra pre-LN
+        # output norm is the transformer stack's only
+        self.final_norm = (
+            LayerNorm(cfg.d_model, dt)
+            if cfg.norm_type == "pre" and not is_conformer(cfg) else None
         )
-        self.final_norm = LayerNorm(cfg.d_model, dt) if cfg.norm_type == "pre" else None
+
+    def _frontend(self, feats, feat_lengths):
+        """(B, T, F) features -> ((B, T', d), frame lengths): the linear
+        frontend keeps T, the conv2d one subsamples it 4x."""
+        if self.cfg.get("frontend", "linear") == "conv2d":
+            return self.frontend_mod(feats, feat_lengths)
+        return self.input_norm(self.input_proj(feats)), feat_lengths
 
     def forward(self, feats, feat_lengths, rng=None):
+        """Returns (enc_out (B, T', d), its lengths): T' and the lengths
+        are the frontend's (subsampled by the conv2d frontend)."""
         c = self.cfg
-        x = self.pe(self.input_norm(self.input_proj(feats)))
-        x = self.dropout(x, rng)
+        x, feat_lengths = self._frontend(feats, feat_lengths)
+        x = self.dropout(self.pe(x), rng)
         t, dev = x.shape[1], x.device
         bias = padding_bias(feat_lengths, t)
         band = c.get("attention_band", 0)
@@ -225,8 +341,9 @@ class Encoder(nn.Module):
             )
         elif band:
             bias = bias + banded_bias(t, band, dev)
+        remat = c.get("remat", False)
         for layer in self.layers:
-            x = layer(x, bias, feat_lengths, rng)
+            x = run_layer(layer, remat, rng, x, bias, feat_lengths)
         if self.final_norm is not None:
             x = self.final_norm(x)
         return x, feat_lengths
@@ -234,20 +351,23 @@ class Encoder(nn.Module):
     # -- streaming: exact chunked incremental encoding ----------------------
     def init_chunk_tails(self, batch: int):
         """Zero left-context carries (see ``init_chunk_state``)."""
-        return init_chunk_state(self.cfg, batch, self.input_proj.weight.device)
+        return init_chunk_state(self.cfg, batch, next(self.parameters()).device)
 
     def encode_chunk(self, feats_chunk, tails, offset: int):
-        """Encode F new frames given per-layer (B, w, d) input tails: the
-        exact chunked evaluation of the causal-banded encoder (the outputs
-        concatenated over chunks equal one full-sequence pass). Needs
-        ``causal_encoder=True`` and ``attention_band`` w > 0. feats_chunk:
-        (B, F, input_dim); offset: global frame index of the chunk's first
-        frame. Returns (enc_chunk (B, F, d), new_tails). All F frames are
-        treated as real; causality keeps a padded final chunk's padding out
-        of its valid rows."""
+        """Encode F new frames given per-layer left-context carries (see
+        ``init_chunk_state``): the exact chunked evaluation of the
+        causal-banded encoder (the outputs concatenated over chunks equal
+        one full-sequence pass). Needs ``causal_encoder=True``,
+        ``attention_band`` w > 0 and the linear frontend; both encoder
+        families stream. feats_chunk: (B, F, input_dim); offset: global
+        frame index of the chunk's first frame. Returns (enc_chunk (B, F,
+        d), new_tails). All F frames are treated as real; causality keeps a
+        padded final chunk's padding out of its valid rows."""
         c = self.cfg
         if not (c.get("causal_encoder", False) and c.get("attention_band", 0)):
             raise ValueError("encode_chunk requires causal_encoder=True and attention_band>0")
+        if c.get("frontend", "linear") != "linear":
+            raise ValueError("encode_chunk requires the linear frontend")
         w = c.attention_band
         x = self.pe(self.input_norm(self.input_proj(feats_chunk)), offset)
         f, dev = x.shape[1], x.device
@@ -260,6 +380,16 @@ class Encoder(nn.Module):
         zero = torch.zeros((), dtype=torch.float32, device=dev)
         bias = torch.where(allow, zero, NEG_INF)[None, None]
         new_tails = []
+        if is_conformer(c):
+            kc = c.get("conv_kernel_size", 15) - 1
+            # conv-carry row r holds global frame offset-kc+r; a negative
+            # index stands in for the conv's zero left padding
+            carry_mask = ((offset - kc + torch.arange(kc, device=dev)) >= 0).to(x.dtype)[None]
+            for layer, st in zip(self.layers, tails):
+                new_tail = torch.cat([st["tail"], x], dim=1)[:, -w:]
+                x, new_conv = layer.chunk_step(x, st["tail"], st["conv"], bias, carry_mask)
+                new_tails.append({"tail": new_tail, "conv": new_conv})
+            return x, new_tails
         for layer, tail in zip(self.layers, tails):
             new_tails.append(torch.cat([tail, x], dim=1)[:, -w:])
             x = layer.chunk_step(x, tail, bias)
@@ -356,9 +486,11 @@ class Decoder(nn.Module):
         x = self.dropout(self.pe(self._embed_scaled(ys_in)), rng)
         self_bias = causal_padding_bias(ys_in_lengths, t)
         cross_bias = padding_bias(enc_lengths, enc_out.shape[1])
+        remat = self.cfg.get("remat", False)
         for layer in self.layers:
-            x = layer(
-                x, enc_out, self_bias, cross_bias, ys_in_lengths, enc_lengths, rng
+            x = run_layer(
+                layer, remat, rng, x, enc_out, self_bias, cross_bias, ys_in_lengths,
+                enc_lengths,
             )
         if self.final_norm is not None:
             x = self.final_norm(x)
@@ -534,9 +666,14 @@ def init_weights(model: SpeechTransformer, generator: torch.Generator) -> None:
     """Initialise every parameter from ``generator``, following the JAX
     package's initialisers: lecun-normal Dense kernels and zero biases;
     xavier-normal times DeepNorm's beta on the value/output projections
-    and the FFNs when ``deepnorm`` is on; normal(1/sqrt(d)) embeddings;
-    unit LayerNorm scales."""
+    and the FFNs when ``deepnorm`` is on (not in a conformer block, whose
+    JAX counterpart takes no DeepNorm init); lecun-normal convolution
+    kernels (fan-in: the kernel's taps times its input channels per
+    group) and zero biases; normal(1/sqrt(d)) embeddings; unit LayerNorm
+    scales."""
     (_, enc_beta), (_, dec_beta) = deepnorm_coeffs(model.cfg)
+    if is_conformer(model.cfg):
+        enc_beta = 1.0
 
     def normal_(p, std):
         p.copy_(torch.randn(p.shape, generator=generator) * std)
@@ -556,6 +693,12 @@ def init_weights(model: SpeechTransformer, generator: torch.Generator) -> None:
         if isinstance(mod, nn.LayerNorm):
             mod.weight.fill_(1.0)
             mod.bias.zero_()
+        elif isinstance(mod, (nn.Conv1d, nn.Conv2d)):
+            normal_(mod.weight, 1.0 / np.sqrt(mod.weight[0].numel()))
+            mod.bias.zero_()
+        elif isinstance(mod, ConvModule):
+            lecun_(mod.pw1)
+            lecun_(mod.pw2)
     for stack, beta in ((model.encoder, enc_beta), (model.decoder, dec_beta)):
         for mha in (m for m in stack.modules() if isinstance(m, MultiHeadAttention)):
             lecun_(mha.q_proj)
@@ -565,7 +708,10 @@ def init_weights(model: SpeechTransformer, generator: torch.Generator) -> None:
         for ffn in (m for m in stack.modules() if isinstance(m, PositionwiseFFN)):
             xavier_(ffn.w1, beta)
             xavier_(ffn.w2, beta)
-    lecun_(model.encoder.input_proj)
+    if hasattr(model.encoder, "frontend_mod"):
+        lecun_(model.encoder.frontend_mod.proj)
+    else:
+        lecun_(model.encoder.input_proj)
     normal_(model.decoder.embed.weight, 1.0 / np.sqrt(model.cfg.d_model))
     if model.ctc_head is not None:
         lecun_(model.ctc_head)

@@ -164,8 +164,9 @@ class StreamingRecognizer:
 
     ``incremental``: "on" encodes only new frames per cadence (needs
     ``causal_encoder=True``, ``attention_band`` > 0, a linear frontend, a
-    CTC head, ``cmvn_mode='fixed'`` and no delta features; the conformer's
-    conv carry is not ported), "off" re-encodes the padded prefix, "auto"
+    CTC head, ``cmvn_mode='fixed'`` and no delta features; both encoder
+    families: the conformer carries its causal conv's input too), "off"
+    re-encodes the padded prefix, "auto"
     picks "on" when the model allows it. Partials are CTC greedy; finals
     use ``mode``: "ctc_greedy", "beam" or "joint" (the joint CTC/attention
     beam at ``ctc_weight``)."""
@@ -206,7 +207,9 @@ class StreamingRecognizer:
             cfg.get("causal_encoder", False)
             and cfg.get("attention_band", 0) > 0
             and cfg.get("frontend", "linear") == "linear"
-            and cfg.get("encoder_type", "transformer") == "transformer"
+            # both encoder families stream: the conformer carries its
+            # causal depthwise conv's input (ConformerBlock.chunk_step)
+            and cfg.get("encoder_type", "transformer") in ("transformer", "conformer")
             and cfg.get("ctc_weight", 0.0) > 0.0
             and feat_cfg.cmvn_mode == "fixed"
             and not feat_cfg.use_delta
@@ -215,8 +218,8 @@ class StreamingRecognizer:
         if incremental == "on" and not can_inc:
             raise ValueError(
                 "incremental streaming requires causal_encoder=True, "
-                "attention_band>0, a CTC head, a linear-frontend transformer "
-                "encoder, cmvn_mode='fixed' and no delta features"
+                "attention_band>0, a CTC head, a linear-frontend transformer or "
+                "conformer encoder, cmvn_mode='fixed' and no delta features"
             )
         self.incremental = can_inc if incremental == "auto" else incremental == "on"
         self._chunk_index = None

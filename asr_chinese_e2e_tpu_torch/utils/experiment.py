@@ -100,6 +100,10 @@ def load_experiment(
         raise ValueError(
             f"vocab fingerprint mismatch: checkpoint {fp} vs {vocab.fingerprint()}"
         )
+    if cfg.get("frontend", "linear") == "conv2d":
+        # a JAX experiment keeps input_dim's default under conv2d: its
+        # projection width follows the features (see main.train)
+        cfg.build(input_dim=feature_config_from(cfg).feature_dim)
     model = SpeechTransformer(cfg, vocab.vocab_size)
     model.load_state_dict(blob["state_dict"])
     model = model.to(device=device, dtype=model.compute_dtype).eval()

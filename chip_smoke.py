@@ -5,13 +5,15 @@ serving path (``asr_chinese_e2e_tpu_torch.recognize``, every mode) and the
 training path (``asr_chinese_e2e_tpu_torch.main.train``) on the flagship
 configuration with random weights, then trains and serves the streaming
 model family (causal-banded encoder) through ``main.train`` and
-``asr_chinese_e2e_tpu_torch.stream``, and checks that every path went
-through its kernels. Run from the repository root:
+``asr_chinese_e2e_tpu_torch.stream``, then the conformer family (trained,
+served, streamed), and checks that every path went through its kernels.
+Run from the repository root:
 
     python3 chip_smoke.py
 
-Phases (any failure raises, so the exit code is non-zero; phases 3-14, 8b
-and 9b each print the seconds they took; 8b runs after 8, 9b after 9):
+Phases (any failure raises, so the exit code is non-zero; phases 3-14, 8b,
+9b and 14b each print the seconds they took; 8b runs after 8, 9b after 9,
+14b after 14):
 
 1. require CUDA; print the card (``nvidia-smi``); TF32 off;
 2. build the kernels (``ops/_build.py``, one nvcc per source in parallel)
@@ -159,9 +161,36 @@ and 9b each print the seconds they took; 8b runs after 8, 9b after 9):
     and one with ``=0`` (K1/K2), the order swapped from pair to pair: ms
     per step of every segment, each route's median and audio-s/s, and in
     how many pairs the window won;
+14b. the conformer family (the registry's ``Conformer``: conformer blocks
+    with depthwise conv 15, pre-LN, flagship widths): ``main.train
+    --model_name Conformer`` with the flagship recipe on phase 9's corpus,
+    1 epoch, losses finite, per step K5 1, K1 6, K2 6, K3 1, K4 1 (per dev
+    batch K5 1, K1 6, K3 1); the best checkpoint through ``recognize`` in
+    ``beam`` and ``joint`` on the 16 dev utterances (per batch K5 1, K1 6;
+    K8 once per joint decode step; a finite hypothesis for every
+    utterance); a conv2d-frontend conformer: one train step and one beam
+    decode of 8 x 8 s, K1 on ceil(ceil(T/2)/2) query rows; one step
+    with ``remat`` off and on from the same weights (hash dropout 0.1: loss
+    and gradient norm within 1e-5 relative, K1 12 launches with remat: the
+    forward and the recompute); one f32
+    conformer step on the card vs the CPU's plain path (loss and gradient
+    norm within 1e-3 relative, as phase 10); the pad-leak check: the same
+    dev utterances' features and their copy padded by 50 frames of noise
+    (std 30) give the same valid encoder rows (bf16 within 2e-2, f32 within
+    1e-4; bit-identity printed); the streaming conformer
+    (``artifacts/r5_streaming/config.json``'s recipe with conformer blocks)
+    through ``main.train`` with ``ASR_BANDED_WINDOW=1``, 1 epoch, per step
+    K5 1, K6 6, K7 6, K3 1, K4 1 and no K1/K2, then served in f32 on 2 of
+    phase 12's streams in both encode modes with ``ctc_greedy`` and
+    ``beam`` finals (incremental finals equal to the prefix re-encode's,
+    incremental encoder output within 1e-3 of the offline encode); 10 timed
+    steps of the conformer recipe on phase 13's batch: ms per step,
+    audio-s/s, MFU (the conformer's FLOPs: its second FFN, the conv
+    module's pointwise and depthwise convolutions);
 15. print the kernels' JSON line (per kernel: route, source, the TPU
-    kernel it replaces, launches on the main paths and per flagship
-    train step, streaming train step, beam and joint serving batch (K8
+    kernel it replaces, launches on the main paths (the conformer's
+    included) and per flagship train step, streaming train step, conformer
+    train step, beam and joint serving batch (K8
     also per joint decode step), and at the
     training shape ``shape``, ``max_abs_err``, ``ms``, ``plain_ms``,
     ``bound_ms``, ``bound_by``, ``library_ms``, ``device_ms`` (20 launches
@@ -206,6 +235,7 @@ from asr_chinese_e2e_tpu_torch.decode.ctc_prefix_device import (  # noqa: E402
     ctc_prefix_beam_device,
 )
 from asr_chinese_e2e_tpu_torch.main import train as main_train  # noqa: E402
+from asr_chinese_e2e_tpu_torch.models import layers as layers_mod  # noqa: E402
 from asr_chinese_e2e_tpu_torch.models.transformer import (  # noqa: E402
     SpeechTransformer,
     default_config,
@@ -1741,6 +1771,20 @@ def training_kwargs(corpus, exp_root, **extra) -> dict:
     return kw
 
 
+def train_launches(steps: int, n_eval: int, window: bool = False) -> dict:
+    """The launches a ``main.train`` run must make: per train step K5 1,
+    six attention forwards and backwards (K1/K2, or K6/K7 on the window),
+    K3 1, K4 1; per dev batch K5 1, six forwards and K3 1."""
+    fwd, bwd = (("banded_attention_fwd", "banded_attention_bwd") if window
+                else ("fused_attention_fwd", "fused_attention_bwd"))
+    want = {k: 0 for k in COUNTERS}
+    want.update({
+        "fbank": steps + n_eval, fwd: 6 * (steps + n_eval), bwd: 6 * steps,
+        "ctc_alpha": steps + n_eval, "ctc_beta": steps,
+    })
+    return want
+
+
 def _logged_losses(exp_dir):
     with open(os.path.join(exp_dir, "scalars.jsonl")) as f:
         rows = [json.loads(line) for line in f]
@@ -1765,12 +1809,7 @@ def run_training_path(dev):
     print(f"train: {steps} steps in 2 epochs, {n_eval} dev batches, wall {wall:.3f} s "
           f"(incl. model build, evals, checkpoints); launches {counts}")
     require(steps == 4, f"train ran {steps} steps, want 4 (2 epochs x 2 batches)")
-    want = {k: 0 for k in COUNTERS}
-    want.update({
-        "fbank": steps + n_eval, "fused_attention_fwd": 6 * (steps + n_eval),
-        "fused_attention_bwd": 6 * steps, "ctc_alpha": steps + n_eval,
-        "ctc_beta": steps,
-    })
+    want = train_launches(steps, n_eval)
     require(counts == want, f"training launches {counts} != {want}")
     rows = _logged_losses(trainer.exp_dir)
     require(len(rows) == steps, f"{len(rows)} logged train rows")
@@ -1828,8 +1867,11 @@ def _one_step(cfg, tcfg, feat, batch, device):
     return float(m["loss"]), float(m["grad_norm"])
 
 
-def check_step_against_cpu(corpus, dev) -> None:
-    cfg, tcfg, feat = _recipe("float32", dropout_rate=0.0)
+def check_step_against_cpu(corpus, dev, label="flagship", **overrides) -> None:
+    """One f32 step of the recipe (``overrides``: model config) on the card
+    and on the CPU's plain path: loss and gradient norm within 1e-3
+    relative."""
+    cfg, tcfg, feat = _recipe("float32", dropout_rate=0.0, **overrides)
     tcfg.build(spec_augment=False)
     recs = read_manifest(corpus["train"])[:2]
     waves = [load_wav(r["wave"], dtype=np.int16) for r in recs]
@@ -1848,9 +1890,9 @@ def check_step_against_cpu(corpus, dev) -> None:
     cpu = _one_step(cfg, tcfg, feat, batch, torch.device("cpu"))
     card = _one_step(cfg, tcfg, feat, batch, dev)
     rel = [abs(a - b) / abs(b) for a, b in zip(card, cpu)]
-    print(f"f32 step, card vs cpu: loss {card[0]:.6f} vs {cpu[0]:.6f} (rel {rel[0]:.2e}), "
-          f"grad_norm {card[1]:.6f} vs {cpu[1]:.6f} (rel {rel[1]:.2e})")
-    require(max(rel) <= 1e-3, "f32 train step on the card disagrees with the CPU")
+    print(f"{label} f32 step, card vs cpu: loss {card[0]:.6f} vs {cpu[0]:.6f} (rel "
+          f"{rel[0]:.2e}), grad_norm {card[1]:.6f} vs {cpu[1]:.6f} (rel {rel[1]:.2e})")
+    require(max(rel) <= 1e-3, f"{label} f32 train step on the card disagrees with the CPU")
 
 
 # -- phase 11: streaming training ----------------------------------------------
@@ -1867,16 +1909,19 @@ STREAMING_RECIPE = dict(
 )
 
 
-def run_streaming_training(corpus) -> tuple[dict, str]:
-    """``main.train`` with the streaming recipe through K6/K7; returns the
-    launch counts and the experiment directory."""
+def run_streaming_training(corpus, num_epoch=2, exp_name="streaming",
+                           **overrides) -> tuple[dict, str]:
+    """``main.train`` with the streaming recipe (``overrides``: its model
+    config) through K6/K7; returns the launch counts and the experiment
+    directory."""
     exp_root = os.path.join(WORK, "stream_exp")
-    shutil.rmtree(exp_root, ignore_errors=True)
+    shutil.rmtree(os.path.join(exp_root, exp_name), ignore_errors=True)
     kw = dict(
         STREAMING_RECIPE, vocab_path=corpus["vocab"], train_manifest=corpus["train"],
-        dev_manifest=corpus["dev"], test_manifest=None, batch_size=64, num_epoch=2,
-        log_every_iter=1, eval_every_iter=0, save_every_iter=0, device="cuda",
-        use_native_io=False, exp_root=exp_root, exp_name="streaming", seed=0,
+        dev_manifest=corpus["dev"], test_manifest=None, batch_size=64,
+        num_epoch=num_epoch, log_every_iter=1, eval_every_iter=0, save_every_iter=0,
+        device="cuda", use_native_io=False, exp_root=exp_root, exp_name=exp_name,
+        seed=0, **overrides,
     )
     with banded_window("1"):
         reset_counters()
@@ -1886,21 +1931,18 @@ def run_streaming_training(corpus) -> tuple[dict, str]:
         wall = time.perf_counter() - t0
         counts = read_counters()
     steps = trainer.state.step
-    n_eval = 2 * len(trainer.dev_loader)
-    print(f"streaming train: {steps} steps in 2 epochs, {n_eval} dev batches, wall "
-          f"{wall:.3f} s; launches {counts}")
-    require(steps == 4, f"streaming train ran {steps} steps, want 4")
-    want = {k: 0 for k in COUNTERS}
-    want.update({
-        "fbank": steps + n_eval, "banded_attention_fwd": 6 * (steps + n_eval),
-        "banded_attention_bwd": 6 * steps, "ctc_alpha": steps + n_eval, "ctc_beta": steps,
-    })
-    require(counts == want, f"streaming training launches {counts} != {want}")
+    n_eval = num_epoch * len(trainer.dev_loader)
+    print(f"{exp_name} train: {steps} steps in {num_epoch} epochs, {n_eval} dev batches, "
+          f"wall {wall:.3f} s; launches {counts}")
+    require(steps == 2 * num_epoch, f"{exp_name} train ran {steps} steps, want "
+            f"{2 * num_epoch}")
+    want = train_launches(steps, n_eval, window=True)
+    require(counts == want, f"{exp_name} training launches {counts} != {want}")
     rows = _logged_losses(trainer.exp_dir)
     require(len(rows) == steps and all(np.isfinite(r["train/loss"]) for r in rows),
-            "streaming train: missing or non-finite losses")
+            f"{exp_name} train: missing or non-finite losses")
     for r in rows:
-        print(f"streaming train step {r['step']}: loss {r['train/loss']:.4f} ctc "
+        print(f"{exp_name} train step {r['step']}: loss {r['train/loss']:.4f} ctc "
               f"{r['train/ctc_loss']:.4f} ce {r['train/ce_loss']:.4f} grad_norm "
               f"{r['train/grad_norm']:.4f} lr {r['lr']:.3e}")
     exp_dir = trainer.exp_dir
@@ -1970,10 +2012,12 @@ def serve_streams(rec, streams):
     return finals, t_partial, t_final, inc_segments
 
 
-def run_streaming_serving(exp_dir: str, vocab_path: str, dev) -> dict:
-    """The streaming checkpoint served in both encode modes and both final
-    modes, bf16 and f32; returns the launch counts of the bf16 prefix
-    re-encode runs."""
+def run_streaming_serving(exp_dir: str, vocab_path: str, dev, n_streams=4,
+                          dtypes=("bfloat16", "float32"),
+                          modes=("ctc_greedy", "beam", "joint")) -> dict:
+    """The streaming checkpoint served on ``n_streams`` streams in both
+    encode modes, each final mode of ``modes`` and each dtype of
+    ``dtypes``; returns the launch counts of the first dtype's runs."""
     model, cfg, feat_cfg, vocab = load_experiment(exp_dir, vocab_path, "best", device=dev)
     blob = torch.load(checkpoint_path(exp_dir, "best"), map_location="cpu",
                       weights_only=True)
@@ -1981,13 +2025,15 @@ def run_streaming_serving(exp_dir: str, vocab_path: str, dev) -> dict:
                                 vocab.vocab_size)
     model32.load_state_dict(blob["state_dict"])
     model32 = model32.to(dev).eval()
-    streams = make_streams()
+    streams = make_streams()[:n_streams]
+    models = {"bfloat16": model, "float32": model32}
     print(f"streaming serving: {len(streams)} streams of "
           f"{', '.join(f'{len(x) / 16000:.3f}' for x in streams)} s")
     launches = {k: 0 for k in COUNTERS}
     finals = {}
-    for dtype, m in (("bfloat16", model), ("float32", model32)):
-        for mode in ("ctc_greedy", "beam", "joint"):
+    for dtype in dtypes:
+        m = models[dtype]
+        for mode in modes:
             for inc in ("off", "on"):
                 rec = StreamingRecognizer(m, vocab, feat_cfg, mode=mode, beam_size=10,
                                           partial_every_s=1.0, incremental=inc)
@@ -2011,10 +2057,10 @@ def run_streaming_serving(exp_dir: str, vocab_path: str, dev) -> dict:
                 # K8: one launch per decode step of a joint final
                 want = {k: 0 for k in COUNTERS}
                 want["ctc_prefix"] = n_steps[0] if mode == "joint" else 0
+                if dtype == dtypes[0]:
+                    launches = {k: launches[k] + counts[k] for k in COUNTERS}
                 if inc == "off":
                     want.update(fbank=n, banded_attention_fwd=6 * n)
-                    if dtype == "bfloat16":
-                        launches = {k: launches[k] + counts[k] for k in COUNTERS}
                 else:
                     require(n == 0, "the incremental path re-encoded a prefix")
                 require(counts == want, f"stream {dtype} {mode} {inc}: launches "
@@ -2036,8 +2082,8 @@ def run_streaming_serving(exp_dir: str, vocab_path: str, dev) -> dict:
                           f"offline encode of the bucketed segment, {len(segs)} segments: "
                           f"max_abs={err:.3e}")
                     require(err <= 1e-3, "incremental encoder output disagrees")
-    for dtype in ("bfloat16", "float32"):
-        for mode in ("ctc_greedy", "beam", "joint"):
+    for dtype in dtypes:
+        for mode in modes:
             a, b = finals[dtype, mode, "on"], finals[dtype, mode, "off"]
             require([x[1:] for x in a] == [x[1:] for x in b], "final segment bounds differ")
             same = sum(x[0] == y[0] for x, y in zip(a, b))
@@ -2045,7 +2091,7 @@ def run_streaming_serving(exp_dir: str, vocab_path: str, dev) -> dict:
                   f"the prefix re-encode finals; first: {a[0][0][:40]!r}")
             if dtype == "float32":
                 require(same == len(a), f"f32 {mode}: incremental finals differ")
-    require(len(finals["bfloat16", "beam", "off"]) == 3 * len(streams),
+    require(len(finals[dtypes[0], "ctc_greedy", "off"]) == 3 * len(streams),
             "want 3 finals per stream")
     return launches
 
@@ -2058,7 +2104,11 @@ def analytic_train_flops(cfg, feat_cfg, vocab_size: int, batch: int,
     """Matmul FLOPs of one train step (fwd + bwd = 3x fwd): a copy of the
     JAX package's ``bench.py::analytic_train_flops`` (projections,
     attention products, FFNs, vocabulary heads, the DFT-as-matmul fbank;
-    elementwise work excluded, as MFU accounting does)."""
+    elementwise work excluded, as MFU accounting does), with the conformer
+    block (its second FFN, the conv module's pointwise d -> 2d and d -> d
+    and its depthwise conv, k taps a channel a frame) and the conv2d
+    frontend (two 3x3 convolutions and the projection, over 4x fewer
+    encoder frames) counted too."""
     d, ff = cfg.d_model, cfg.d_ff
     le, ld = cfg.num_encoder_layers, cfg.num_decoder_layers
     t_frames = feat_cfg.num_frames(n_samples)
@@ -2068,8 +2118,18 @@ def analytic_train_flops(cfg, feat_cfg, vocab_size: int, batch: int,
     n_bins = feat_cfg.n_fft // 2 + 1
     fwd = t_frames * feat_cfg.win_length * (2 * n_bins) * 2
     fwd += t_frames * n_bins * feat_cfg.n_mels * 2
-    fwd += t * feat_cfg.feature_dim * d * 2
-    fwd += le * (4 * t * d * d * 2 + 2 * t * t * d * 2 + 2 * t * d * ff * 2)
+    if cfg.get("frontend", "linear") == "conv2d":
+        c, f = d // 8, feat_cfg.feature_dim
+        t1, f1 = -(-t // 2), -(-f // 2)
+        t, f2 = -(-t1 // 2), -(-f1 // 2)
+        fwd += t1 * f1 * c * 9 * 2 + t * f2 * c * 9 * c * 2 + t * f2 * c * d * 2
+    else:
+        fwd += t * feat_cfg.feature_dim * d * 2
+    layer = 4 * t * d * d * 2 + 2 * t * t * d * 2 + 2 * t * d * ff * 2
+    if cfg.get("encoder_type", "transformer") == "conformer":
+        k = cfg.get("conv_kernel_size", 15)
+        layer += 2 * t * d * ff * 2 + t * d * 2 * d * 2 + t * d * d * 2 + t * d * k * 2
+    fwd += le * layer
     if float(cfg.get("ctc_weight", 0.0)) > 0:
         fwd += t * d * v * 2
     fwd += ld * (4 * l * d * d * 2 + 2 * l * l * d * 2 + 2 * l * d * d * 2
@@ -2081,22 +2141,31 @@ def analytic_train_flops(cfg, feat_cfg, vocab_size: int, batch: int,
 THROUGHPUT_BATCH, THROUGHPUT_SECONDS, THROUGHPUT_LABEL_LEN = 64, 8.0, 20
 
 
-def flagship_train_setup(dev) -> tuple:
-    """(train_step, state, batch, flops per step) of the flagship recipe
-    (bf16, hash dropout 0.1, SpecAugment, CTC 0.3 through the kernels) on
-    one fixed batch of 64 x 8 s with label length 20, as ``bench.py``."""
-    cfg, tcfg, feat = _recipe("bfloat16")
-    tcfg.build(spec_augment=True)
-    bsz, label_len = THROUGHPUT_BATCH, THROUGHPUT_LABEL_LEN
-    samples = int(THROUGHPUT_SECONDS * feat.sample_rate)
+def fixed_batch(dev, bsz) -> list:
+    """(waves, lengths, labels, label lengths) of ``bsz`` random 8 s
+    utterances with label length 20, on ``dev``."""
+    samples = int(THROUGHPUT_SECONDS * 16000)
     rng = np.random.RandomState(0)
     batch = [
         torch.from_numpy((rng.randn(bsz, samples) * 0.1 * 32767).astype(np.int16)),
         torch.full((bsz,), samples, dtype=torch.int32),
-        torch.from_numpy(rng.randint(4, VOCAB, size=(bsz, label_len)).astype(np.int32)),
-        torch.full((bsz,), label_len, dtype=torch.int32),
+        torch.from_numpy(rng.randint(4, VOCAB, size=(bsz, THROUGHPUT_LABEL_LEN))
+                         .astype(np.int32)),
+        torch.full((bsz,), THROUGHPUT_LABEL_LEN, dtype=torch.int32),
     ]
-    batch = [x.to(dev) for x in batch]
+    return [x.to(dev) for x in batch]
+
+
+def flagship_train_setup(dev, **overrides) -> tuple:
+    """(train_step, state, batch, flops per step) of the flagship recipe
+    (bf16, hash dropout 0.1, SpecAugment, CTC 0.3 through the kernels;
+    ``overrides``: model config, e.g. the conformer's) on one fixed batch
+    of 64 x 8 s with label length 20, as ``bench.py``."""
+    cfg, tcfg, feat = _recipe("bfloat16", **overrides)
+    tcfg.build(spec_augment=True)
+    bsz, label_len = THROUGHPUT_BATCH, THROUGHPUT_LABEL_LEN
+    samples = int(THROUGHPUT_SECONDS * feat.sample_rate)
+    batch = fixed_batch(dev, bsz)
     model = SpeechTransformer(cfg, VOCAB, torch.Generator().manual_seed(0)).to(dev)
     opt = make_optimizer(model.parameters(), tcfg, cfg.d_model)
     init_fn, train_step, _ = make_step_fns(model, opt, feat, tcfg)
@@ -2104,8 +2173,9 @@ def flagship_train_setup(dev) -> tuple:
     return train_step, init_fn(), batch, flops
 
 
-def measure_training_throughput(dev, n_warmup=3, n_timed=20) -> dict:
-    train_step, state, batch, flops = flagship_train_setup(dev)
+def measure_training_throughput(dev, n_warmup=3, n_timed=20, label="flagship",
+                                **overrides) -> dict:
+    train_step, state, batch, flops = flagship_train_setup(dev, **overrides)
     bsz, seconds = THROUGHPUT_BATCH, THROUGHPUT_SECONDS
     for _ in range(n_warmup):
         state, m = train_step(state, *batch, 0)
@@ -2130,7 +2200,7 @@ def measure_training_throughput(dev, n_warmup=3, n_timed=20) -> dict:
         "mfu": flops / step_s / H100_SXM_BF16_PEAK,
         "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30,
     }
-    print(f"train throughput, flagship bf16, batch 64 x 8 s, {n_timed} steps after "
+    print(f"train throughput, {label} bf16, batch 64 x 8 s, {n_timed} steps after "
           f"{n_warmup} warm-up: {out['ms_per_step']:.3f} ms/step, "
           f"{out['steps_per_s']:.4f} steps/s, {out['audio_s_per_s']:.1f} audio-s/s, "
           f"{out['tflop_per_step']:.4f} TFLOP/step, MFU {out['mfu'] * 100:.3f} % of "
@@ -2157,16 +2227,7 @@ def streaming_train_setup(dev) -> tuple:
     feat = FeatureConfig(fbank_impl="pallas", cmvn_mode="fixed",
                          cmvn_mean=STREAMING_RECIPE["cmvn_mean"],
                          cmvn_std=STREAMING_RECIPE["cmvn_std"])
-    bsz, samples = THROUGHPUT_BATCH, int(THROUGHPUT_SECONDS * 16000)
-    rng = np.random.RandomState(0)
-    batch = [
-        torch.from_numpy((rng.randn(bsz, samples) * 0.1 * 32767).astype(np.int16)),
-        torch.full((bsz,), samples, dtype=torch.int32),
-        torch.from_numpy(rng.randint(4, VOCAB, size=(bsz, THROUGHPUT_LABEL_LEN))
-                         .astype(np.int32)),
-        torch.full((bsz,), THROUGHPUT_LABEL_LEN, dtype=torch.int32),
-    ]
-    batch = [x.to(dev) for x in batch]
+    batch = fixed_batch(dev, THROUGHPUT_BATCH)
     model = SpeechTransformer(cfg, VOCAB, torch.Generator().manual_seed(0)).to(dev)
     opt = make_optimizer(model.parameters(), tcfg, cfg.d_model)
     init_fn, train_step, _ = make_step_fns(model, opt, feat, tcfg)
@@ -2222,6 +2283,214 @@ def measure_streaming_throughput(dev, n_warmup=3, n_pairs=5, n_segment=4) -> dic
     return {k: v / n_timed for k, v in counts["1"].items()}
 
 
+# -- phase 14b: the conformer family ----------------------------------------------
+
+# the registry's Conformer: conformer blocks (conv kernel 15), pre-LN
+CONFORMER = dict(encoder_type="conformer", norm_type="pre")
+
+
+@contextlib.contextmanager
+def attention_query_rows():
+    """The query rows (Tq) of every fused attention call the model's
+    layers make while the block runs."""
+    rows = []
+    inner = layers_mod.fused_attention_general
+
+    def probe(q, *args):
+        rows.append(q.shape[2])
+        return inner(q, *args)
+
+    layers_mod.fused_attention_general = probe
+    try:
+        yield rows
+    finally:
+        layers_mod.fused_attention_general = inner
+
+
+def _train_conformer(corpus) -> tuple:
+    """``main.train --model_name Conformer`` with the flagship recipe on
+    phase 9's corpus, 1 epoch; returns (launch counts, experiment dir)."""
+    exp_root = os.path.join(WORK, "conformer_exp")
+    shutil.rmtree(exp_root, ignore_errors=True)
+    reset_counters()
+    t0 = time.perf_counter()
+    trainer = main_train(**training_kwargs(corpus, exp_root, model_name="Conformer",
+                                           exp_name="conformer", num_epoch=1))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = read_counters()
+    cfg = trainer.model.cfg
+    require(cfg.encoder_type == "conformer" and cfg.conv_kernel_size == 15
+            and cfg.d_model == 512, "main.train did not build the registry's Conformer")
+    steps, n_eval = trainer.state.step, len(trainer.dev_loader)
+    n_params = sum(p.numel() for p in trainer.model.parameters())
+    print(f"conformer train: d_model 512, 8 heads, 6 conformer blocks (conv 15) + 6 "
+          f"decoder layers, {n_params} parameters; {steps} steps in 1 epoch, {n_eval} dev "
+          f"batches, wall {wall:.3f} s; launches {counts}")
+    require(steps == 2, f"conformer train ran {steps} steps, want 2")
+    want = train_launches(steps, n_eval)
+    require(counts == want, f"conformer training launches {counts} != {want}")
+    rows = _logged_losses(trainer.exp_dir)
+    require(len(rows) == steps and all(np.isfinite(r["train/loss"]) for r in rows),
+            "conformer train: missing or non-finite losses")
+    for r in rows:
+        print(f"conformer train step {r['step']}: loss {r['train/loss']:.4f} ctc "
+              f"{r['train/ctc_loss']:.4f} ce {r['train/ce_loss']:.4f} grad_norm "
+              f"{r['train/grad_norm']:.4f}")
+    exp_dir = trainer.exp_dir
+    del trainer
+    torch.cuda.empty_cache()
+    return counts, exp_dir
+
+
+def _serve_conformer(exp_dir, corpus) -> tuple:
+    """The trained conformer through ``recognize`` in ``beam`` and
+    ``joint``; returns the two runs' launch counts summed and the number of
+    batches each ran."""
+    model, *_ = _load_experiment_cached(exp_dir, corpus["vocab"], "best",
+                                        torch.device("cuda"))
+    total = {k: 0 for k in COUNTERS}
+    for mode in ("beam", "joint"):
+        with counted_steps(model) as n_steps:
+            reset_counters()
+            res = recognize(exp_dir, corpus["vocab"], manifest=corpus["dev"], mode=mode,
+                            beam_size=10, batch_size=8, max_decode_len=32, device="cuda",
+                            out=os.path.join(WORK, f"conformer_{mode}.json"))
+            torch.cuda.synchronize()
+            counts = read_counters()
+        n, tm = res["timing"]["batches"], res["timing"]
+        require(len(res["utts"]) == 16, f"conformer {mode}: {len(res['utts'])} of 16")
+        for utt, entry in res["utts"].items():
+            require(entry["output"] and all(np.isfinite(o["score"]) for o in entry["output"]),
+                    f"conformer {mode} {utt}: no finite hypothesis")
+        want = {k: 0 for k in COUNTERS}
+        want.update(fbank=n, fused_attention_fwd=6 * n,
+                    ctc_prefix=n_steps[0] if mode == "joint" else 0)
+        require(counts == want, f"conformer {mode}: launches {counts} != {want}")
+        total = {k: total[k] + counts[k] for k in COUNTERS}
+        print(f"conformer recognize {mode}: {n} batches, {tm['audio_s']:.3f} s audio; per "
+              f"batch of 8 encode {tm['encode_s'] / n * 1e3:.3f} ms, search "
+              f"{tm['search_s'] / n * 1e3:.3f} ms; CER {res['cer']:.2f}%; launches {counts}")
+    return total, n
+
+
+def _conv2d_conformer(dev) -> None:
+    """A conformer with the conv2d frontend, flagship recipe: one train step
+    and one beam decode on 8 x 8 s; K1 sees ceil(ceil(T/2)/2) frames."""
+    cfg, tcfg, feat = _recipe("bfloat16", frontend="conv2d", **CONFORMER)
+    tcfg.build(spec_augment=True)
+    model = SpeechTransformer(cfg, VOCAB, torch.Generator().manual_seed(0)).to(dev)
+    opt = make_optimizer(model.parameters(), tcfg, cfg.d_model)
+    init_fn, train_step, _ = make_step_fns(model, opt, feat, tcfg)
+    batch = fixed_batch(dev, 8)
+    t = feat.num_lfr_frames(feat.num_frames(batch[0].shape[1]))
+    t_enc = ((t + 1) // 2 + 1) // 2
+    with attention_query_rows() as rows:
+        reset_counters()
+        state, m = train_step(init_fn(), *batch, 0)
+        torch.cuda.synchronize()
+        counts = read_counters()
+    require(np.isfinite(float(m["loss"])), "conv2d conformer: loss not finite")
+    require(counts == train_launches(1, 0), f"conv2d conformer step launches {counts}")
+    require(rows == [t_enc] * 6, f"conv2d conformer: K1 saw {rows} rows, want 6 x {t_enc}")
+    model.eval()
+    with torch.inference_mode(), attention_query_rows() as rows:
+        feats, feat_lens = parse_batch(batch[0], batch[1], feat)
+        enc, enc_lens = model.encode(feats, feat_lens)
+        res = beam_search(model, enc, enc_lens, 10, 32)
+    require(enc.shape[1] == t_enc and rows == [t_enc] * 6
+            and enc_lens.tolist() == [t_enc] * 8, f"conv2d conformer encode: {rows}")
+    ids = res.nbest_ids(1)
+    require(len(ids) == 8 and np.isfinite(res.scores).all(),
+            "conv2d conformer beam: no finite hypothesis")
+    print(f"conv2d conformer: {t} LFR frames -> {t_enc} encoder frames; train step loss "
+          f"{float(m['loss']):.4f}, K1 on {rows[0]} query rows; beam decode of 8 "
+          f"utterances, best scores {res.scores[:, 0].tolist()}")
+
+
+def _check_remat(dev) -> None:
+    """One conformer step of the flagship recipe (hash dropout 0.1) on 8 x
+    8 s with ``remat`` off and on, from the same weights: the same loss and
+    gradient norm (the recompute replays the dropout draws), and with remat
+    K1 launched twice per layer (forward and recompute)."""
+    out = {}
+    for remat in (False, True):
+        cfg, tcfg, feat = _recipe("bfloat16", remat=remat, **CONFORMER)
+        model = SpeechTransformer(cfg, VOCAB, torch.Generator().manual_seed(0)).to(dev)
+        opt = make_optimizer(model.parameters(), tcfg, cfg.d_model)
+        init_fn, train_step, _ = make_step_fns(model, opt, feat, tcfg)
+        batch = fixed_batch(dev, 8)
+        reset_counters()
+        _, m = train_step(init_fn(), *batch, 0)
+        torch.cuda.synchronize()
+        out[remat] = (float(m["loss"]), float(m["grad_norm"]), read_counters())
+        del model, opt
+    (l0, g0, c0), (l1, g1, c1) = out[False], out[True]
+    rel = max(abs(l1 - l0) / abs(l0), abs(g1 - g0) / abs(g0))
+    print(f"conformer remat, bf16 hash dropout 0.1: loss {l0:.6f} / {l1:.6f}, grad_norm "
+          f"{g0:.6f} / {g1:.6f} (off / on, max rel {rel:.2e}); K1 launches "
+          f"{c0['fused_attention_fwd']} / {c1['fused_attention_fwd']}")
+    require(rel <= 1e-5, "remat changes the conformer step")
+    want = train_launches(1, 0)
+    require(c0 == want and c1 == {**want, "fused_attention_fwd": 12},
+            f"remat launches {c0} / {c1}")
+
+
+def _check_pad_leak(exp_dir, corpus, dev) -> None:
+    """The same utterances' features padded to two lengths (the longer
+    padding filled with large noise) give the same valid encoder rows, in
+    bf16 (through the kernels) and in f32."""
+    model, cfg, feat_cfg, vocab = load_experiment(exp_dir, corpus["vocab"], "best",
+                                                  device=dev)
+    blob = torch.load(checkpoint_path(exp_dir, "best"), map_location="cpu",
+                      weights_only=True)
+    model32 = SpeechTransformer(Config(**{**cfg.to_dict(), "dtype": "float32"}),
+                                vocab.vocab_size)
+    model32.load_state_dict(blob["state_dict"])
+    model32 = model32.to(dev).eval()
+    _, wave, lengths = next(batched(read_manifest(corpus["dev"]), 4, 15 * 16000, 16000))
+    with torch.inference_mode():
+        feats, feat_lens = parse_batch(torch.from_numpy(wave).to(dev),
+                                       torch.from_numpy(lengths).to(dev), feat_cfg)
+        t = feats.shape[1]
+        longer = F.pad(feats, (0, 0, 0, 50))
+        noise = torch.randn(longer.shape, device=dev,
+                            generator=torch.Generator(device=dev).manual_seed(0)) * 30
+        valid = torch.arange(t + 50, device=dev)[None] < feat_lens[:, None]
+        longer = torch.where(valid[..., None], longer, noise)
+        for label, m, bound in (("bf16", model, 2e-2), ("f32", model32, 1e-4)):
+            a, _ = m.encode(feats, feat_lens)
+            b, _ = m.encode(longer, feat_lens)
+            err, same = 0.0, True
+            for i, n in enumerate(feat_lens.tolist()):
+                err = max(err, (a[i, :n].float() - b[i, :n].float()).abs().max().item())
+                same = same and torch.equal(a[i, :n], b[i, :n])
+            print(f"conformer pad leak, {label}: valid rows at T = {t} and T = {t + 50} "
+                  f"(padding of noise 30): max_abs={err:.3e}, bit-identical {same}")
+            require(err <= bound, f"conformer {label}: padding leaks into valid rows")
+
+
+def run_conformer(corpus, dev) -> dict:
+    """Phase 14b: the conformer family trained, served and streamed on the
+    card. Returns the launch counts of its main paths (training, serving,
+    streaming training and serving) and its launches per train step."""
+    trained, exp_dir = _train_conformer(corpus)
+    served, _ = _serve_conformer(exp_dir, corpus)
+    _conv2d_conformer(dev)
+    _check_remat(dev)
+    check_step_against_cpu(corpus, dev, label="conformer", **CONFORMER)
+    _check_pad_leak(exp_dir, corpus, dev)
+    stream_trained, stream_exp = run_streaming_training(
+        corpus, num_epoch=1, exp_name="streaming_conformer", model_name="Conformer",
+        **CONFORMER)
+    stream_served = run_streaming_serving(stream_exp, corpus["vocab"], dev, n_streams=2,
+                                          dtypes=("float32",), modes=("ctc_greedy", "beam"))
+    step = measure_training_throughput(dev, n_timed=10, label="conformer", **CONFORMER)
+    launches = {k: trained[k] + served[k] + stream_trained[k] + stream_served[k]
+                for k in COUNTERS}
+    return {"launches": launches, "per_step": step["launches_per_step"]}
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: CUDA is not available")
@@ -2262,10 +2531,12 @@ def main() -> None:
     stream_served = phase(12, run_streaming_serving, stream_exp, corpus["vocab"], dev)
     flagship_step = phase(13, measure_training_throughput, dev)["launches_per_step"]
     streaming_step = phase(14, measure_streaming_throughput, dev)
+    conformer = phase("14b", run_conformer, corpus, dev)
 
     # launches: the main paths' runs, each counted from 0
     launches = {
         k: serve[k] + decoded[k] + trained[k] + stream_trained[k] + stream_served[k]
+        + conformer["launches"][k]
         for k in COUNTERS
     }
     require(all(n > 0 for n in launches.values()), f"a kernel never launched: {launches}")
@@ -2292,6 +2563,7 @@ def main() -> None:
          "launches_per_step": {
              "flagship_train_step": flagship_step[name],
              "streaming_train_step": streaming_step[name],
+             "conformer_train_step": conformer["per_step"][name],
              "serving_batch": serve[name] / serve_batches,
              "joint_serving_batch": decoded[name] / joint_batches,
          }, **measured}

@@ -174,9 +174,6 @@ def test_decode_step_lazy_matches_jax(name):
     [
         dict(attn_impl="flash"),
         dict(attn_impl="ring"),
-        dict(frontend="conv2d"),
-        dict(encoder_type="conformer"),
-        dict(remat=True),
     ],
 )
 def test_unported_options_raise(overrides):
@@ -185,8 +182,20 @@ def test_unported_options_raise(overrides):
         SpeechTransformer(cfg, VOCAB)
 
 
-def test_init_is_seeded_by_the_generator():
-    cfg = Config(**tiny_config().to_dict())
+@pytest.mark.parametrize("overrides", [
+    dict(encoder_type="transformerxl"), dict(frontend="conv1d"),
+])
+def test_unknown_options_raise(overrides):
+    cfg = Config(**tiny_config(**overrides).to_dict())
+    with pytest.raises(ValueError, match="unknown"):
+        SpeechTransformer(cfg, VOCAB)
+
+
+@pytest.mark.parametrize("overrides", [
+    {}, dict(encoder_type="conformer", norm_type="pre", frontend="conv2d"),
+])
+def test_init_is_seeded_by_the_generator(overrides):
+    cfg = Config(**tiny_config(**overrides).to_dict())
     a = SpeechTransformer(cfg, VOCAB, generator=torch.Generator().manual_seed(3))
     b = SpeechTransformer(cfg, VOCAB, generator=torch.Generator().manual_seed(3))
     c = SpeechTransformer(cfg, VOCAB, generator=torch.Generator().manual_seed(4))

@@ -6,7 +6,8 @@ independence from JAX, and its copies of the JAX package's host modules.
   JAX's ``batched`` -> ``parse_batch`` -> ``encode`` -> the mode's search on
   the same weights, scores within 1e-4, in every mode (``ctc_greedy``,
   ``attention_greedy``, ``beam``, ``rescore`` with the device and the host
-  prefix beam, ``joint``), and the same n-best JSON for pipeline depths 0,
+  prefix beam, ``joint``; ``beam`` and ``joint`` also on a conformer with
+  the conv2d frontend), and the same n-best JSON for pipeline depths 0,
   1 and 2; an unknown mode and mesh decode raise.
 - Every port module imports with jax, flax, optax and orbax blocked, and
   the JAX package never enters ``sys.modules``; an AST scan of the
@@ -129,8 +130,25 @@ RECOGNIZE_MODES = {
 }
 
 
-@pytest.mark.parametrize("mode", list(RECOGNIZE_MODES))
-def test_recognize_matches_jax_pipeline(experiment, tmp_path, mode):
+@pytest.fixture(scope="module")
+def conformer_experiment(tmp_path_factory):
+    """The same for a conformer with the conv2d frontend. Its config keeps
+    ``input_dim``'s default (320) as a JAX experiment's does, while the
+    features are 80 wide: the projection's width follows the features."""
+    root = tmp_path_factory.mktemp("torch_recognize_conformer")
+    corpus = make_synth_corpus(str(root / "corpus"), **CORPUS_KW)
+    vocab = Vocab.load(corpus["vocab"])
+    jcfg = _slice_config().build(encoder_type="conformer", norm_type="pre",
+                                 frontend="conv2d", conv_kernel_size=5)
+    jm, params, tm = model_pair(jcfg, vocab_size=vocab.vocab_size, seed=2)
+    exp = root / "exp"
+    exp.mkdir()
+    Config(**jcfg.to_dict()).build(input_dim=320).save(str(exp / "config.json"))
+    save_torch_checkpoint(str(exp), tm.state_dict(), vocab.fingerprint(), "latest")
+    return str(exp), corpus, jm, params, jcfg
+
+
+def _recognize_matches_jax(experiment, tmp_path, mode):
     exp, corpus, jm, params, jcfg = experiment
     kw = dict(beam_size=3, batch_size=4, max_decode_len=8, nbest=2)
     out = tmp_path / "res.json"
@@ -169,6 +187,16 @@ def test_recognize_matches_jax_pipeline(experiment, tmp_path, mode):
     written = json.loads(out.read_text(encoding="utf-8"))
     assert set(written) == {"utts", "cer"}
     assert res["timing"]["batches"] == n_batches
+
+
+@pytest.mark.parametrize("mode", list(RECOGNIZE_MODES))
+def test_recognize_matches_jax_pipeline(experiment, tmp_path, mode):
+    _recognize_matches_jax(experiment, tmp_path, mode)
+
+
+@pytest.mark.parametrize("mode", ["beam", "joint"])
+def test_conformer_recognize_matches_jax_pipeline(conformer_experiment, tmp_path, mode):
+    _recognize_matches_jax(conformer_experiment, tmp_path, mode)
 
 
 @pytest.mark.parametrize("mode", ["beam", "joint", "ctc_greedy"])

@@ -2,7 +2,7 @@
 weights: ``EnergyGate`` segments identical on the same int16 streams;
 ``StreamingRecognizer`` events (kind, text, t0, t1) identical for
 ``ctc_greedy``, ``beam`` and ``joint`` finals, prefix re-encode and
-incremental;
+incremental, for a causal-banded transformer and conformer;
 ``reset_stream`` isolation; the argument checks; ``ctc_greedy_decode`` and
 ``attention_greedy_decode`` against JAX's; and the ``stream`` CLI on the
 CPU."""
@@ -86,15 +86,14 @@ def test_energy_gate_matches_jax(name, chunk):
         theirs.reset()
 
 
-@pytest.fixture(scope="module")
-def parts():
+def _stream_parts(**overrides):
     """A tiny causal-band model with a CTC head and fixed CMVN (JAX side),
     and its twin in the port."""
     jvocab = JaxVocab()
     jvocab.consume_sentence("".join(chr(0x4E00 + i) for i in range(8)))
     jvocab.build()
     jfeat = JaxFeatureConfig(n_mels=20, cmvn_mode="fixed", cmvn_mean=-18.0, cmvn_std=6.0)
-    cfg = stream_cfg(ctc_weight=0.3)
+    cfg = stream_cfg(ctc_weight=0.3, **overrides)
     cfg.build(input_dim=jfeat.feature_dim)
     jm = JaxModel(cfg, jvocab.vocab_size)
     feats, feat_lens = jax_parse_batch(
@@ -115,6 +114,17 @@ def parts():
     return jm, params, jvocab, jfeat, tm.eval(), vocab, feat
 
 
+@pytest.fixture(scope="module")
+def parts():
+    return _stream_parts()
+
+
+@pytest.fixture(scope="module")
+def conformer_parts():
+    """The same with a causal conformer encoder (depthwise conv k = 5)."""
+    return _stream_parts(encoder_type="conformer", conv_kernel_size=5)
+
+
 def _speech():
     return np.concatenate([
         silence(0.4), tone(0.9, 523.0), silence(1.6), tone(0.6, 880.0),
@@ -122,9 +132,7 @@ def _speech():
     ])
 
 
-@pytest.mark.parametrize("incremental", ["on", "off"])
-@pytest.mark.parametrize("mode", ["ctc_greedy", "beam", "joint"])
-def test_recognizer_events_match_jax(parts, mode, incremental):
+def _events_match_jax(parts, mode, incremental):
     jm, params, jvocab, jfeat, tm, vocab, feat = parts
     kw = dict(mode=mode, bucket_seconds=(1.0, 2.0), partial_every_s=0.4,
               beam_size=3, max_len=8, chunk_frames=8, incremental=incremental)
@@ -139,8 +147,19 @@ def test_recognizer_events_match_jax(parts, mode, incremental):
     assert any(text for _, text, *_ in got)  # the tiny model emits characters
 
 
-@pytest.mark.parametrize("mode", ["beam", "joint"])
-def test_incremental_finals_equal_prefix_reencode(parts, mode):
+@pytest.mark.parametrize("incremental", ["on", "off"])
+@pytest.mark.parametrize("mode", ["ctc_greedy", "beam", "joint"])
+def test_recognizer_events_match_jax(parts, mode, incremental):
+    _events_match_jax(parts, mode, incremental)
+
+
+@pytest.mark.parametrize("incremental", ["on", "off"])
+@pytest.mark.parametrize("mode", ["ctc_greedy", "beam", "joint"])
+def test_conformer_recognizer_events_match_jax(conformer_parts, mode, incremental):
+    _events_match_jax(conformer_parts, mode, incremental)
+
+
+def _finals_equal_prefix_reencode(parts, mode):
     _, _, _, _, tm, vocab, feat = parts
     finals = {}
     for inc in ("on", "off"):
@@ -149,6 +168,16 @@ def test_incremental_finals_equal_prefix_reencode(parts, mode):
         finals[inc] = [(e.text, e.t0, e.t1) for e in feed_chunked(rec, _speech())
                        if e.kind == "final"]
     assert finals["on"] == finals["off"]
+
+
+@pytest.mark.parametrize("mode", ["beam", "joint"])
+def test_incremental_finals_equal_prefix_reencode(parts, mode):
+    _finals_equal_prefix_reencode(parts, mode)
+
+
+@pytest.mark.parametrize("mode", ["beam", "joint"])
+def test_conformer_incremental_finals_equal_prefix_reencode(conformer_parts, mode):
+    _finals_equal_prefix_reencode(conformer_parts, mode)
 
 
 def test_reset_stream_isolates_streams(parts):

@@ -1,8 +1,10 @@
 """The port's chunked streaming encoder against the JAX package's, on
 converted weights, f32: ``encode_chunk`` (pre-LN, post-LN, DeepNorm) at
 several chunk sizes against JAX's ``encode_chunk`` and against the port's
-own offline encode, rtol/atol 2e-5 (the JAX tests' tolerance);
-``init_chunk_state``; the positional table at an offset; and the
+own offline encode, rtol/atol 2e-5 (the JAX tests' tolerance), and the
+causal-banded conformer's (k = 5: attention tail and causal-conv carry)
+the same way, with its causality; ``init_chunk_state`` for both encoder
+families; the positional table at an offset; and the
 incremental pipeline's accumulated output against the offline encode of
 the bucketed wave, with a mid-speech cut, 2e-4 (the JAX tests' bound)."""
 
@@ -26,7 +28,7 @@ from asr_chinese_e2e_tpu_torch.models.convert import torch_state_from_flax
 from asr_chinese_e2e_tpu_torch.models.layers import PositionalEncoding
 from asr_chinese_e2e_tpu_torch.models.transformer import SpeechTransformer, init_chunk_state
 from asr_chinese_e2e_tpu_torch.stream import StreamingRecognizer
-from tests.test_streaming_encoder import make_model, stream_cfg
+from tests.test_streaming_encoder import BAND, make_model, stream_cfg
 from tests.test_transformer import VOCAB
 
 torch.set_num_threads(2)
@@ -94,9 +96,82 @@ def test_init_chunk_state_matches_jax(dtype):
 
 
 def test_init_chunk_state_conformer_raises():
-    cfg = Config(**stream_cfg(encoder_type="conformer").to_dict())
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        init_chunk_state(cfg, 1)
+    """The conformer's chunk state, per layer: a (B, band, d) input tail
+    and a (B, k-1, d) conv carry, zero, in the compute dtype, as JAX's."""
+    for dtype, want_dtype in (("float32", torch.float32), ("bfloat16", torch.bfloat16)):
+        cfg = stream_cfg(encoder_type="conformer", conv_kernel_size=5, dtype=dtype)
+        want = jax_init_chunk_state(cfg, 3)
+        got = init_chunk_state(Config(**cfg.to_dict()), 3)
+        assert len(got) == len(want) == cfg.num_encoder_layers
+        for a, b in zip(got, want):
+            assert set(a) == set(b) == {"tail", "conv"}
+            assert a["tail"].shape == b["tail"].shape == (3, BAND, cfg.d_model)
+            assert a["conv"].shape == b["conv"].shape == (3, 4, cfg.d_model)
+            for key in a:
+                assert a[key].dtype == want_dtype and not a[key].any()
+    # encode_chunk reads frames, so the conv2d frontend cannot stream
+    cfg = Config(**stream_cfg(encoder_type="conformer", frontend="conv2d").to_dict())
+    model = SpeechTransformer(cfg, VOCAB)
+    with pytest.raises(ValueError, match="linear frontend"):
+        model.encode_chunk(torch.zeros(1, 4, cfg.input_dim), model.init_chunk_tails(1), 0)
+
+
+def _conformer_pair():
+    if "conformer" not in _PAIRS:
+        cfg = stream_cfg(encoder_type="conformer", conv_kernel_size=5)
+        jm, params, feats, lens = make_model(cfg)
+        pcfg = Config(**cfg.to_dict())
+        tm = SpeechTransformer(pcfg, VOCAB)
+        tm.load_state_dict(torch_state_from_flax(jax.tree.map(np.asarray, params), pcfg,
+                                                 VOCAB))
+        _PAIRS["conformer"] = (jm, params, tm.eval(), np.array(feats), np.array(lens))
+    return _PAIRS["conformer"]
+
+
+@pytest.mark.parametrize("chunk", [1, 4, 7])
+def test_conformer_encode_chunk_matches_jax_and_offline(chunk):
+    """Both carries (attention tail, causal-conv input) against JAX's, and
+    the chunked output against JAX's chunks and the port's offline encode."""
+    jm, params, tm, feats, lens = _conformer_pair()
+    t = feats.shape[1]
+    j_tails = jm.apply(params, feats.shape[0], method="init_chunk_tails")
+    t_tails = tm.init_chunk_tails(feats.shape[0])
+    got, want = [], []
+    with torch.no_grad():
+        for off in range(0, t, chunk):
+            piece = feats[:, off : off + chunk]
+            pad = chunk - piece.shape[1]
+            if pad:
+                piece = np.pad(piece, ((0, 0), (0, pad), (0, 0)))
+            j_enc, j_tails, j_lp = jm.apply(
+                params, jnp.asarray(piece), j_tails, jnp.int32(off), method="encode_chunk"
+            )
+            t_enc, t_tails, t_lp = tm.encode_chunk(torch.from_numpy(piece), t_tails, off)
+            np.testing.assert_allclose(t_lp.numpy(), np.asarray(j_lp), rtol=TOL, atol=TOL)
+            for a, b in zip(t_tails, j_tails):
+                for key in ("tail", "conv"):
+                    np.testing.assert_allclose(a[key].numpy(), np.asarray(b[key]), rtol=TOL,
+                                               atol=TOL)
+            got.append(t_enc.numpy()[:, : chunk - pad])
+            want.append(np.asarray(j_enc)[:, : chunk - pad])
+        offline, _ = tm.encode(torch.from_numpy(feats), torch.from_numpy(lens))
+    got = np.concatenate(got, axis=1)
+    np.testing.assert_allclose(got, np.concatenate(want, axis=1), rtol=TOL, atol=TOL)
+    np.testing.assert_allclose(got, offline.numpy(), rtol=TOL, atol=TOL)
+
+
+def test_causal_conformer_is_causal():
+    """Past outputs do not move when future frames do: the depthwise conv
+    pads on the left only under ``causal_encoder``."""
+    _, _, tm, feats, lens = _conformer_pair()
+    bumped = feats.copy()
+    bumped[:, 12:] += 3.0
+    with torch.no_grad():
+        base, _ = tm.encode(torch.from_numpy(feats), torch.from_numpy(lens))
+        out, _ = tm.encode(torch.from_numpy(bumped), torch.from_numpy(lens))
+    np.testing.assert_allclose(out[:, :12].numpy(), base[:, :12].numpy(), rtol=1e-6,
+                               atol=1e-6)
+    assert not np.allclose(out[:, 12:].numpy(), base[:, 12:].numpy())
 
 
 @pytest.mark.parametrize("offset", [0, 7, 4990, 6000])

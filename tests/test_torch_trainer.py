@@ -128,6 +128,28 @@ def test_best_checkpoint_decodes_through_recognize(run, tmp_path):
         assert entry["output"] and all(np.isfinite(o["score"]) for o in entry["output"])
 
 
+def test_conformer_conv2d_trains_and_decodes(run, tmp_path):
+    """``main.train`` with ``--model_name Conformer`` and the conv2d
+    frontend: the projection's width comes from the features (F = 80 here:
+    ceil(ceil(80 / 2) / 2) x 48 / 8 = 120), whatever ``input_dim`` says,
+    and the checkpoint decodes through ``recognize``."""
+    corpus, _, _ = run
+    trainer = train(**_run_kwargs(
+        corpus, str(tmp_path / "exp"), model_name="Conformer", frontend="conv2d",
+        d_model=48, conv_kernel_size=5, input_dim=320, num_epoch=1,
+    ))
+    model = trainer.model
+    assert trainer.cfg.input_dim == 80 and model.cfg.encoder_type == "conformer"
+    assert model.encoder.frontend_mod.proj.in_features == 120
+    losses = [r["train/loss"] for r in _scalars(trainer.exp_dir) if "train/loss" in r]
+    assert len(losses) == 4 and all(np.isfinite(losses))
+    res = recognize(trainer.exp_dir, corpus["vocab"], manifest=corpus["test"], mode="beam",
+                    beam_size=2, batch_size=2, max_decode_len=6, device="cpu",
+                    out=str(tmp_path / "res.json"))
+    assert len(res["utts"]) == CORPUS_KW["n_test"]
+    assert all(e["output"] for e in res["utts"].values())
+
+
 def test_rnn_names_raise_with_roadmap_item():
     for name in ("BiLSTMCTC", "LAS", "ExampleModel"):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
