@@ -1,8 +1,7 @@
 """String-keyed model registry (``asr_chinese_e2e_tpu/core/registry.py``):
 each name maps to (model class, default config function). The transformer
-names and ``Conformer`` resolve to ``SpeechTransformer``; the RNN family and the example
-model are not ported yet, and asking for them raises naming the ROADMAP
-item.
+names and ``Conformer`` resolve to ``SpeechTransformer``; ``BiLSTMCTC`` and
+``LAS`` to the RNN family, ``ExampleModel`` to the null model.
 """
 
 from __future__ import annotations
@@ -12,11 +11,6 @@ from typing import Callable, Tuple
 from .config import Config
 
 _REGISTRY: dict[str, Tuple[type, Callable[[], Config]]] = {}
-_NOT_PORTED = {
-    "BiLSTMCTC": "ROADMAP §1, item 6: RNN family",
-    "LAS": "ROADMAP §1, item 6: RNN family",
-    "ExampleModel": "ROADMAP §1, item 6: RNN family",
-}
 
 
 def register(name: str, model_cls: type, default_config: Callable[[], Config]) -> None:
@@ -24,15 +18,13 @@ def register(name: str, model_cls: type, default_config: Callable[[], Config]) -
 
 
 def get_model(name: str) -> Tuple[type, Callable[[], Config]]:
-    if name in _NOT_PORTED:
-        raise NotImplementedError(f"model {name!r} is not ported yet ({_NOT_PORTED[name]})")
     if name not in _REGISTRY:
         raise KeyError(f"unknown model {name!r}; available: {sorted(_REGISTRY)}")
     return _REGISTRY[name]
 
 
 def _populate() -> None:
-    from ..models import transformer
+    from ..models import example, rnn, transformer
 
     st, default = transformer.SpeechTransformer, transformer.default_config
     register("SpeechTransformer", st, default)
@@ -51,6 +43,9 @@ def _populate() -> None:
         "Conformer", st,
         lambda: default().build(encoder_type="conformer", norm_type="pre"),
     )
+    register("BiLSTMCTC", rnn.BiLSTMCTC, rnn.default_ctc_config)
+    register("LAS", rnn.LAS, rnn.default_las_config)
+    register("ExampleModel", example.ExampleModel, example.default_config)
 
 
 _populate()

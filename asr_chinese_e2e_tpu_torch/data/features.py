@@ -4,10 +4,10 @@ CMVN -> [SpecAugment] -> LFR frame stacking.
 Counterpart of ``asr_chinese_e2e_tpu/data/features.py``. The STFT is the
 same pair of windowed-DFT matmuls (periodic Hann, power 2), the mel bank
 the same HTK triangles, CMVN the same masked per-utterance statistics
-(ddof=1), SpecAugment the same two-stage mask draw filled with the
-utterance mean, and LFR the same clipped gather. The masks are drawn from
-an explicit ``torch.Generator`` (jax.random's bits cannot be reproduced).
-Time-warp is not ported yet (ROADMAP §1, item 1: training, time-warp).
+(ddof=1), SpecAugment the same time warp (``data/timewarp.py``) and
+two-stage mask draw filled with the utterance mean, and LFR the same
+clipped gather. The warps and masks are drawn from an explicit
+``torch.Generator`` (jax.random's bits cannot be reproduced).
 
 Shapes are static per bucket; variable length rides in ``lengths``
 tensors, as in the JAX package.
@@ -21,6 +21,8 @@ import functools
 import numpy as np
 import torch
 import torch.nn.functional as F
+
+from .timewarp import time_warp
 
 LOG_EPS = 1e-20  # processor.py:38
 
@@ -267,14 +269,14 @@ def apply_spec_masks(feats, feat_lengths, freq_masks, time_masks):
 
 
 def spec_augment(feats, feat_lengths, cfg: FeatureConfig, generator: torch.Generator):
-    """SpecAugment (``augments.py:4-42``): ``num_freq_masks`` masks of width
-    < ``freq_mask_param`` and ``num_time_masks`` masks of width <
-    ``time_mask_param`` inside each utterance's length, independent per
-    utterance, drawn from ``generator`` (a CPU generator)."""
-    if cfg.num_time_warps > 0:
-        raise NotImplementedError(
-            "time-warp is not ported yet (ROADMAP §1, item 1: training, time-warp)"
-        )
+    """SpecAugment (``augments.py:4-42``): first ``num_time_warps`` time
+    warps of at most ``time_warp_param`` frames (``data/timewarp.py``), then
+    ``num_freq_masks`` masks of width < ``freq_mask_param`` and
+    ``num_time_masks`` masks of width < ``time_mask_param`` inside each
+    utterance's length, independent per utterance, all drawn from
+    ``generator`` (a CPU generator)."""
+    for _ in range(cfg.num_time_warps):
+        feats = time_warp(feats, feat_lengths, generator, cfg.time_warp_param)
     b, t, d = feats.shape
     freq = [_spec_mask(generator, b, d, cfg.freq_mask_param)
             for _ in range(cfg.num_freq_masks)]

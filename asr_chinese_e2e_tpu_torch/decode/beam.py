@@ -64,10 +64,12 @@ class BeamResult:
 
 
 def _tree_map(fn, tree):
+    """``fn`` over the leaves of nested dicts, lists and tuples (an LSTM
+    carry is a (c, h) tuple)."""
     if isinstance(tree, dict):
         return {k: _tree_map(fn, v) for k, v in tree.items()}
-    if isinstance(tree, list):
-        return [_tree_map(fn, v) for v in tree]
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_tree_map(fn, v) for v in tree)
     return fn(tree)
 
 

@@ -24,7 +24,7 @@ from .core.config import Config, resolve_config
 from .core.registry import get_model
 from .data.batching import BucketedLoader
 from .data.vocab import Vocab
-from .train.optimizer import default_train_config, make_optimizer
+from .train.optimizer import default_train_config, make_optimizer, model_width
 from .train.trainer import Trainer
 from .utils.cli import coerce, parse_kwargs
 from .utils.experiment import feature_config_from
@@ -63,9 +63,7 @@ def train(**cli_kwargs) -> Trainer:
     model_cls, model_default = get_model(model_name)
     cfg = resolve_config(base, model_default(), cli_kwargs)
     feat_cfg = feature_config_from(cfg)
-    if "input_dim" not in cli_kwargs or cfg.get("frontend", "linear") == "conv2d":
-        # the conv2d frontend's projection width follows the features
-        # whatever input_dim says (flax infers it from the data)
+    if "input_dim" not in cli_kwargs or model_cls.input_dim_from_features(cfg):
         cfg.build(input_dim=feat_cfg.feature_dim)
 
     vocab = Vocab.load(cfg.vocab_path)
@@ -92,7 +90,7 @@ def train(**cli_kwargs) -> Trainer:
         raise RuntimeError("device=cuda but CUDA is not available")
     generator = torch.Generator().manual_seed(int(cfg.seed))
     model = model_cls(cfg, vocab.vocab_size, generator).to(device)
-    optimizer = make_optimizer(model.parameters(), cfg, cfg.get("d_model", 512))
+    optimizer = make_optimizer(model.parameters(), cfg, model_width(cfg))
     trainer = Trainer(
         model, optimizer, cfg, feat_cfg, vocab,
         train_loader=loaders["train"],

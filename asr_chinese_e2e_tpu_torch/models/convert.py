@@ -1,8 +1,8 @@
 """flax parameter tree -> the port's ``state_dict``.
 
-Takes the JAX package's SpeechTransformer parameters as nested dicts of
+Takes the JAX package's model parameters as nested dicts of
 numpy arrays (a ``{"params": ...}`` variables dict or its inner tree) and
-returns float32 torch tensors keyed as ``SpeechTransformer.state_dict()``.
+returns float32 torch tensors keyed as the port model's ``state_dict()``.
 Layouts:
 
 - ``DenseGeneral`` q/k/v kernels (D, H, dk) and biases (H, dk) ->
@@ -15,6 +15,11 @@ Layouts:
 - the conformer's depthwise ``Conv`` kernel (k, 1, D) -> ``nn.Conv1d``
   weight (D, 1, k); the conv2d frontend's HWIO kernels (3, 3, in, out) ->
   OIHW (out, in, 3, 3).
+
+The RNN family's and ``ExampleModel``'s trees map too: an
+``OptimizedLSTMCell``'s eight kernels become torch's packed (i, f, g, o)
+gate rows, the hidden kernels' bias in ``bias_hh`` and zeros in
+``bias_ih``; the location conv (k, 1, filters) -> (filters, 1, k).
 
 No jax import: the card's machine can convert arrays saved anywhere.
 """
@@ -70,11 +75,68 @@ def _mha(p, out: dict, name: str) -> None:
     out[f"{name}.out_proj.bias"] = _t(p["out"]["bias"])
 
 
+_GATES = ("i", "f", "g", "o")  # torch's row order of the packed gate weights
+
+
+def _lstm(p, out: dict, name: str, suffix: str = "") -> None:
+    """flax ``OptimizedLSTMCell`` (input kernels ii/if/ig/io, no bias;
+    hidden kernels hi/hf/hg/ho, with bias) -> torch's packed gate rows."""
+    out[f"{name}.weight_ih{suffix}"] = _t(
+        np.concatenate([np.asarray(p[f"i{g}"]["kernel"]).T for g in _GATES]))
+    out[f"{name}.weight_hh{suffix}"] = _t(
+        np.concatenate([np.asarray(p[f"h{g}"]["kernel"]).T for g in _GATES]))
+    bias = np.concatenate([np.asarray(p[f"h{g}"]["bias"]) for g in _GATES])
+    out[f"{name}.bias_ih{suffix}"] = _t(np.zeros_like(bias))
+    out[f"{name}.bias_hh{suffix}"] = _t(bias)
+
+
+def _weight(p, out: dict, name: str) -> None:
+    """A bias-free ``Dense`` kernel (in, out) -> weight (out, in)."""
+    out[f"{name}.weight"] = _t(np.asarray(p["kernel"]).T)
+
+
+def _rnn_state(params, cfg, vocab_size: int) -> dict:
+    """BiLSTMCTC / LAS. flax names the encoder's cells in creation order:
+    ``OptimizedLSTMCell_{2i}`` is layer i's forward cell, ``_{2i+1}`` its
+    backward cell."""
+    out: dict = {}
+    enc = params["encoder"]
+    for i in range(cfg.num_encoder_layers):
+        _lstm(enc[f"OptimizedLSTMCell_{2 * i}"], out, f"encoder.fwd.{i}", "_l0")
+        _lstm(enc[f"OptimizedLSTMCell_{2 * i + 1}"], out, f"encoder.bwd.{i}", "_l0")
+    if "decoder" in params:
+        dec = params["decoder"]
+        table = np.asarray(dec["embed"]["embedding"])
+        if table.shape[0] != vocab_size:
+            raise ValueError(f"embedding has {table.shape[0]} rows, vocab {vocab_size}")
+        out["decoder.embed.weight"] = _t(table)
+        _lstm(dec["cell"], out, "decoder.cell")
+        att = dec["attention"]
+        _dense(att["query_proj"], out, "decoder.attention.query_proj")
+        # flax (k, 1, filters) -> torch (filters, 1, k)
+        kern = np.asarray(att["location_conv"]["kernel"])
+        out["decoder.attention.location_conv.weight"] = _t(np.moveaxis(kern, (-1, -2), (0, 1)))
+        for sub in ("location_proj", "score_proj", "enc_proj_dense"):
+            _weight(att[sub], out, f"decoder.attention.{sub}")
+        _dense(dec["out_proj"], out, "decoder.out_proj")
+    if "ctc_head" in params:
+        _dense(params["ctc_head"], out, "ctc_head")
+    return out
+
+
 def torch_state_from_flax(params, cfg, vocab_size: int) -> dict:
-    """Map a flax SpeechTransformer parameter tree onto the port's
-    ``state_dict`` (see the module docstring for the layouts)."""
+    """Map a flax parameter tree of SpeechTransformer, BiLSTMCTC, LAS or
+    ExampleModel (told apart by the tree) onto the port's ``state_dict``
+    (see the module docstring for the layouts)."""
     if "params" in params:
         params = params["params"]
+    if "OptimizedLSTMCell_0" in params.get("encoder", {}):
+        return _rnn_state(params, cfg, vocab_size)
+    if "Dense_0" in params:  # ExampleModel
+        out: dict = {}
+        _dense(params["Dense_0"], out, "hidden")
+        _dense(params["Dense_1"], out, "out")
+        return out
     out: dict = {}
     enc, dec = params["encoder"], params["decoder"]
     if "frontend_mod" in enc:  # conv2d frontend

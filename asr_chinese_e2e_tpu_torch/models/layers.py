@@ -12,6 +12,7 @@ stay float32 (the optimizer's master weights) and each layer casts them
 to its compute dtype where it uses them (``Dense``, ``Embedding``, the
 convolutions);
 LayerNorm statistics are f32 and its output is in the compute dtype.
+cuDNN's f32 convolutions and recurrences stay f32 (``keep_cudnn_f32``).
 Attention logits and softmax are f32 whatever the compute dtype. A model
 moved to bf16 with ``.to(dtype=...)`` (the serving path) computes the
 same way, with casts that are no-ops.
@@ -101,8 +102,9 @@ class Dense(nn.Linear):
     """``nn.Linear`` that computes in ``dtype``: input, weight and bias are
     cast at use (flax ``nn.Dense(dtype=...)`` with float32 parameters)."""
 
-    def __init__(self, in_features: int, out_features: int, dtype=torch.float32):
-        super().__init__(in_features, out_features)
+    def __init__(self, in_features: int, out_features: int, dtype=torch.float32,
+                 bias: bool = True):
+        super().__init__(in_features, out_features, bias=bias)
         self.compute_dtype = dtype
 
     def forward(self, x):
@@ -111,7 +113,8 @@ class Dense(nn.Linear):
             # weights already cast (the serving path): no cast calls on the
             # host-bound decode step
             return F.linear(x, self.weight, self.bias)
-        return F.linear(x.to(dt), self.weight.to(dt), self.bias.to(dt))
+        bias = None if self.bias is None else self.bias.to(dt)
+        return F.linear(x.to(dt), self.weight.to(dt), bias)
 
 
 class LayerNorm(nn.LayerNorm):
@@ -238,14 +241,17 @@ class MultiHeadAttention(nn.Module):
         k, v = self.kv(kv_in)
         return self._attend(q, k, v, bias, rng)
 
-    def _fused_general(self, q_in, kv_in, q_lengths, k_lengths, causal, rng, band=0):
+    def _fused_general(self, q_in, kv_in, q_lengths, k_lengths, causal, rng, band=0,
+                       weight_dropout=True):
         """Project, run the fused attention kernels on (B, H, T, d) with the
-        weight dropout in the kernel, project out, output dropout."""
+        weight dropout in the kernel (unless ``weight_dropout`` is False),
+        project out, output dropout."""
         q = self._split(self.q_proj(q_in))
         k, v = self.kv(kv_in)
         to_bhtd = lambda a: a.transpose(1, 2).contiguous()
         rate, seed = 0.0, 0
-        if rng is not None and self.weight_dropout and self.dropout_rate > 0.0:
+        if (rng is not None and weight_dropout and self.weight_dropout
+                and self.dropout_rate > 0.0):
             rate, seed = self.dropout_rate, draw_seed(rng)
         out = fused_attention_general(
             to_bhtd(q), to_bhtd(k), to_bhtd(v), q_lengths, k_lengths,
@@ -256,6 +262,15 @@ class MultiHeadAttention(nn.Module):
     def fused(self, x, lengths, rng=None):
         """Self-attention through the fused kernel (``attn_impl='fused'``)."""
         return self._fused_general(x, x, lengths, lengths, False, rng)
+
+    def flash(self, x, lengths, rng=None):
+        """Self-attention of ``attn_impl='flash'``: the JAX package's flash
+        path (the JAX library's TPU kernel) drops no attention weight and
+        keeps the output dropout; here the fused kernels K1/K2 at weight
+        dropout 0. Keys are masked by length here and by segment ids there,
+        which lets a padded query row see the padded keys: the two differ on
+        padded query rows only, which no valid output reads."""
+        return self._fused_general(x, x, lengths, lengths, False, rng, weight_dropout=False)
 
     def fused_pattern(self, x, lengths, causal: bool, band: int, rng=None):
         """Self-attention through the fused kernel with the banded /
@@ -394,6 +409,16 @@ def _ceil_div(n: int, d: int) -> int:
     return -(-n // d)
 
 
+def keep_cudnn_f32(x: torch.Tensor) -> None:
+    """Turn off cuDNN's TF32 for f32 convolutions and recurrences before a
+    layer that calls cuDNN runs on the card: PyTorch allows it by default,
+    and f32 here means f32, as in flax. The switch is process-wide and the
+    backward pass reads it again, so it is set for the process, not around
+    the call."""
+    if x.is_cuda:
+        torch.backends.cudnn.allow_tf32 = False
+
+
 def same_padding(n: int, kernel: int, stride: int) -> tuple:
     """flax / XLA ``"SAME"`` padding (lo, hi) of one axis of length ``n``:
     the output has ceil(n / stride) rows and the odd pad goes on the right
@@ -431,6 +456,7 @@ class ConvModule(nn.Module):
         """x: (B, T, d). ``frame_mask`` (B, T), 1 on valid frames, is taken
         from ``lengths`` when not given (the chunked encode passes its own)."""
         dt = self.compute_dtype
+        keep_cudnn_f32(x)
         if frame_mask is None and lengths is not None:
             frame_mask = (
                 torch.arange(x.shape[1], device=x.device)[None, :]
@@ -469,6 +495,7 @@ class ConvSubsampler(nn.Module):
         """x: (B, T, F) -> ((B, ceil(ceil(T/2)/2), d), lengths (l+1)//2
         twice)."""
         dt = self.compute_dtype
+        keep_cudnn_f32(x)
         y = _cast(x, dt)[:, None]  # (B, 1, T, F)
         for conv in (self.conv0, self.conv1):
             t_lo, t_hi = same_padding(y.shape[2], 3, 2)

@@ -7,9 +7,10 @@ KV-cached decoder, and the CTC head; the encoder's and the decoder's
 attention through the fused kernels (``attn_impl`` / ``decoder_attn_impl``
 = "fused") or plain products ("xla"). Both encoder families
 (``encoder_type`` "transformer" or "conformer"), both frontends
-(``frontend`` "linear" or "conv2d") and ``remat`` (per-layer activation
-recomputation, ``torch.utils.checkpoint``) are ported. The flash / ring
-attention paths are not ported yet; asking for them raises
+(``frontend`` "linear" or "conv2d"), ``remat`` (per-layer activation
+recomputation, ``torch.utils.checkpoint``) and ``attn_impl="flash"``
+(the fused kernels without weight dropout) are ported. The ring
+attention path is not ported yet; asking for it raises
 ``NotImplementedError`` naming the ROADMAP item.
 
 Weights are created from an explicit ``torch.Generator`` (the JAX
@@ -95,16 +96,11 @@ def deepnorm_coeffs(cfg):
 def check_supported(cfg) -> None:
     """Raise ``NotImplementedError`` for configurations the port does not
     run yet, naming the ROADMAP item that brings them."""
-    unsupported = [
-        (cfg.get("attn_impl", "xla") == "flash",
-         "attn_impl='flash' (ROADMAP §1, item 1: training, the flash path)"),
-        (cfg.get("attn_impl", "xla") == "ring",
-         "attn_impl='ring' (ROADMAP §1, item 7: parallelism)"),
-    ]
-    for bad, what in unsupported:
-        if bad:
-            raise NotImplementedError(f"{what} is not ported yet")
-    if cfg.get("attn_impl", "xla") not in ("xla", "fused"):
+    if cfg.get("attn_impl", "xla") == "ring":
+        raise NotImplementedError(
+            "attn_impl='ring' (ROADMAP §1, item 7: parallelism) is not ported yet"
+        )
+    if cfg.get("attn_impl", "xla") not in ("xla", "fused", "flash"):
         raise ValueError(f"unknown attn_impl {cfg.attn_impl!r}")
     if cfg.get("decoder_attn_impl", "xla") not in ("xla", "fused"):
         raise ValueError(f"unknown decoder_attn_impl {cfg.decoder_attn_impl!r}")
@@ -166,15 +162,20 @@ def run_layer(layer, remat: bool, rng, *args):
 
 def _encoder_self_attention(cfg, attn, x, bias, lengths, rng):
     """Encoder self-attention dispatch on ``attn_impl``: "fused" runs the
-    attention kernels (band / causal patterns in the kernel), "xla" the
-    plain masked products."""
+    attention kernels (band / causal patterns in the kernel), "flash" the
+    same kernels without weight dropout (a band or causal pattern takes
+    the plain bias path, as the JAX package's flash kernel has none),
+    "xla" the plain masked products."""
     impl = cfg.get("attn_impl", "xla")
     band = cfg.get("attention_band", 0)
     causal = cfg.get("causal_encoder", False)
-    if impl == "fused" and lengths is not None:
-        if band or causal:
-            return attn.fused_pattern(x, lengths, causal, band, rng)
-        return attn.fused(x, lengths, rng)
+    if lengths is not None:
+        if impl == "fused":
+            if band or causal:
+                return attn.fused_pattern(x, lengths, causal, band, rng)
+            return attn.fused(x, lengths, rng)
+        if impl == "flash" and not (band or causal):
+            return attn.flash(x, lengths, rng)
     return attn(x, x, bias, rng)
 
 
@@ -580,6 +581,12 @@ class SpeechTransformer(nn.Module):
     # beam search may keep cross K/V at one row per utterance and fold the
     # beam dim into queries (see MultiHeadAttention.step_cross)
     FOLD_BEAM_CROSS = True
+
+    @staticmethod
+    def input_dim_from_features(cfg: Config) -> bool:
+        """Whether the input width is the features' whatever ``input_dim``
+        says: flax infers it from the data for the conv2d frontend only."""
+        return cfg.get("frontend", "linear") == "conv2d"
 
     def __init__(self, cfg: Config, vocab_size: int, generator=None):
         super().__init__()

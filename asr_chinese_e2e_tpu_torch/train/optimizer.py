@@ -75,6 +75,12 @@ def make_schedule(cfg: Config, d_model: int):
     return lambda count: cfg.lr
 
 
+def model_width(cfg: Config) -> int:
+    """The width Noam scales by: ``d_model``, else ``hidden_size`` (the RNN
+    family), else 512, as the JAX package's trainer takes it."""
+    return cfg.get("d_model", cfg.get("hidden_size", 512))
+
+
 def noam_peak_lr(d_model: int, warmup: int, factor: float = 1.0) -> float:
     """The schedule's maximum (reached at step == warmup)."""
     return factor * d_model ** -0.5 * warmup ** -0.5

@@ -141,9 +141,11 @@ def make_step_fns(model, optimizer: Optimizer, feat_cfg: FeatureConfig, cfg: Con
         feats, feat_lens = featurize(wave, wave_lengths, None)
         out = model(feats, feat_lens, labels, label_lengths)
         _, metrics = model_loss(out, labels, label_lengths, ctc_weight, smoothing, ctc_impl)
-        # teacher-forced argmax ids for host-side CER at eval cadence
-        metrics["pred_ids"] = out["logits"].argmax(dim=-1)
-        metrics["gold_ids"] = out["gold"]
+        if "logits" in out:
+            # teacher-forced argmax ids for host-side CER at eval cadence
+            # (a CTC-only model has none)
+            metrics["pred_ids"] = out["logits"].argmax(dim=-1)
+            metrics["gold_ids"] = out["gold"]
         return metrics
 
     return init_fn, train_step, eval_step

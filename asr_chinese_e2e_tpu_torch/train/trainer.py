@@ -13,7 +13,8 @@ a log window raises.
 ``eval_decode`` (none | ctc_greedy | attention_greedy | beam | joint, beam
 width ``eval_beam_size``) adds a decoded CER: ``evaluate`` re-encodes each
 batch, decodes it in that mode and records ``decoded_cer`` beside the
-teacher-forced ``cer``.
+teacher-forced ``cer`` (which a model without teacher-forced logits, as
+BiLSTMCTC, does not record).
 
 Left out of the port (ROADMAP §1): the device mesh, ``steps_per_dispatch``
 and in-flight pacing (TPU remote-link workarounds), and xprof tracing.
@@ -38,7 +39,7 @@ from ..decode.greedy import attention_greedy_decode, ctc_greedy_decode, tokens_t
 from ..decode.joint import joint_beam_search
 from .checkpoint import CheckpointManager
 from .metrics import MetricsAccumulator, ScalarWriter, ThroughputMeter
-from .optimizer import Optimizer, current_lr
+from .optimizer import Optimizer, current_lr, model_width
 from .train_step import make_step_fns
 
 
@@ -89,7 +90,8 @@ class Trainer:
         self.seed = int(cfg.get("seed", 0))
         self.state = None
         self.epoch = 0
-        self._d_model = cfg.get("d_model", 512)
+        # Noam's width: the RNN family has hidden_size and no d_model
+        self._d_model = model_width(cfg)
         self.throughput = ThroughputMeter(1)
 
     def _put_batch(self, batch: Batch) -> list:
@@ -173,10 +175,11 @@ class Trainer:
             names = [k for k in metrics if k not in ("pred_ids", "gold_ids")]
             values = torch.stack([metrics[k].float() for k in names]).tolist()
             host = dict(zip(names, values))
-            host["cer"] = batch_cer_from_ids(
-                metrics["pred_ids"].cpu().numpy(), metrics["gold_ids"].cpu().numpy(),
-                self.vocab,
-            )
+            if "pred_ids" in metrics:
+                host["cer"] = batch_cer_from_ids(
+                    metrics["pred_ids"].cpu().numpy(), metrics["gold_ids"].cpu().numpy(),
+                    self.vocab,
+                )
             if self._eval_decode != "none":
                 host["decoded_cer"] = corpus_cer(self._decode(*arrays[:2]), batch.texts)
             acc.update(host, num_samples=len(batch.texts))

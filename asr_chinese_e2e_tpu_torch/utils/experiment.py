@@ -14,17 +14,12 @@ from typing import Tuple
 import torch
 
 from ..core.config import Config
+from ..core.registry import get_model
 from ..data.features import FeatureConfig
 from ..data.vocab import Vocab
 from ..models.transformer import SpeechTransformer
 
 CKPT_DIR = "torch_checkpoints"
-# registry names (core/registry.py) that resolve to SpeechTransformer; the
-# variant's hyperparameters are already merged into config.json
-_TRANSFORMER_NAMES = {
-    "SpeechTransformer", "TransformerOffical", "Transformer",
-    "TransformerNew", "TransformerNew2", "Conformer",
-}
 
 
 def feature_config_from(cfg: Config) -> FeatureConfig:
@@ -73,22 +68,21 @@ def save_torch_checkpoint(
 
 def load_experiment(
     exp_dir: str, vocab_path: str, which: str = "best", device="cuda"
-) -> Tuple[SpeechTransformer, Config, FeatureConfig, Vocab]:
-    """Returns (model on ``device`` in its configured dtype, in eval mode,
-    cfg, feat_cfg, vocab). ``device`` is the card unless the caller asks
-    for ``"cpu"`` (the plain versions); asking for the card without one
-    raises. ``best`` falls back to ``latest`` when no best checkpoint
-    exists, as the JAX loader does."""
+) -> Tuple[torch.nn.Module, Config, FeatureConfig, Vocab]:
+    """Returns (the registry's model for ``model_name`` on ``device``, in
+    eval mode, cfg, feat_cfg, vocab). A SpeechTransformer's weights are cast
+    to its configured dtype; the RNN family keeps f32 weights (its LSTMs
+    compute in f32, its dense layers cast at use). ``device`` is the card
+    unless the caller asks for ``"cpu"`` (the plain versions); asking for
+    the card without one raises. ``best`` falls back to ``latest`` when no
+    best checkpoint exists, as the JAX loader does."""
     device = torch.device(device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("device=cuda but CUDA is not available")
     cfg = Config.load(os.path.join(exp_dir, "config.json"))
     vocab = Vocab.load(vocab_path)
-    name = cfg.get("model_name", "SpeechTransformer")
-    if name not in _TRANSFORMER_NAMES:
-        raise NotImplementedError(
-            f"model {name!r} is not ported yet (ROADMAP §1, item 6: RNN family)"
-        )
+    # the variant's hyperparameters are already merged into config.json
+    model_cls, _ = get_model(cfg.get("model_name", "SpeechTransformer"))
     path = checkpoint_path(exp_dir, which)
     if which == "best" and not os.path.exists(path):
         path = checkpoint_path(exp_dir, "latest")
@@ -100,11 +94,13 @@ def load_experiment(
         raise ValueError(
             f"vocab fingerprint mismatch: checkpoint {fp} vs {vocab.fingerprint()}"
         )
-    if cfg.get("frontend", "linear") == "conv2d":
-        # a JAX experiment keeps input_dim's default under conv2d: its
-        # projection width follows the features (see main.train)
+    if model_cls.input_dim_from_features(cfg):
+        # a JAX experiment may keep input_dim's default there: the input
+        # width follows the features (see main.train)
         cfg.build(input_dim=feature_config_from(cfg).feature_dim)
-    model = SpeechTransformer(cfg, vocab.vocab_size)
+    model = model_cls(cfg, vocab.vocab_size)
     model.load_state_dict(blob["state_dict"])
-    model = model.to(device=device, dtype=model.compute_dtype).eval()
-    return model, cfg, feature_config_from(cfg), vocab
+    model = model.to(device)
+    if isinstance(model, SpeechTransformer):
+        model = model.to(dtype=model.compute_dtype)
+    return model.eval(), cfg, feature_config_from(cfg), vocab

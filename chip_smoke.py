@@ -6,16 +6,19 @@ training path (``asr_chinese_e2e_tpu_torch.main.train``) on the flagship
 configuration with random weights, then trains and serves the streaming
 model family (causal-banded encoder) through ``main.train`` and
 ``asr_chinese_e2e_tpu_torch.stream``, then the conformer family (trained,
-served, streamed), and checks that every path went through its kernels.
+served, streamed), then the RNN family (BiLSTMCTC and LAS, trained and
+served), SpecAugment's time warp and ``attn_impl="flash"``, and checks
+that every path went through its kernels.
 Run from the repository root:
 
     python3 chip_smoke.py
 
-Phases (any failure raises, so the exit code is non-zero; phases 3-14, 8b,
-9b and 14b each print the seconds they took; 8b runs after 8, 9b after 9,
-14b after 14):
+Phases (any failure raises, so the exit code is non-zero; phases 3-15, 8b,
+9b, 14b and 15b each print the seconds they took; 8b runs after 8, 9b after
+9, 14b after 14, 15b after 15):
 
-1. require CUDA; print the card (``nvidia-smi``); TF32 off;
+1. require CUDA; print the card (``nvidia-smi``); TF32 off for matmuls
+   (cuDNN's stays at PyTorch's default: the port's cuDNN layers turn it off);
 2. build the kernels (``ops/_build.py``, one nvcc per source in parallel)
    and print the build time;
 3. K5 fbank kernel vs ``log_mel_spectrogram``: log-mel abs diff and mel
@@ -85,9 +88,10 @@ Phases (any failure raises, so the exit code is non-zero; phases 3-14, 8b,
    sides round the gradient to bf16); K3's alpha table on the rows t < len
    within 1e-4 of max(1, |plain|) on the cells the plain version reaches
    and log-zero (<= -1e29) on both sides on the others, its log-sum-exp
-   within 1e-5 abs; times at the first two, and the two launches of K3 (row
-   pass, recursion) and of K4 (recursion, gradient rows) timed apart under
-   the profiler;
+   within 1e-5 abs; times at the first two in bf16 and at the first in f32
+   (the RNN family's logits), and the two launches of K3 (row pass,
+   recursion) and of K4 (recursion, gradient rows) timed apart under the
+   profiler;
 8. the serving path: a 512-wide, 6+6-layer, bf16 SpeechTransformer with a
    4233-token vocabulary decodes 16 synthetic utterances of 2-8 s (beam
    10, batches of 8); every utterance needs a finite-scored hypothesis,
@@ -187,20 +191,48 @@ Phases (any failure raises, so the exit code is non-zero; phases 3-14, 8b,
     steps of the conformer recipe on phase 13's batch: ms per step,
     audio-s/s, MFU (the conformer's FLOPs: its second FFN, the conv
     module's pointwise and depthwise convolutions);
-15. print the kernels' JSON line (per kernel: route, source, the TPU
-    kernel it replaces, launches on the main paths (the conformer's
-    included) and per flagship train step, streaming train step, conformer
-    train step, beam and joint serving batch (K8
-    also per joint decode step), and at the
+15. the RNN family at the registry's widths, f32, random weights from seed
+    0, vocabulary 4233: ``BiLSTMCTC`` (2 x BiLSTM 128, CTC 1.0) and
+    ``LAS`` (3 x BiLSTM 256, location-aware attention 256 with 10 x 31
+    location filters, CTC 0.3), each trained by ``main.train`` 1 epoch on
+    phase 9's corpus with ``eval_decode`` (``ctc_greedy``, ``beam``) from
+    cuDNN's TF32 at PyTorch's default (the port must turn it off): losses
+    finite, a finite ``dev/decoded_cer``, per step K5 1, K3 1, K4 1
+    and no attention kernel (per dev batch K5 2: the loss and the decode;
+    K3 1); served by ``recognize`` on the 16 dev utterances in every mode
+    the JAX package serves it in (BiLSTMCTC ``ctc_greedy``; LAS
+    ``ctc_greedy``, ``attention_greedy``, ``beam``, ``joint``: per batch K5
+    1, K8 once per joint decode step, a finite hypothesis for every
+    utterance), each mode it cannot serve raising as there; one f32 step
+    on the card vs the CPU's plain path (loss and gradient norm within 1e-3
+    relative, as phase 10); 10 timed steps on phase 13's batch: ms per
+    step, audio-s/s, MFU against 67 TFLOP/s f32 (LSTM gates, location
+    attention and heads counted) and device ms per step (3 steps under the
+    profiler);
+15b. the time warp on the card vs the CPU on the same draws (the fixed
+    batch's log-mel, 64 x 801 x 80, within 1e-3), one flagship step with a
+    time warp in its SpecAugment (launches as a flagship step), and
+    flagship steps with ``attn_impl="flash"`` and with ``"fused"`` from the
+    same weights and draws, at dropout 0 and at hash dropout 0.1 (there
+    ``"fused"`` without the attention-weight dropout): bit-identical loss
+    and gradient norm, K1 6 and K2 6 each;
+16. print the kernels' JSON line (per kernel: route, source, the TPU
+    kernel it replaces, launches on the main paths (the conformer's and the
+    RNN family's included) and per flagship train step, streaming train
+    step, conformer train step, BiLSTMCTC and LAS train step, flash train
+    step, beam and joint serving batch, LAS joint decode step (K8 also per
+    joint decode step), and at the
     training shape ``shape``, ``max_abs_err``, ``ms``, ``plain_ms``,
     ``bound_ms``, ``bound_by``, ``library_ms``, ``device_ms`` (20 launches
     back to back: of the C entry point for the attention kernels, of the
     wrapper for K3-K5) and for K2 and K7 ``checked_ms``; ``other_shapes`` holds
-    the same for the serving shapes), the card line, and last
+    the same for the serving shapes, and for K3/K4 for f32 logits at the
+    training shape), the card line, and last
     ``{"ok": true, "device": {...}}``.
 """
 
 import contextlib
+import dataclasses
 import json
 import os
 import shutil
@@ -217,6 +249,8 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, ROOT)
 
 from asr_chinese_e2e_tpu_torch.core.config import Config  # noqa: E402
+from asr_chinese_e2e_tpu_torch.core.registry import get_model  # noqa: E402
+from asr_chinese_e2e_tpu_torch.data import timewarp  # noqa: E402
 from asr_chinese_e2e_tpu_torch.data.batching import BucketedLoader  # noqa: E402
 from asr_chinese_e2e_tpu_torch.data.features import (  # noqa: E402
     FeatureConfig,
@@ -255,6 +289,7 @@ from asr_chinese_e2e_tpu_torch.stream import StreamingRecognizer  # noqa: E402
 from asr_chinese_e2e_tpu_torch.train.optimizer import (  # noqa: E402
     default_train_config,
     make_optimizer,
+    model_width,
 )
 from asr_chinese_e2e_tpu_torch.train.train_step import make_step_fns  # noqa: E402
 from asr_chinese_e2e_tpu_torch.train.trainer import Trainer  # noqa: E402
@@ -1310,12 +1345,15 @@ def check_ctc(dev) -> tuple[dict, dict]:
             _check_alpha_table(f"ctc {name} {dname}", logits, ext, lens, lab_lens, alpha, lse)
             worst["alpha"] = max(worst["alpha"], (loss - want_loss).abs().max().item())
             worst["beta"] = max(worst["beta"], g_err)
-            if dtype == torch.bfloat16 and name != "repeats":
+            # bf16 at both shapes; f32 at the training shape, the RNN
+            # family's logits
+            if name != "repeats" and (dtype == torch.bfloat16 or name == "train"):
                 errs = {"alpha": (loss - want_loss).abs().max().item(), "beta": g_err}
-                timed[name] = _time_ctc(logits, ext, lens, labels, lab_lens, g, lse, alpha,
-                                        want_loss, shape, errs)
-    first, other = (timed[n] for n in ("train", "long-labels"))
-    return tuple({**first[p], "max_abs_err": worst[p], "other_shapes": [other[p]]}
+                timed[name, dname] = _time_ctc(logits, ext, lens, labels, lab_lens, g, lse,
+                                               alpha, want_loss, shape, errs)
+    first, other, f32 = (timed[k] for k in (("train", "bfloat16"), ("long-labels", "bfloat16"),
+                                            ("train", "float32")))
+    return tuple({**first[p], "max_abs_err": worst[p], "other_shapes": [other[p], f32[p]]}
                  for p in ("alpha", "beta"))
 
 
@@ -1358,22 +1396,26 @@ def _time_ctc(logits, ext, lens, labels, lab_lens, g, lse, alpha, want_loss, sha
         lambda: ctc.ctc_beta_reference(
             logits, ext, lens, lab_lens, lse, alpha, want_loss, g), n=5, warmup=1)
     dims = (*shape, ext.shape[1])
-    limits = {"alpha": ctc_alpha_bound(*dims), "beta": ctc_beta_bound(*dims)}
+    itemsize = logits.element_size()
+    dname = "bf16" if logits.dtype == torch.bfloat16 else "f32"
+    limits = {"alpha": ctc_alpha_bound(*dims, itemsize=itemsize),
+              "beta": ctc_beta_bound(*dims, itemsize=itemsize)}
     for part in ("alpha", "beta"):
-        _print_times(f"ctc {part} bf16 (library: F.log_softmax + F.ctc_loss; plain: "
+        _print_times(f"ctc {part} {dname} (library: F.log_softmax + F.ctc_loss; plain: "
                      f"median of 5)", shape, timing[part], limits[part])
     device = {
-        "alpha": _wrapper_device_times("ctc alpha bf16", shape, k3, limits["alpha"]),
-        "beta": _wrapper_device_times("ctc beta bf16", shape, k4, limits["beta"]),
+        "alpha": _wrapper_device_times(f"ctc alpha {dname}", shape, k3, limits["alpha"]),
+        "beta": _wrapper_device_times(f"ctc beta {dname}", shape, k4, limits["beta"]),
     }
     for part, fn, names in (("alpha", k3, K3_KERNELS), ("beta", k4, K4_KERNELS)):
         parts = _launch_device_ms(fn, names)
-        print(f"ctc {part} bf16 {shape} S = {ext.shape[1]}, device ms per launch under the "
+        print(f"ctc {part} {dname} {shape} S = {ext.shape[1]}, device ms per launch under the "
               f"profiler ({DEVICE_REPS} calls): "
               + ", ".join(f"{k} {v:.4f}" for k, v in parts.items()))
         device[part]["device_ms_launches"] = parts
     return {p: {**_measured(shape, errs[p], timing[p], limits[p]), "S": ext.shape[1],
-                **device[p]} for p in ("alpha", "beta")}
+                "dtype": str(logits.dtype).replace("torch.", ""), **device[p]}
+            for p in ("alpha", "beta")}
 
 
 # -- phase 8: the serving path -------------------------------------------------
@@ -1553,21 +1595,22 @@ def check_ctc_prefix_kernel(dev) -> dict:
 
 
 @contextlib.contextmanager
-def counted_steps(model):
-    """Count the model's lazy decode steps (the joint and beam searches
-    call ``decode_step_lazy`` once a step) while the block runs."""
+def counted_steps(model, method="decode_step_lazy"):
+    """Count the model's decode steps while the block runs: the joint and
+    beam searches call ``decode_step_lazy`` once a step, or
+    ``decode_step`` for a model without it (LAS)."""
     n = [0]
-    inner = model.decode_step_lazy
+    inner = getattr(model, method)
 
     def step(*a, **kw):
         n[0] += 1
         return inner(*a, **kw)
 
-    model.decode_step_lazy = step
+    setattr(model, method, step)
     try:
         yield n
     finally:
-        del model.decode_step_lazy
+        delattr(model, method)
 
 
 def _first_batch(model, feat_cfg, manifest, dev, b=8):
@@ -1853,15 +1896,33 @@ def run_training_path(dev):
 # -- phase 10: one f32 step, card vs CPU ----------------------------------------
 
 
+RNN_NAMES = ("BiLSTMCTC", "LAS")
+
+
 def _recipe(dtype: str, **overrides) -> tuple:
-    """(model config, train config, feature config) of the flagship recipe."""
-    cfg = flagship_config(dtype).build(dropout_impl="hash", ctc_impl="pallas", **overrides)
+    """(model config, train config, feature config) of the flagship recipe,
+    or with ``model_name`` one of the RNN family, of its registry config
+    (its widths, rng dropout 0.1, its CTC weight) through the same fbank and
+    CTC kernels."""
+    if overrides.get("model_name") in RNN_NAMES:
+        cfg = get_model(overrides["model_name"])[1]().build(
+            dtype=dtype, fbank_impl="pallas", ctc_impl="pallas", **overrides)
+        cfg = Config(**cfg.to_dict())
+    else:
+        cfg = flagship_config(dtype).build(dropout_impl="hash", ctc_impl="pallas", **overrides)
     return cfg, default_train_config().combine(cfg), FeatureConfig(fbank_impl="pallas")
 
 
+def build_model(cfg, device):
+    """The registry's model for ``cfg`` (the flagship's SpeechTransformer
+    when it names none), weights from seed 0, on ``device``."""
+    model_cls = get_model(cfg.get("model_name", "SpeechTransformer"))[0]
+    return model_cls(cfg, VOCAB, torch.Generator().manual_seed(0)).to(device)
+
+
 def _one_step(cfg, tcfg, feat, batch, device):
-    model = SpeechTransformer(cfg, VOCAB, torch.Generator().manual_seed(0)).to(device)
-    opt = make_optimizer(model.parameters(), tcfg, cfg.d_model)
+    model = build_model(cfg, device)
+    opt = make_optimizer(model.parameters(), tcfg, model_width(cfg))
     init_fn, train_step, _ = make_step_fns(model, opt, feat, tcfg)
     state, m = train_step(init_fn(), *(x.to(device) for x in batch), 0)
     return float(m["loss"]), float(m["grad_norm"])
@@ -2109,8 +2170,6 @@ def analytic_train_flops(cfg, feat_cfg, vocab_size: int, batch: int,
     and its depthwise conv, k taps a channel a frame) and the conv2d
     frontend (two 3x3 convolutions and the projection, over 4x fewer
     encoder frames) counted too."""
-    d, ff = cfg.d_model, cfg.d_ff
-    le, ld = cfg.num_encoder_layers, cfg.num_decoder_layers
     t_frames = feat_cfg.num_frames(n_samples)
     t = feat_cfg.num_lfr_frames(t_frames)
     l = label_len + 1  # decoder is BOS-prefixed
@@ -2118,6 +2177,10 @@ def analytic_train_flops(cfg, feat_cfg, vocab_size: int, batch: int,
     n_bins = feat_cfg.n_fft // 2 + 1
     fwd = t_frames * feat_cfg.win_length * (2 * n_bins) * 2
     fwd += t_frames * n_bins * feat_cfg.n_mels * 2
+    if cfg.get("model_name") in RNN_NAMES:
+        return 3.0 * (fwd + rnn_forward_flops(cfg, feat_cfg, v, t, l)) * batch
+    d, ff = cfg.d_model, cfg.d_ff
+    le, ld = cfg.num_encoder_layers, cfg.num_decoder_layers
     if cfg.get("frontend", "linear") == "conv2d":
         c, f = d // 8, feat_cfg.feature_dim
         t1, f1 = -(-t // 2), -(-f // 2)
@@ -2138,6 +2201,28 @@ def analytic_train_flops(cfg, feat_cfg, vocab_size: int, batch: int,
     return 3.0 * fwd * batch
 
 
+def rnn_forward_flops(cfg, feat_cfg, v: int, t: int, l: int) -> int:
+    """Matmul FLOPs of one utterance's RNN forward past the fbank: each
+    LSTM direction's gates (4h x (in + h) a frame), the CTC head, and for
+    LAS per target position the decoder cell, the query projection, the
+    location conv (filters x kernel a frame), its projection, the score and
+    the context products and the output projection over [s, context],
+    with the encoder's projection once."""
+    h, n_in = cfg.hidden_size, feat_cfg.feature_dim
+    fwd = 0
+    for i in range(cfg.num_encoder_layers):
+        fwd += 2 * t * 4 * h * ((n_in if i == 0 else 2 * h) + h) * 2
+    if float(cfg.get("ctc_weight", 0.0)) > 0:
+        fwd += t * 2 * h * v * 2
+    if cfg.get("model_name") == "LAS":
+        e, a, f, k = cfg.embed_dim, cfg.attention_dim, cfg.location_filters, cfg.location_kernel
+        step = 4 * h * (e + 2 * h + h) * 2 + h * a * 2
+        step += t * f * k * 2 + t * f * a * 2 + t * a * 2 + t * 2 * h * 2
+        step += (h + 2 * h) * v * 2
+        fwd += l * step + t * 2 * h * a * 2
+    return fwd
+
+
 THROUGHPUT_BATCH, THROUGHPUT_SECONDS, THROUGHPUT_LABEL_LEN = 64, 8.0, 20
 
 
@@ -2156,26 +2241,47 @@ def fixed_batch(dev, bsz) -> list:
     return [x.to(dev) for x in batch]
 
 
-def flagship_train_setup(dev, **overrides) -> tuple:
+def flagship_train_setup(dev, dtype="bfloat16", feat_overrides=None, **overrides) -> tuple:
     """(train_step, state, batch, flops per step) of the flagship recipe
     (bf16, hash dropout 0.1, SpecAugment, CTC 0.3 through the kernels;
-    ``overrides``: model config, e.g. the conformer's) on one fixed batch
-    of 64 x 8 s with label length 20, as ``bench.py``."""
-    cfg, tcfg, feat = _recipe("bfloat16", **overrides)
+    ``overrides``: model config, e.g. the conformer's or an RNN model's
+    ``model_name``; ``feat_overrides``: feature config, e.g. a time warp)
+    on one fixed batch of 64 x 8 s with label length 20, as ``bench.py``."""
+    cfg, tcfg, feat = _recipe(dtype, **overrides)
+    feat = dataclasses.replace(feat, **(feat_overrides or {}))
     tcfg.build(spec_augment=True)
     bsz, label_len = THROUGHPUT_BATCH, THROUGHPUT_LABEL_LEN
     samples = int(THROUGHPUT_SECONDS * feat.sample_rate)
     batch = fixed_batch(dev, bsz)
-    model = SpeechTransformer(cfg, VOCAB, torch.Generator().manual_seed(0)).to(dev)
-    opt = make_optimizer(model.parameters(), tcfg, cfg.d_model)
+    model = build_model(cfg, dev)
+    opt = make_optimizer(model.parameters(), tcfg, model_width(cfg))
     init_fn, train_step, _ = make_step_fns(model, opt, feat, tcfg)
     flops = analytic_train_flops(cfg, feat, VOCAB, bsz, samples, label_len)
     return train_step, init_fn(), batch, flops
 
 
+def _step_device_ms(train_step, state, batch, n=3) -> float:
+    """Device ms per step over ``n`` steps under ``torch.profiler``: the
+    self device time of the device's own events (kernels, copies), summed;
+    a host operator's device time is that of the kernels it launched."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            state, _ = train_step(state, *batch, 0)
+        torch.cuda.synchronize()
+    return sum(e.self_device_time_total for e in prof.key_averages()
+               if e.device_type != DeviceType.CPU) / n / 1e3
+
+
 def measure_training_throughput(dev, n_warmup=3, n_timed=20, label="flagship",
-                                **overrides) -> dict:
-    train_step, state, batch, flops = flagship_train_setup(dev, **overrides)
+                                dtype="bfloat16", device_steps=0, **overrides) -> dict:
+    """``n_timed`` steps of ``flagship_train_setup``'s recipe after
+    ``n_warmup``: ms per step, audio-s/s, MFU against the dtype's peak (the
+    tensor cores' bf16, or f32 outside them), the launches per step, and
+    with ``device_steps`` the device ms per step under the profiler."""
+    train_step, state, batch, flops = flagship_train_setup(dev, dtype, **overrides)
     bsz, seconds = THROUGHPUT_BATCH, THROUGHPUT_SECONDS
     for _ in range(n_warmup):
         state, m = train_step(state, *batch, 0)
@@ -2189,23 +2295,36 @@ def measure_training_throughput(dev, n_warmup=3, n_timed=20, label="flagship",
     step_s = (time.perf_counter() - t0) / n_timed
     counts = read_counters()
     require(np.isfinite(float(m["loss"])), "throughput loop loss not finite")
-    require(counts["fused_attention_bwd"] == 6 * n_timed and counts["ctc_beta"] == n_timed,
-            f"throughput loop launches {counts}")
+    if overrides.get("model_name") in RNN_NAMES:
+        want = {k: 0 for k in COUNTERS}
+        want.update(fbank=n_timed, ctc_alpha=n_timed, ctc_beta=n_timed)
+        require(counts == want, f"{label} throughput launches {counts} != {want}")
+    else:
+        require(counts["fused_attention_bwd"] == 6 * n_timed and counts["ctc_beta"] == n_timed,
+                f"throughput loop launches {counts}")
+    peak = H100_SXM_BF16_PEAK if dtype == "bfloat16" else H100_SXM_F32_PEAK
     out = {
         "launches_per_step": {k: v / n_timed for k, v in counts.items()},
         "ms_per_step": step_s * 1e3,
         "steps_per_s": 1.0 / step_s,
         "audio_s_per_s": bsz * seconds / step_s,
         "tflop_per_step": flops / 1e12,
-        "mfu": flops / step_s / H100_SXM_BF16_PEAK,
+        "mfu": flops / step_s / peak,
         "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30,
     }
-    print(f"train throughput, {label} bf16, batch 64 x 8 s, {n_timed} steps after "
+    device = ""
+    if device_steps:
+        out["device_ms_per_step"] = _step_device_ms(train_step, state, batch, device_steps)
+        device = (f", device {out['device_ms_per_step']:.3f} ms/step "
+                  f"({out['device_ms_per_step'] / out['ms_per_step'] * 100:.1f} % busy, "
+                  f"{device_steps} profiled steps)")
+    short = "bf16" if dtype == "bfloat16" else "f32"
+    print(f"train throughput, {label} {short}, batch 64 x 8 s, {n_timed} steps after "
           f"{n_warmup} warm-up: {out['ms_per_step']:.3f} ms/step, "
           f"{out['steps_per_s']:.4f} steps/s, {out['audio_s_per_s']:.1f} audio-s/s, "
           f"{out['tflop_per_step']:.4f} TFLOP/step, MFU {out['mfu'] * 100:.3f} % of "
-          f"{H100_SXM_BF16_PEAK / 1e12:.1f} TFLOP/s, peak memory "
-          f"{out['peak_mem_gib']:.2f} GiB, final loss {float(m['loss']):.4f}")
+          f"{peak / 1e12:.1f} TFLOP/s {short}, peak memory "
+          f"{out['peak_mem_gib']:.2f} GiB, final loss {float(m['loss']):.4f}{device}")
     return out
 
 
@@ -2491,6 +2610,239 @@ def run_conformer(corpus, dev) -> dict:
     return {"launches": launches, "per_step": step["launches_per_step"]}
 
 
+# -- phase 15: the RNN family --------------------------------------------------
+
+# per model: eval_decode of its main.train run, and the recognize modes the
+# JAX package serves it in (the others fail there, as here)
+RNN_SERVING = {
+    "BiLSTMCTC": ("ctc_greedy", ("ctc_greedy",),
+                  ("attention_greedy", "beam", "rescore", "joint")),
+    "LAS": ("beam", ("ctc_greedy", "attention_greedy", "beam", "joint"), ("rescore",)),
+}
+
+
+def _train_rnn(name, corpus) -> tuple:
+    """``main.train --model_name <name>`` at the registry's widths (f32, rng
+    dropout 0.1, its CTC weight) on phase 9's corpus, 1 epoch, with its
+    ``eval_decode``; returns (launch counts, experiment dir)."""
+    exp_root = os.path.join(WORK, "rnn_exp")
+    default = get_model(name)[1]()
+    eval_decode = RNN_SERVING[name][0]
+    # PyTorch's default, as a user's process starts: the port's cuDNN
+    # layers must turn TF32 off themselves (earlier phases have run them)
+    torch.backends.cudnn.allow_tf32 = True
+    reset_counters()
+    t0 = time.perf_counter()
+    trainer = main_train(**training_kwargs(
+        corpus, exp_root, model_name=name, exp_name=name, num_epoch=1, dtype="float32",
+        ctc_weight=default.ctc_weight, eval_decode=eval_decode, eval_beam_size=10,
+        drop_exp=True))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = read_counters()
+    require(not torch.backends.cudnn.allow_tf32, f"{name} trained with cuDNN's TF32 on")
+    model, cfg = trainer.model, trainer.model.cfg
+    require(type(model).__name__ == name and cfg.hidden_size == default.hidden_size
+            and cfg.num_encoder_layers == default.num_encoder_layers,
+            f"main.train did not build the registry's {name}")
+    steps, n_eval = trainer.state.step, len(trainer.dev_loader)
+    n_params = sum(p.numel() for p in model.parameters() if p.requires_grad)
+    print(f"{name} train: {cfg.num_encoder_layers} x BiLSTM {cfg.hidden_size}, CTC "
+          f"{cfg.ctc_weight}, {n_params} trained parameters, f32; {steps} steps in 1 epoch, "
+          f"{n_eval} dev batches (eval_decode {eval_decode}), wall {wall:.3f} s; "
+          f"launches {counts}")
+    require(steps == 2, f"{name} train ran {steps} steps, want 2")
+    want = {k: 0 for k in COUNTERS}
+    # per step K5 1, K3 1, K4 1; per dev batch K5 for the loss and again for
+    # the decode, K3 for the loss
+    want.update(fbank=steps + 2 * n_eval, ctc_alpha=steps + n_eval, ctc_beta=steps)
+    require(counts == want, f"{name} training launches {counts} != {want}")
+    rows = _logged_losses(trainer.exp_dir)
+    require(len(rows) == steps and all(np.isfinite(r["train/loss"]) for r in rows),
+            f"{name} train: missing or non-finite losses")
+    for r in rows:
+        print(f"{name} train step {r['step']}: loss {r['train/loss']:.4f} grad_norm "
+              f"{r['train/grad_norm']:.4f} lr {r['lr']:.3e}")
+    with open(os.path.join(trainer.exp_dir, "scalars.jsonl")) as f:
+        dev_rows = [r for r in map(json.loads, f) if "dev/loss" in r]
+    require(dev_rows and np.isfinite(dev_rows[-1]["dev/decoded_cer"]),
+            f"{name}: no finite dev/decoded_cer")
+    print(f"{name} dev: loss {dev_rows[-1]['dev/loss']:.4f}, decoded CER "
+          f"({eval_decode}) {dev_rows[-1]['dev/decoded_cer']:.2f}")
+    exp_dir = trainer.exp_dir
+    del trainer, model
+    torch.cuda.empty_cache()
+    return counts, exp_dir
+
+
+def _serve_rnn(name, exp_dir, corpus) -> tuple:
+    """The trained model through ``recognize`` on the 16 dev utterances in
+    every mode the JAX package serves it in (beam 10, batches of 8,
+    max_decode_len 32); each mode it cannot serve must raise. Returns the
+    launch counts summed over the modes and the joint run's (launch counts,
+    decode steps), None without a joint run."""
+    model, *_ = _load_experiment_cached(exp_dir, corpus["vocab"], "best",
+                                        torch.device("cuda"))
+    _, modes, refused = RNN_SERVING[name]
+    total, joint = {k: 0 for k in COUNTERS}, None
+    for mode in modes:
+        steps = (counted_steps(model, "decode_step") if hasattr(model, "decode_step")
+                 else contextlib.nullcontext([0]))
+        with steps as n_steps:
+            reset_counters()
+            res = recognize(exp_dir, corpus["vocab"], manifest=corpus["dev"], mode=mode,
+                            beam_size=10, batch_size=8, max_decode_len=32, device="cuda")
+            torch.cuda.synchronize()
+            counts = read_counters()
+        n, tm = res["timing"]["batches"], res["timing"]
+        require(len(res["utts"]) == 16, f"{name} {mode}: {len(res['utts'])} of 16")
+        for utt, entry in res["utts"].items():
+            require(entry["output"] and all(np.isfinite(o["score"]) for o in entry["output"]),
+                    f"{name} {mode} {utt}: no finite hypothesis")
+        want = {k: 0 for k in COUNTERS}
+        want.update(fbank=n, ctc_prefix=n_steps[0] if mode == "joint" else 0)
+        require(counts == want, f"{name} {mode}: launches {counts} != {want}")
+        if mode == "joint":
+            require(n_steps[0] > 0, f"{name} joint ran no decode step")
+            joint = (counts, n_steps[0])
+        total = {k: total[k] + counts[k] for k in COUNTERS}
+        print(f"{name} recognize {mode}: {n} batches, {tm['audio_s']:.3f} s audio; per batch "
+              f"of 8 encode {tm['encode_s'] / n * 1e3:.3f} ms, search "
+              f"{tm['search_s'] / n * 1e3:.3f} ms; audio-s/s "
+              f"{tm['audio_s'] / (tm['encode_s'] + tm['search_s']):.3f}; decode steps "
+              f"{n_steps[0]}; launches {counts}")
+    for mode in refused:
+        try:
+            recognize(exp_dir, corpus["vocab"], manifest=corpus["dev"], mode=mode,
+                      beam_size=10, batch_size=8, max_decode_len=32, device="cuda")
+        except AttributeError as err:
+            print(f"{name} recognize {mode}: refused as in the JAX package ({err})")
+        else:
+            raise SystemExit(f"chip_smoke: {name} served mode {mode}, which JAX cannot")
+    return total, joint
+
+
+def run_rnn_family(corpus, dev) -> dict:
+    """Phase 15: BiLSTMCTC and LAS trained by ``main.train`` and served by
+    ``recognize`` on the card, an f32 step of each against the CPU, 10
+    timed steps of each on phase 13's batch. Returns the main paths'
+    launch counts, the launches per train step and per LAS joint decode
+    step."""
+    launches, per_step, joint = {k: 0 for k in COUNTERS}, {}, None
+    for name in RNN_NAMES:
+        trained, exp_dir = _train_rnn(name, corpus)
+        served, joint_run = _serve_rnn(name, exp_dir, corpus)
+        joint = joint_run or joint
+        launches = {k: launches[k] + trained[k] + served[k] for k in COUNTERS}
+        check_step_against_cpu(corpus, dev, label=name, model_name=name)
+        step = measure_training_throughput(dev, n_timed=10, label=name, dtype="float32",
+                                           device_steps=3, model_name=name)
+        per_step[name] = step["launches_per_step"]
+    counts, n_steps = joint
+    per_joint_step = {k: counts[k] / n_steps for k in COUNTERS}
+    require(per_joint_step["ctc_prefix"] == 1.0,
+            f"LAS joint: K8 launches per decode step {per_joint_step['ctc_prefix']}")
+    return {"launches": launches, "per_step": per_step, "per_joint_step": per_joint_step}
+
+
+# -- phase 15b: time-warp and attn_impl="flash" -----------------------------------
+
+
+def check_time_warp(dev) -> None:
+    """The warp on the card vs the CPU on the same draws (the fixed batch's
+    CMVN log-mel, 64 x 801 x 80, one warp each): within 1e-3; then one
+    flagship step with a time warp in its SpecAugment (launches as a
+    flagship step, finite loss)."""
+    feat = FeatureConfig(fbank_impl="pallas")
+    wave, lens = fixed_batch(dev, THROUGHPUT_BATCH)[:2]
+    with torch.inference_mode():
+        x = log_mel_spectrogram_kernel(wave.float() / 32768.0, feat)
+        n = feat.num_frames(lens.long())
+        mask = (torch.arange(x.shape[1], device=dev)[None] < n[:, None])[..., None]
+        x = (x - x.mean()) / x.std() * mask
+        centers, shifts = timewarp.draw_warps(torch.Generator().manual_seed(0), n,
+                                              feat.time_warp_param)
+        card = timewarp.warp_at(x, n, centers, shifts)
+        torch.cuda.synchronize()
+        ms = median_ms(lambda: timewarp.warp_at(x, n, centers, shifts), n=10)
+        cpu = timewarp.warp_at(x.cpu(), n.cpu(), centers, shifts)
+    err = (card.cpu() - cpu).abs().max().item()
+    print(f"time warp, card vs cpu on the same draws, {tuple(x.shape)} f32 (shifts "
+          f"{shifts.min().item()}..{shifts.max().item()}): max_abs={err:.3e}; card "
+          f"{ms:.3f} ms a batch")
+    require(err <= 1e-3, "the time warp on the card disagrees with the CPU")
+    train_step, state, batch, _ = flagship_train_setup(
+        dev, feat_overrides={"num_time_warps": 1})
+    reset_counters()
+    _, m = train_step(state, *batch, 0)
+    torch.cuda.synchronize()
+    counts = read_counters()
+    require(np.isfinite(float(m["loss"])), "time-warped flagship step: loss not finite")
+    require(counts == train_launches(1, 0), f"time-warped step launches {counts}")
+    print(f"time-warped flagship step (bf16, SpecAugment with 1 warp of <= "
+          f"{feat.time_warp_param} frames): loss {float(m['loss']):.4f}, grad_norm "
+          f"{float(m['grad_norm']):.4f}; launches {counts}")
+
+
+def check_flash(dev) -> dict:
+    """``attn_impl="flash"`` against ``"fused"`` from the same weights and
+    draws, bit for bit: one flagship step at dropout 0 (loss and gradient
+    norm, K1 6 and K2 6 each); and, at hash dropout 0.1, the encoder (the
+    only attention ``flash`` takes) forward and backward on the fixed
+    batch's shape against ``"fused"`` without the attention-weight dropout
+    (flash keeps the output dropout only): outputs and encoder gradients,
+    K1 6 and K2 6 each. Returns the launches of the flash step."""
+    out = {}
+    for impl in ("flash", "fused"):
+        train_step, state, batch, _ = flagship_train_setup(dev, attn_impl=impl,
+                                                           dropout_rate=0.0)
+        reset_counters()
+        _, m = train_step(state, *batch, 0)
+        torch.cuda.synchronize()
+        out[impl] = (float(m["loss"]), float(m["grad_norm"]), read_counters())
+        del train_step, state
+    (l0, g0, c0), (l1, g1, c1) = out["flash"], out["fused"]
+    print(f"flash vs fused flagship step at dropout 0: loss {l0:.6f} / {l1:.6f}, "
+          f"grad_norm {g0:.6f} / {g1:.6f}; launches {c0}")
+    require(l0 == l1 and g0 == g1, "the flash step differs from the fused step")
+    require(c0 == c1 == train_launches(1, 0), f"flash launches {c0} / fused {c1}")
+
+    cfg, gen = flagship_config("bfloat16"), torch.Generator(device=dev).manual_seed(0)
+    # the fixed batch's 267 frames, ragged lengths
+    feats = torch.randn((THROUGHPUT_BATCH, 267, cfg.input_dim), device=dev, generator=gen)
+    lens = torch.randint(134, 268, (THROUGHPUT_BATCH,), device=dev, generator=gen)
+    lens[0] = 267
+    cot = torch.randn((THROUGHPUT_BATCH, 267, cfg.d_model), device=dev, generator=gen)
+    enc_out = {}
+    for impl, extra in (("flash", {}), ("fused", {"attn_weight_dropout": False})):
+        model = build_model(_recipe("bfloat16", attn_impl=impl, dropout_rate=0.1,
+                                    **extra)[0], dev).train()
+        reset_counters()
+        enc, _ = model.encoder(feats, lens, torch.Generator().manual_seed(2))
+        (enc.float() * cot).sum().backward()
+        torch.cuda.synchronize()
+        grads = [p.grad for p in model.encoder.parameters() if p.grad is not None]
+        enc_out[impl] = (enc.detach(), grads, read_counters())
+        del model
+    (e0, d0, k0), (e1, d1, k1) = enc_out["flash"], enc_out["fused"]
+    want = {k: 0 for k in COUNTERS}
+    want.update(fused_attention_fwd=6, fused_attention_bwd=6)
+    same = torch.equal(e0, e1) and len(d0) == len(d1) and all(
+        torch.equal(a, b) for a, b in zip(d0, d1))
+    print(f"flash vs fused without weight dropout, encoder at hash dropout 0.1, "
+          f"{tuple(feats.shape)} bf16: output and {len(d0)} gradients bit-identical "
+          f"{same}; launches {k0}")
+    require(same, "the flash encoder differs from the fused one without weight dropout")
+    require(k0 == k1 == want, f"flash encoder launches {k0} / fused {k1}")
+    return c0
+
+
+def run_time_warp_and_flash(dev) -> dict:
+    """Phase 15b: returns the flash step's launches."""
+    check_time_warp(dev)
+    return check_flash(dev)
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: CUDA is not available")
@@ -2499,7 +2851,6 @@ def main() -> None:
     print(f"torch {torch.__version__} cuda {torch.version.cuda} "
           f"device {torch.cuda.get_device_name(0)} count {torch.cuda.device_count()}")
     torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda", 0)
 
     t0 = time.perf_counter()
@@ -2532,11 +2883,13 @@ def main() -> None:
     flagship_step = phase(13, measure_training_throughput, dev)["launches_per_step"]
     streaming_step = phase(14, measure_streaming_throughput, dev)
     conformer = phase("14b", run_conformer, corpus, dev)
+    rnn = phase(15, run_rnn_family, corpus, dev)
+    flash_step = phase("15b", run_time_warp_and_flash, dev)
 
     # launches: the main paths' runs, each counted from 0
     launches = {
         k: serve[k] + decoded[k] + trained[k] + stream_trained[k] + stream_served[k]
-        + conformer["launches"][k]
+        + conformer["launches"][k] + rnn["launches"][k]
         for k in COUNTERS
     }
     require(all(n > 0 for n in launches.values()), f"a kernel never launched: {launches}")
@@ -2564,8 +2917,12 @@ def main() -> None:
              "flagship_train_step": flagship_step[name],
              "streaming_train_step": streaming_step[name],
              "conformer_train_step": conformer["per_step"][name],
+             "bilstm_ctc_train_step": rnn["per_step"]["BiLSTMCTC"][name],
+             "las_train_step": rnn["per_step"]["LAS"][name],
+             "flash_train_step": flash_step[name],
              "serving_batch": serve[name] / serve_batches,
              "joint_serving_batch": decoded[name] / joint_batches,
+             "las_joint_decode_step": rnn["per_joint_step"][name],
          }, **measured}
         for name, (src, rep, measured) in sources.items()
     ]

@@ -5,18 +5,21 @@ s, bf16, CTC 0.3 through the kernels; ``flagship``: hash dropout 0.1 and
 SpecAugment; ``conformer``: the same recipe with the registry's
 ``Conformer`` (conformer blocks, conv kernel 15, pre-LN);
 ``streaming``: the causal band-50 pre-LN recipe, whose encoder attention
-takes K6/K7 when ``ASR_BANDED_WINDOW=1`` and K1/K2 otherwise), 3 warm-up
-steps, then ``--steps`` steps under
-``torch.profiler``. Prints the card, the wall and device time per step,
-the device time of a few groups of operators (the depthwise and conv2d
-convolutions, GLU, swish, LayerNorm, each forward and backward), that of
+takes K6/K7 when ``ASR_BANDED_WINDOW=1`` and K1/K2 otherwise;
+``bilstm_ctc`` and ``las``: the RNN family at its registry widths in f32,
+rng dropout 0.1, its CTC weight), 3 warm-up steps, then ``--steps`` steps
+under ``torch.profiler``. Prints the card, the wall and device time per
+step, the device time of a few groups of operators (the depthwise and
+conv2d convolutions, GLU, swish, LayerNorm, the LSTMs, each forward and
+backward), that of
 the hash dropout masks (``hash_keep_mask``'s calls in the profiled
 steps, counted by shape and made again alone under the profiler), the
 operators with the
 most device time (self time, per step) and the kernels with the most
 device time.
 
-    python3 scripts/profile_torch_train.py [--recipe flagship|conformer] [--steps 3] [--top 25]
+    python3 scripts/profile_torch_train.py [--recipe flagship|conformer|bilstm_ctc|las]
+        [--steps 3] [--top 25]
     ASR_BANDED_WINDOW=1 python3 scripts/profile_torch_train.py --recipe streaming
 
 The kernels are built from the checkout at first use, as in
@@ -46,7 +49,10 @@ GROUPS = {
     "GLU": ("glu",),
     "swish": ("silu",),
     "LayerNorm": ("layer_norm",),
+    # cuDNN's recurrences (nn.LSTM) and the decoder's fused cell (LSTMCell)
+    "LSTM": ("cudnn_rnn", "lstm"),
 }
+RNN_RECIPES = {"bilstm_ctc": "BiLSTMCTC", "las": "LAS"}
 
 
 def _counted_hash_masks():
@@ -95,7 +101,8 @@ def _print_rows(title, events, steps, total_ms, top) -> None:
 
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--recipe", choices=("flagship", "conformer", "streaming"), default="flagship")
+    ap.add_argument("--recipe", choices=("flagship", "conformer", "streaming", *RNN_RECIPES),
+                    default="flagship")
     ap.add_argument("--steps", type=int, default=3)
     ap.add_argument("--top", type=int, default=25)
     args = ap.parse_args()
@@ -104,7 +111,10 @@ def main() -> None:
     print(f"card: {chip_smoke.card_line()}")
     torch.backends.cuda.matmul.allow_tf32 = False
     dev = torch.device("cuda", 0)
-    if args.recipe == "flagship":
+    if args.recipe in RNN_RECIPES:
+        train_step, state, batch, _ = chip_smoke.flagship_train_setup(
+            dev, "float32", model_name=RNN_RECIPES[args.recipe])
+    elif args.recipe == "flagship":
         train_step, state, batch, _ = chip_smoke.flagship_train_setup(dev)
     elif args.recipe == "conformer":
         train_step, state, batch, _ = chip_smoke.flagship_train_setup(

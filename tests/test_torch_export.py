@@ -16,8 +16,9 @@ import torch
 
 from asr_chinese_e2e_tpu.data.features import FeatureConfig as JaxFeatureConfig
 from asr_chinese_e2e_tpu.data.features import parse_batch as jax_parse_batch
+from asr_chinese_e2e_tpu.core.registry import get_model as jax_get_model
 from asr_chinese_e2e_tpu.data.vocab import Vocab as JaxVocab
-from asr_chinese_e2e_tpu.models.transformer import SpeechTransformer as JaxModel
+from asr_chinese_e2e_tpu.models.rnn import default_las_config
 from asr_chinese_e2e_tpu.train.checkpoint import CheckpointManager
 from asr_chinese_e2e_tpu.train.optimizer import default_train_config, make_optimizer
 from asr_chinese_e2e_tpu.train.train_step import make_step_fns
@@ -30,22 +31,23 @@ torch.set_num_threads(2)
 SCRIPT = Path(__file__).resolve().parents[1] / "scripts" / "export_torch_checkpoint.py"
 
 
-def _jax_experiment(root: Path):
-    """Write config.json, vocab.json and one orbax checkpoint (no best)."""
+def _jax_experiment(root: Path, model_cfg=None):
+    """Write config.json, vocab.json and one orbax checkpoint (no best) of a
+    tiny SpeechTransformer, or of the registry model ``model_cfg`` names."""
     vocab = JaxVocab()
     vocab.consume_sentence("今天天气很好你好")
     vocab.build()
     vocab_path = str(root / "vocab.json")
     vocab.save(vocab_path)
-    cfg = default_train_config().combine(
-        tiny_config(input_dim=80, n_mels=20, dropout_rate=0.0)
-    )
+    if model_cfg is None:
+        model_cfg = tiny_config(input_dim=80, n_mels=20, dropout_rate=0.0)
+    cfg = default_train_config().combine(model_cfg)
     exp = root / "exp"
     exp.mkdir()
     cfg.save(str(exp / "config.json"))
-    model = JaxModel(cfg, vocab.vocab_size)
+    model = jax_get_model(cfg.get("model_name", "SpeechTransformer"))[0](cfg, vocab.vocab_size)
     feat_cfg = JaxFeatureConfig(n_mels=20)
-    tx = make_optimizer(cfg, cfg.d_model)
+    tx = make_optimizer(cfg, cfg.get("d_model", cfg.get("hidden_size", 512)))
     init_fn, _, _ = make_step_fns(model, tx, feat_cfg, cfg)
     dummy = {
         "wave": np.zeros((1, 16000), np.float32),
@@ -95,3 +97,32 @@ def test_load_rejects_other_vocab(tmp_path):
         load_experiment(exp, str(other_path), "latest", device="cpu")
     with pytest.raises(FileNotFoundError):
         load_experiment(exp, vocab_path, "e9_s9", device="cpu")
+
+
+def test_export_then_load_rnn_experiment(tmp_path):
+    """A LAS experiment of the JAX package exports (its encoder cells in
+    flax's creation order) and the port's ``load_experiment`` builds a LAS
+    that encodes and scores a decode step like the JAX model (f32,
+    1e-4)."""
+    las = default_las_config().build(
+        model_name="LAS", n_mels=20, hidden_size=8, embed_dim=6, attention_dim=6,
+        location_kernel=5, num_encoder_layers=2, dropout_rate=0.0)
+    exp, vocab_path, jm, params, feat_cfg = _jax_experiment(tmp_path, las)
+    runpy.run_path(str(SCRIPT))["export"](exp, vocab_path, "latest")
+    model, cfg, tfeat_cfg, _ = load_experiment(exp, vocab_path, "latest", device="cpu")
+    assert type(model).__name__ == "LAS" and cfg.input_dim == tfeat_cfg.feature_dim
+
+    rng = np.random.RandomState(1)
+    wave = (rng.randn(2, 9000) * 3000).astype(np.int16)
+    lens = np.asarray([9000, 6100], np.int32)
+    jf, jl = jax_parse_batch(jnp.asarray(wave), jnp.asarray(lens), feat_cfg)
+    want, want_len = jm.apply(params, jf, jl, method="encode")
+    state = jm.apply(params, want, want_len, method="init_decode_state")
+    want_lp, _ = jm.apply(params, jnp.asarray([2, 5]), state, method="decode_step")
+    with torch.no_grad():
+        tf, tl = parse_batch(torch.from_numpy(wave), torch.from_numpy(lens), tfeat_cfg)
+        got, got_len = model.encode(tf, tl)
+        got_lp, _ = model.decode_step(torch.tensor([2, 5]),
+                                      model.init_decode_state(got, got_len))
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-4, rtol=0)
+    np.testing.assert_allclose(got_lp.numpy(), np.asarray(want_lp), atol=1e-4, rtol=0)

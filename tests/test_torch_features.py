@@ -75,10 +75,3 @@ def test_fbank_wrapper_runs_plain_version_on_cpu():
     assert log_mel_spectrogram_kernel.launches == before
 
 
-def test_augment_is_not_ported():
-    """SpecAugment is ported; its time-warp stage is not yet."""
-    wave, lens = _waves("float32", b=1, s=1600)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        parse_batch(torch.from_numpy(wave), torch.from_numpy(lens),
-                    FeatureConfig(num_time_warps=1), augment=True,
-                    generator=torch.Generator().manual_seed(0))

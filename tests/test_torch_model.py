@@ -169,13 +169,53 @@ def test_decode_step_lazy_matches_jax(name):
         anc = anc[:, rng.permutation(k)]  # a beam reselection
 
 
-@pytest.mark.parametrize(
-    "overrides",
-    [
-        dict(attn_impl="flash"),
-        dict(attn_impl="ring"),
-    ],
-)
+@pytest.mark.parametrize("norm_type", ["post", "pre"])
+def test_flash_matches_jax_xla_on_valid_rows(norm_type):
+    """``attn_impl="flash"`` runs the fused kernels (their plain version on
+    the CPU) without weight dropout. The JAX package's flash path is the
+    JAX library's TPU kernel, which does not run here; at dropout 0 it
+    computes the xla path's function on every valid row, so the port's
+    flash encoder is held to JAX's xla encoder on the valid rows (1e-5).
+    Padded rows differ by construction (segment ids let a padded query see
+    the padded keys) and reach no valid output."""
+    jm, params, _ = model_pair(tiny_config(attn_impl="xla", norm_type=norm_type))
+    cfg = Config(**tiny_config(attn_impl="flash", norm_type=norm_type).to_dict())
+    tm = SpeechTransformer(cfg, VOCAB)
+    tm.load_state_dict(torch_state_from_flax(params, cfg, VOCAB))
+    feats, lens = _inputs(seed=7)
+    j_enc, _, t_enc, _ = _encode_both(jm, params, tm.eval(), feats, lens)
+    valid = np.arange(feats.shape[1])[None, :] < lens[:, None]
+    np.testing.assert_allclose(t_enc.numpy()[valid], j_enc[valid], atol=1e-5, rtol=0)
+
+
+def test_flash_with_a_band_takes_the_bias_path_as_jax():
+    """A band or causal pattern takes the plain bias path under "flash", as
+    the JAX package's does (its flash kernel has no band): the JAX flash
+    model runs here then, and the port's equals it on every row."""
+    jcfg = tiny_config(attn_impl="flash", causal_encoder=True, attention_band=3)
+    jm, params, tm = model_pair(jcfg)
+    feats, lens = _inputs(seed=8)
+    j_enc, _, t_enc, _ = _encode_both(jm, params, tm, feats, lens)
+    np.testing.assert_allclose(t_enc.numpy(), j_enc, atol=TOL, rtol=0)
+
+
+def test_flash_keeps_the_output_dropout_only():
+    """With dropout, "flash" is "fused" without the attention-weight
+    dropout: the same output-dropout draws, bit for bit."""
+    out = {}
+    for impl, extra in (("flash", {}), ("fused", {"attn_weight_dropout": False})):
+        cfg = Config(**tiny_config(attn_impl=impl, dropout_rate=0.1, dropout_impl="hash",
+                                   **extra).to_dict())
+        tm = SpeechTransformer(cfg, VOCAB, torch.Generator().manual_seed(1))
+        feats, lens = _inputs(seed=9)
+        with torch.no_grad():
+            enc, _ = tm.encoder(torch.from_numpy(feats), torch.from_numpy(lens),
+                                torch.Generator().manual_seed(2))
+        out[impl] = enc
+    assert torch.equal(out["flash"], out["fused"])
+
+
+@pytest.mark.parametrize("overrides", [dict(attn_impl="ring")])
 def test_unported_options_raise(overrides):
     cfg = Config(**tiny_config(**overrides).to_dict())
     with pytest.raises(NotImplementedError, match="ROADMAP"):

@@ -27,7 +27,6 @@ from asr_chinese_e2e_tpu.decode.cer import corpus_cer as jax_corpus_cer
 from asr_chinese_e2e_tpu.decode.joint import joint_beam_search as jax_joint_beam_search
 from asr_chinese_e2e_tpu.utils.experiment import feature_config_from as jax_feature_config_from
 from asr_chinese_e2e_tpu_torch.core.config import Config
-from asr_chinese_e2e_tpu_torch.core.registry import get_model
 from asr_chinese_e2e_tpu_torch.data.batching import BucketedLoader
 from asr_chinese_e2e_tpu_torch.data.vocab import Vocab
 from asr_chinese_e2e_tpu_torch.main import train
@@ -148,12 +147,6 @@ def test_conformer_conv2d_trains_and_decodes(run, tmp_path):
                     out=str(tmp_path / "res.json"))
     assert len(res["utts"]) == CORPUS_KW["n_test"]
     assert all(e["output"] for e in res["utts"].values())
-
-
-def test_rnn_names_raise_with_roadmap_item():
-    for name in ("BiLSTMCTC", "LAS", "ExampleModel"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            get_model(name)
 
 
 def test_cli_takes_key_value_words(monkeypatch, capsys):
