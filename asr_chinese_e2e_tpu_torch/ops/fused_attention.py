@@ -165,6 +165,23 @@ def _use_banded_window(q, k, causal, band) -> bool:
     )
 
 
+# 64-row tiles of the other side that the tensor-core K6/K7 keep resident
+# per block (``banded_attention.cu::MAX_TILES``)
+MAX_RESIDENT_TILES = 12
+
+
+def _window_fits(q, band) -> bool:
+    """Whether K6/K7 serve this band over q's T: the tensor-core (bf16)
+    kernels hold a block's whole window, ceil(band / 64) + 1 tiles of 64
+    rows and no more than T holds, up to ``MAX_RESIDENT_TILES``; the FMA
+    kernels (f32) serve any band. Decided on the host from band, T and
+    dtype, before any launch."""
+    if q.dtype != torch.bfloat16:
+        return True
+    tiles = min(_block_q(band) // 64 + 1, -(-q.shape[2] // 64))
+    return tiles <= MAX_RESIDENT_TILES
+
+
 def _query_blocks(x, bq, nc):
     """(B, H, T, D) -> (B, H, nc, BQ, D), zero rows past T."""
     b, h, t, d = x.shape
@@ -509,7 +526,13 @@ class _FusedAttention(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, q, k, v, q_lengths, k_lengths, seed, scale, rate, causal, band):
-        banded = _use_banded_window(q, k, causal, band)
+        windowed = _use_banded_window(q, k, causal, band)
+        banded = windowed and _window_fits(q, band)
+        if windowed and not banded:
+            # a window wider than K6/K7 hold: K1/K2 on the same causal band
+            # with the windowed route's one length for both, and the same
+            # dropout draws (the keep hash is by global (query, key) index)
+            q_lengths = k_lengths
         ctx.args = (seed, scale, rate, causal, band, banded)
         needs_grad = any(ctx.needs_input_grad[:3])
         if q.device.type == "cpu":
@@ -574,7 +597,9 @@ def fused_attention_general(
     kernels do. Every k_length must be >= 1, else ValueError.
     With ``ASR_BANDED_WINDOW=1`` a causal, banded, square call takes the
     windowed route (K6/K7), where ``k_lengths`` masks keys and zeroes
-    query rows."""
+    query rows; a bf16 window wider than K6/K7 hold (``_window_fits``)
+    takes K1/K2 with ``k_lengths`` as both lengths, which computes the
+    same function."""
     if q.device.type not in ("cpu", "cuda"):
         raise ValueError(f"attention kernel: unsupported device {q.device}")
     return _FusedAttention.apply(

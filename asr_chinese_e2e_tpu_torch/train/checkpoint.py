@@ -12,9 +12,11 @@ Layout under ``directory``:
 Saves are synchronous and crash-consistent: ``state.pt`` is written to a
 temporary name and renamed, and ``index.json`` (also renamed into place)
 moves its pointers only after the checkpoint is complete, so ``latest``
-never points at a torn checkpoint. ``max_to_keep`` bounds the number kept
-(latest and best are never removed). When ``export_dir`` is given, the
-best checkpoint's weights are also written as
+never points at a torn checkpoint. ``max_to_keep`` bounds the number
+kept (latest and best are never removed); a checkpoint past it is deleted
+only after the index that drops it is published, so no published pointer
+names a deleted checkpoint. When ``export_dir`` is given, the best
+checkpoint's weights are also written as
 ``export_dir/torch_checkpoints/best.pt``, the file
 ``utils/experiment.py::load_experiment`` serves from.
 """
@@ -103,17 +105,24 @@ class CheckpointManager:
                 save_torch_checkpoint(
                     self.export_dir, state.model.state_dict(), vocab_fingerprint, "best"
                 )
-        self._gc()
+        victims = self._retire()
         _atomic_json(self._index_path, self._index)
+        # deleted only once no published pointer names them: a kill in
+        # between leaves a stale directory, never a dangling pointer
+        for victim in victims:
+            shutil.rmtree(self._step_dir(victim), ignore_errors=True)
         return path
 
-    def _gc(self) -> None:
+    def _retire(self) -> list:
+        """Drop the oldest checkpoints past ``max_to_keep`` from the index
+        (never latest or best); returns their names."""
         keep = {n for n in (self._index["latest"], self._index["best"]) if n}
         extra = [n for n in self._index["all"] if n not in keep]
+        victims = []
         while len(extra) + len(keep) > self.max_to_keep and extra:
-            victim = extra.pop(0)
-            self._index["all"].remove(victim)
-            shutil.rmtree(self._step_dir(victim), ignore_errors=True)
+            victims.append(extra.pop(0))
+            self._index["all"].remove(victims[-1])
+        return victims
 
     def restore(self, which: str, state) -> dict:
         """Load 'latest' | 'best' | an explicit 'e{E}_s{S}' into ``state``

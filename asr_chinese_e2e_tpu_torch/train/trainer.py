@@ -16,12 +16,22 @@ batch, decodes it in that mode and records ``decoded_cer`` beside the
 teacher-forced ``cer`` (which a model without teacher-forced logits, as
 BiLSTMCTC, does not record).
 
+``raw_features=True`` trains and evaluates on cached features (a
+``BucketedLoader`` over a ``preprocess features`` manifest with
+``feat_cfg``): no fbank, no SpecAugment, and ``eval_decode`` encodes the
+batch as it comes. ``profile_from_step`` / ``profile_steps`` open one
+``utils/debug.py::profile_trace`` over the train steps in ``[from, from +
+steps)``, written to ``exp_dir/trace/``, each step in an
+``annotate("train_step")`` range; the trace closes at the epoch's end if
+still open.
+
 Left out of the port (ROADMAP §1): the device mesh, ``steps_per_dispatch``
-and in-flight pacing (TPU remote-link workarounds), and xprof tracing.
+and in-flight pacing (TPU remote-link workarounds).
 """
 
 from __future__ import annotations
 
+import contextlib
 import datetime
 import math
 import os
@@ -37,6 +47,7 @@ from ..decode.beam import beam_search
 from ..decode.cer import batch_cer_from_ids, corpus_cer
 from ..decode.greedy import attention_greedy_decode, ctc_greedy_decode, tokens_to_ids
 from ..decode.joint import joint_beam_search
+from ..utils.debug import annotate, profile_trace
 from .checkpoint import CheckpointManager
 from .metrics import MetricsAccumulator, ScalarWriter, ThroughputMeter
 from .optimizer import Optimizer, current_lr, model_width
@@ -61,6 +72,7 @@ class Trainer:
         train_loader: BucketedLoader,
         dev_loader: Optional[BucketedLoader] = None,
         test_loader: Optional[BucketedLoader] = None,
+        raw_features: bool = False,
     ) -> None:
         self._eval_decode = cfg.get("eval_decode", "none")
         if self._eval_decode not in EVAL_DECODE_MODES:
@@ -85,8 +97,9 @@ class Trainer:
             export_dir=self.exp_dir,
         )
         self.init_fn, self.train_step, self.eval_step = make_step_fns(
-            model, optimizer, feat_cfg, cfg
+            model, optimizer, feat_cfg, cfg, raw_features=raw_features
         )
+        self._raw_features = raw_features
         self.seed = int(cfg.get("seed", 0))
         self.state = None
         self.epoch = 0
@@ -131,39 +144,53 @@ class Trainer:
         for v in state.metric_sums.values():
             v.zero_()
         sums_base = {k: 0.0 for k in state.metric_sums}
-        for batch in self.train_loader.epoch(epoch):
-            step_before = state.step
-            self.train_step(state, *self._put_batch(batch), self.seed)
-            self.throughput.step(float(batch.wave_lengths.sum()) / sr)
-            step = state.step
-            if step % cfg.log_every_iter == 0:
-                names = list(state.metric_sums)
-                values = torch.stack([state.metric_sums[k] for k in names]).tolist()
-                sums = dict(zip(names, values))
-                n = sums["_n"] - sums_base["_n"]
-                means = {
-                    k: (sums[k] - sums_base[k]) / max(n, 1.0) for k in sums if k != "_n"
-                }
-                sums_base = sums
-                if not math.isfinite(means.get("loss", 0.0)):
-                    raise ValueError("nan loss encountered")
-                scalars = {f"train/{k}": v for k, v in means.items()}
-                scalars["lr"] = current_lr(cfg, self._d_model, step)
-                scalars["train/audio_s_per_s_per_chip"] = (
-                    self.throughput.audio_seconds_per_sec_per_chip
-                )
-                scalars["train/steps_per_s"] = self.throughput.steps_per_sec
-                self.writer.write(step, scalars)
-            if (
-                self.dev_loader is not None and cfg.eval_every_iter
-                and step // cfg.eval_every_iter > step_before // cfg.eval_every_iter
-            ):
-                self.evaluate(self.dev_loader, "dev/")
-            if (
-                cfg.save_every_iter
-                and step // cfg.save_every_iter > step_before // cfg.save_every_iter
-            ):
-                self.save()
+        prof_from = int(cfg.get("profile_from_step", 0))
+        prof_steps = int(cfg.get("profile_steps", 0))
+        tracing = False
+        # a trace window still open at the epoch's end closes with the stack
+        with contextlib.ExitStack() as trace:
+            for batch in self.train_loader.epoch(epoch):
+                step_before = state.step
+                # one-shot trace window [prof_from, prof_from + prof_steps)
+                if (prof_steps and not tracing
+                        and prof_from <= step_before < prof_from + prof_steps):
+                    trace.enter_context(profile_trace(os.path.join(self.exp_dir, "trace")))
+                    tracing = True
+                with annotate("train_step") if tracing else contextlib.nullcontext():
+                    self.train_step(state, *self._put_batch(batch), self.seed)
+                if tracing and state.step >= prof_from + prof_steps:
+                    trace.close()
+                    tracing = False
+                self.throughput.step(float(batch.wave_lengths.sum()) / sr)
+                step = state.step
+                if step % cfg.log_every_iter == 0:
+                    names = list(state.metric_sums)
+                    values = torch.stack([state.metric_sums[k] for k in names]).tolist()
+                    sums = dict(zip(names, values))
+                    n = sums["_n"] - sums_base["_n"]
+                    means = {
+                        k: (sums[k] - sums_base[k]) / max(n, 1.0) for k in sums if k != "_n"
+                    }
+                    sums_base = sums
+                    if not math.isfinite(means.get("loss", 0.0)):
+                        raise ValueError("nan loss encountered")
+                    scalars = {f"train/{k}": v for k, v in means.items()}
+                    scalars["lr"] = current_lr(cfg, self._d_model, step)
+                    scalars["train/audio_s_per_s_per_chip"] = (
+                        self.throughput.audio_seconds_per_sec_per_chip
+                    )
+                    scalars["train/steps_per_s"] = self.throughput.steps_per_sec
+                    self.writer.write(step, scalars)
+                if (
+                    self.dev_loader is not None and cfg.eval_every_iter
+                    and step // cfg.eval_every_iter > step_before // cfg.eval_every_iter
+                ):
+                    self.evaluate(self.dev_loader, "dev/")
+                if (
+                    cfg.save_every_iter
+                    and step // cfg.save_every_iter > step_before // cfg.save_every_iter
+                ):
+                    self.save()
 
     def evaluate(self, loader: BucketedLoader, prefix: str = "dev/"):
         """Sample-weighted metric means plus teacher-forced CER over a
@@ -200,9 +227,13 @@ class Trainer:
     @torch.inference_mode()
     def _decode(self, wave, wave_lengths) -> list:
         """Re-encode one eval batch and decode it in the ``eval_decode``
-        mode; returns the hypothesis texts."""
+        mode; returns the hypothesis texts. Cached features are encoded as
+        they come."""
         model = self.model
-        feats, feat_lens = parse_batch(wave, wave_lengths, self.feat_cfg)
+        if self._raw_features:
+            feats, feat_lens = wave, wave_lengths
+        else:
+            feats, feat_lens = parse_batch(wave, wave_lengths, self.feat_cfg)
         enc_out, enc_lens = model.encode(feats, feat_lens)
         max_len = self.cfg.get("max_target_len", 64)
         beam = self.cfg.get("eval_beam_size", 10)

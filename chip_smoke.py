@@ -7,15 +7,17 @@ configuration with random weights, then trains and serves the streaming
 model family (causal-banded encoder) through ``main.train`` and
 ``asr_chinese_e2e_tpu_torch.stream``, then the conformer family (trained,
 served, streamed), then the RNN family (BiLSTMCTC and LAS, trained and
-served), SpecAugment's time warp and ``attn_impl="flash"``, and checks
-that every path went through its kernels.
+served), SpecAugment's time warp and ``attn_impl="flash"``, then the
+feature cache (``preprocess features``, training from it), the trainer's
+trace window and the soak driver, and checks that every path went
+through its kernels.
 Run from the repository root:
 
     python3 chip_smoke.py
 
 Phases (any failure raises, so the exit code is non-zero; phases 3-15, 8b,
-9b, 14b and 15b each print the seconds they took; 8b runs after 8, 9b after
-9, 14b after 14, 15b after 15):
+9b, 14b, 15b and 15c each print the seconds they took; 8b runs after 8, 9b
+after 9, 14b after 14, 15b and 15c after 15):
 
 1. require CUDA; print the card (``nvidia-smi``); TF32 off for matmuls
    (cuDNN's stays at PyTorch's default: the port's cuDNN layers turn it off);
@@ -70,7 +72,10 @@ Phases (any failure raises, so the exit code is non-zero; phases 3-15, 8b,
    streaming serving shape (1, 8, 501, 64), (2, 8, 150, 64) band 30 with
    lengths [150, 97], bands 64, 65 and 128 at T = 501, band 704 at T =
    1500 (the twelve resident tiles a block can hold; a bf16 window of
-   more must be refused before any launch, and f32 must serve it), head
+   more must be refused by the bare entry before any launch, and f32
+   must serve it; through the autograd Function a bf16 band 769 at (1, 8,
+   1500, 64) with hash dropout 0.1 takes K1/K2 once each and no K6/K7,
+   within 2e-2 of the windowed plain versions on f32 copies), head
    dim 32, the short segments of the prefix re-encode (T = 67 and T = 11)
    and a length that is no multiple of 16; K6 vs K1 on the same f32
    inputs with dropout 0.1 <= 1e-5 abs, and on the same bf16 inputs K6 vs
@@ -178,7 +183,10 @@ Phases (any failure raises, so the exit code is non-zero; phases 3-15, 8b,
     and gradient norm within 1e-5 relative, K1 12 launches with remat: the
     forward and the recompute); one f32
     conformer step on the card vs the CPU's plain path (loss and gradient
-    norm within 1e-3 relative, as phase 10); the pad-leak check: the same
+    norm within 1e-3 relative, as phase 10, and the six parameters with
+    the largest share of the gradient difference, card against CPU;
+    ``scripts/conformer_grad_gap_torch.py`` takes the gap apart); the
+    pad-leak check: the same
     dev utterances' features and their copy padded by 50 frames of noise
     (std 30) give the same valid encoder rows (bf16 within 2e-2, f32 within
     1e-4; bit-identity printed); the streaming conformer
@@ -216,11 +224,30 @@ Phases (any failure raises, so the exit code is non-zero; phases 3-15, 8b,
     same weights and draws, at dropout 0 and at hash dropout 0.1 (there
     ``"fused"`` without the attention-weight dropout): bit-identical loss
     and gradient norm, K1 6 and K2 6 each;
+15c. the feature cache, the trace window and the soak driver on phase 9's
+    corpus: ``preprocess features`` on the card over the train and dev
+    manifests (K5 once per chunk of 32 and nothing else; each cached
+    ``.npy`` within 1e-5 abs of ``parse_batch`` of its wave alone at its
+    chunk's width, the distance unpadded printed); ``Trainer(raw_features=
+    True)`` over cached-feature loaders, the flagship recipe 1 epoch with
+    ``eval_decode=joint`` (losses finite; per train step K5 0, K1 6, K2 6,
+    K3 1, K4 1; per dev batch K5 0, K1 12 (the eval step and the decode's
+    encode), K3 1; K8 once per joint decode step); one f32 step from the
+    cache and one from the waves of one 16-utterance chunk, same weights,
+    no SpecAugment, dropout 0 (loss and gradient norm within 1e-5
+    relative); ``main.train`` with ``profile_from_step=2 profile_steps=2``
+    (one trace under ``exp_dir/trace/`` with two ``train_step`` ranges and
+    inside the card's ranges each kernel of a train step, K1-K5, by name,
+    exactly as often as two steps launch it, none outside);
+    ``scripts/soak_flagship_torch.py``'s phase functions at flagship width,
+    3 epochs of 2 batches, ``save_every_iter=1``, killed at the first
+    checkpoint at step >= 2, resumed at the saved step, then ``joint`` and
+    ``beam`` decodes of the dev set (CER printed);
 16. print the kernels' JSON line (per kernel: route, source, the TPU
     kernel it replaces, launches on the main paths (the conformer's and the
-    RNN family's included) and per flagship train step, streaming train
-    step, conformer train step, BiLSTMCTC and LAS train step, flash train
-    step, beam and joint serving batch, LAS joint decode step (K8 also per
+    RNN family's and phase 15c's included) and per flagship train step,
+    streaming train step, conformer train step, BiLSTMCTC and LAS train
+    step, flash train step, cached-feature train step, beam and joint serving batch, LAS joint decode step (K8 also per
     joint decode step), and at the
     training shape ``shape``, ``max_abs_err``, ``ms``, ``plain_ms``,
     ``bound_ms``, ``bound_by``, ``library_ms``, ``device_ms`` (20 launches
@@ -248,7 +275,7 @@ import torch.nn.functional as F
 ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, ROOT)
 
-from asr_chinese_e2e_tpu_torch.core.config import Config  # noqa: E402
+from asr_chinese_e2e_tpu_torch.core.config import Config, resolve_config  # noqa: E402
 from asr_chinese_e2e_tpu_torch.core.registry import get_model  # noqa: E402
 from asr_chinese_e2e_tpu_torch.data import timewarp  # noqa: E402
 from asr_chinese_e2e_tpu_torch.data.batching import BucketedLoader  # noqa: E402
@@ -268,6 +295,7 @@ from asr_chinese_e2e_tpu_torch.decode.beam import beam_search  # noqa: E402
 from asr_chinese_e2e_tpu_torch.decode.ctc_prefix_device import (  # noqa: E402
     ctc_prefix_beam_device,
 )
+from asr_chinese_e2e_tpu_torch.main import data_config  # noqa: E402
 from asr_chinese_e2e_tpu_torch.main import train as main_train  # noqa: E402
 from asr_chinese_e2e_tpu_torch.models import layers as layers_mod  # noqa: E402
 from asr_chinese_e2e_tpu_torch.models.transformer import (  # noqa: E402
@@ -280,6 +308,7 @@ from asr_chinese_e2e_tpu_torch.ops import ctc_kernel as ctc  # noqa: E402
 from asr_chinese_e2e_tpu_torch.ops import ctc_prefix_kernel as k8  # noqa: E402
 from asr_chinese_e2e_tpu_torch.ops import fused_attention as fa  # noqa: E402
 from asr_chinese_e2e_tpu_torch.ops.fbank import log_mel_spectrogram_kernel  # noqa: E402
+from asr_chinese_e2e_tpu_torch.preprocess import features as preprocess_features  # noqa: E402
 from asr_chinese_e2e_tpu_torch.recognize import (  # noqa: E402
     _load_experiment_cached,
     batched,
@@ -1066,6 +1095,7 @@ def _check_banded_cases(dev) -> dict:
         require(max(e16) <= 2e-2, f"banded {name} bf16 disagrees")
         worst[name] = (e16[0], max(e16[1:]))
     _check_window_refusal(dev)
+    _check_wide_window_route(dev)
     return worst
 
 
@@ -1087,6 +1117,38 @@ def _check_window_refusal(dev) -> None:
     got = fa.banded_attention_kernel(q, k, v, n, 1, 0.125, 0.0, 769)
     err = (got - fa.banded_attention_reference(q, k, v, n, 1, 0.125, 0.0, 769)).abs().max().item()
     require(err <= 1e-4, f"banded band 769 f32 disagrees: {err:.3e}")
+
+
+def _check_wide_window_route(dev) -> None:
+    """Through the autograd Function with the window on, a bf16 band too
+    wide for K6/K7 (769 at T = 1500: 14 tiles) takes K1/K2, decided on the
+    host, with ``k_lengths`` as both lengths: K1 and K2 once each, K6/K7
+    not at all, within 2e-2 of the windowed plain versions on f32 copies
+    of the same bf16 inputs (hash dropout 0.1)."""
+    q, k, v, n = _banded_inputs(1, 1500, [1400], dev, seed=51)
+    q_len = torch.full_like(n, 1500)  # unused on this route, as on the window
+    leaves = [x.to(torch.bfloat16).requires_grad_(True) for x in (q, k, v)]
+    g = torch.randn(q.shape, generator=torch.Generator().manual_seed(52)).to(
+        dev, torch.bfloat16)
+    reset_counters()
+    with banded_window("1"):
+        out = fa.fused_attention_general(*leaves, q_len, n, 777, 0.125, 0.1, True, 769)
+        out.backward(g)
+    torch.cuda.synchronize()
+    counts = read_counters()
+    want_counts = {**{c: 0 for c in COUNTERS}, "fused_attention_fwd": 1,
+                   "fused_attention_bwd": 1}
+    require(counts == want_counts, f"wide window route: launches {counts}")
+    plain = [x.detach().float() for x in leaves]
+    want = [fa.banded_attention_reference(*plain, n, 777, 0.125, 0.1, 769),
+            *fa.banded_attention_backward_reference(*plain, n, 777, 0.125, 0.1, 769,
+                                                    g.float())]
+    errs = [(x.float() - w).abs().max().item()
+            for x, w in zip([out] + [x.grad for x in leaves], want)]
+    print("banded (1,8,1500,64) band 769 bf16 dropout 0.1 through the Function: K1/K2, "
+          f"(out, dq, dk, dv) max_abs={', '.join(f'{e:.3e}' for e in errs)} against the "
+          "windowed plain version")
+    require(max(errs) <= 2e-2, "the wide window's full-tile route disagrees")
 
 
 def check_banded(dev) -> tuple[dict, dict]:
@@ -1909,7 +1971,8 @@ def _recipe(dtype: str, **overrides) -> tuple:
             dtype=dtype, fbank_impl="pallas", ctc_impl="pallas", **overrides)
         cfg = Config(**cfg.to_dict())
     else:
-        cfg = flagship_config(dtype).build(dropout_impl="hash", ctc_impl="pallas", **overrides)
+        cfg = flagship_config(dtype).build(**{"dropout_impl": "hash", "ctc_impl": "pallas",
+                                              **overrides})
     return cfg, default_train_config().combine(cfg), FeatureConfig(fbank_impl="pallas")
 
 
@@ -1921,17 +1984,25 @@ def build_model(cfg, device):
 
 
 def _one_step(cfg, tcfg, feat, batch, device):
+    """(loss, gradient norm, {parameter: its gradient on the CPU, as before
+    clipping}) of one train step from seed-0 weights."""
     model = build_model(cfg, device)
     opt = make_optimizer(model.parameters(), tcfg, model_width(cfg))
     init_fn, train_step, _ = make_step_fns(model, opt, feat, tcfg)
     state, m = train_step(init_fn(), *(x.to(device) for x in batch), 0)
-    return float(m["loss"]), float(m["grad_norm"])
+    norm = float(m["grad_norm"])
+    unclip = max(1.0, norm / float(tcfg.grad_clip))
+    grads = {name: p.grad.detach().cpu() * unclip for name, p in model.named_parameters()
+             if p.grad is not None}
+    return float(m["loss"]), norm, grads
 
 
-def check_step_against_cpu(corpus, dev, label="flagship", **overrides) -> None:
+def check_step_against_cpu(corpus, dev, label="flagship", worst_grads=0,
+                           **overrides) -> None:
     """One f32 step of the recipe (``overrides``: model config) on the card
     and on the CPU's plain path: loss and gradient norm within 1e-3
-    relative."""
+    relative; with ``worst_grads`` the parameters whose gradients differ
+    most, card against CPU, and by how much."""
     cfg, tcfg, feat = _recipe("float32", dropout_rate=0.0, **overrides)
     tcfg.build(spec_augment=False)
     recs = read_manifest(corpus["train"])[:2]
@@ -1948,11 +2019,24 @@ def check_step_against_cpu(corpus, dev, label="flagship", **overrides) -> None:
         torch.from_numpy(pcm), torch.tensor([len(w) for w in waves], dtype=torch.int32),
         torch.from_numpy(labels), torch.tensor([len(x) for x in ids], dtype=torch.int32),
     )
-    cpu = _one_step(cfg, tcfg, feat, batch, torch.device("cpu"))
-    card = _one_step(cfg, tcfg, feat, batch, dev)
+    *cpu, cpu_grads = _one_step(cfg, tcfg, feat, batch, torch.device("cpu"))
+    *card, card_grads = _one_step(cfg, tcfg, feat, batch, dev)
     rel = [abs(a - b) / abs(b) for a, b in zip(card, cpu)]
     print(f"{label} f32 step, card vs cpu: loss {card[0]:.6f} vs {cpu[0]:.6f} (rel "
           f"{rel[0]:.2e}), grad_norm {card[1]:.6f} vs {cpu[1]:.6f} (rel {rel[1]:.2e})")
+    if worst_grads:
+        # each parameter's share of the gradient difference, card against
+        # CPU (|diff_p| / |diff|), beside its own |diff_p| / |g_p|: a
+        # gradient that is zero in exact arithmetic (a key projection's
+        # bias) is all rounding, so its own ratio alone says nothing
+        diff = {k: card_grads[k] - g for k, g in cpu_grads.items()}
+        total = max(float(torch.sqrt(sum(d.square().sum() for d in diff.values()))), 1e-30)
+        ranked = sorted(diff, key=lambda k: -float(diff[k].norm()))[:worst_grads]
+        print(f"{label} f32 step, gradient difference card vs cpu |diff| {total:.4e} "
+              f"(|g| {card[1]:.4e}); largest parameters: " + ", ".join(
+                  f"{k} share {float(diff[k].norm()) / total:.3f} own "
+                  f"{float(diff[k].norm() / cpu_grads[k].norm().clamp_min(1e-30)):.2e}"
+                  for k in ranked))
     require(max(rel) <= 1e-3, f"{label} f32 train step on the card disagrees with the CPU")
 
 
@@ -2597,7 +2681,8 @@ def run_conformer(corpus, dev) -> dict:
     served, _ = _serve_conformer(exp_dir, corpus)
     _conv2d_conformer(dev)
     _check_remat(dev)
-    check_step_against_cpu(corpus, dev, label="conformer", **CONFORMER)
+    # the gap's sources apart: scripts/conformer_grad_gap_torch.py
+    check_step_against_cpu(corpus, dev, label="conformer", worst_grads=6, **CONFORMER)
     _check_pad_leak(exp_dir, corpus, dev)
     stream_trained, stream_exp = run_streaming_training(
         corpus, num_epoch=1, exp_name="streaming_conformer", model_name="Conformer",
@@ -2843,6 +2928,270 @@ def run_time_warp_and_flash(dev) -> dict:
     return check_flash(dev)
 
 
+# -- phase 15c: the feature cache, the trace window, the soak driver ------------
+
+
+CACHE_CHUNK = 32  # ``preprocess features``' default batch_size
+
+
+def _cache_features(corpus, dev) -> tuple:
+    """(a) ``preprocess features`` on the card over phase 9's train and dev
+    manifests: K5 once per chunk and nothing else; each cached ``.npy``
+    within 1e-5 abs of ``parse_batch`` of its wave alone on the card. Alone
+    means a batch of one zero-padded to its chunk's width: a row's last
+    frames read the samples past its end (its zero padding, or the reflected
+    wave when it is the longest), as in the JAX package, so the width is
+    part of the function. Returns ({split: manifest}, launches)."""
+    cfg = FeatureConfig(fbank_impl="pallas")
+    manifests, launches = {}, {k: 0 for k in COUNTERS}
+    worst, unpadded = 0.0, 0.0
+    for split in ("train", "dev"):
+        out = os.path.join(WORK, "cache", split)
+        shutil.rmtree(out, ignore_errors=True)
+        reset_counters()
+        manifests[split] = preprocess_features(corpus[split], out, batch_size=CACHE_CHUNK,
+                                               device="cuda")
+        torch.cuda.synchronize()
+        counts = read_counters()
+        rows = read_manifest(manifests[split])
+        n_chunks = -(-len(rows) // CACHE_CHUNK)
+        require(counts == {**{k: 0 for k in COUNTERS}, "fbank": n_chunks},
+                f"preprocess {split}: launches {counts}, want K5 {n_chunks}")
+        launches = {k: launches[k] + counts[k] for k in COUNTERS}
+        for i0 in range(0, len(rows), CACHE_CHUNK):
+            chunk = rows[i0:i0 + CACHE_CHUNK]
+            waves = [load_wav(r["wave"]) for r in chunk]
+            width = max(len(w) for w in waves)
+            for r, w in zip(chunk, waves):
+                cached = torch.from_numpy(np.load(r["feature"])).to(dev)
+                for pad, key in ((width, "padded"), (len(w), "unpadded")):
+                    x = torch.zeros((1, pad), dtype=torch.float32)
+                    x[0, : len(w)] = torch.from_numpy(w)
+                    f, n = parse_batch(x.to(dev), torch.tensor([len(w)], device=dev), cfg)
+                    require(int(n[0]) == r["frames"] == cached.shape[0], "cached frames")
+                    err = (f[0, : int(n[0])] - cached).abs().max().item()
+                    if key == "padded":
+                        worst = max(worst, err)
+                    else:
+                        unpadded = max(unpadded, err)
+        print(f"preprocess features {split}: {len(rows)} rows in {n_chunks} chunks of "
+              f"{CACHE_CHUNK}, K5 {counts['fbank']}")
+    print(f"cached features vs parse_batch of the wave alone at its chunk's width: "
+          f"max_abs={worst:.3e}; unpadded (the tail reflected, not zero): {unpadded:.3e}")
+    require(worst <= 1e-5, "cached features disagree with parse_batch")
+    return manifests, launches
+
+
+def _cached_trainer(corpus, manifests, exp_name, **extra):
+    """A ``Trainer(raw_features=True)`` of the flagship recipe over
+    cached-feature loaders (phase 9's corpus), as ``main.train`` builds it."""
+    kw = training_kwargs(corpus, os.path.join(WORK, "cache_exp"), exp_name=exp_name,
+                         **extra)
+    model_cls, model_default = get_model(kw["model_name"])
+    cfg = resolve_config(data_config().combine(default_train_config()), model_default(), kw)
+    feat = feature_config_from(cfg)
+    cfg.build(input_dim=feat.feature_dim)
+    vocab = Vocab.load(corpus["vocab"])
+    loaders = {
+        split: BucketedLoader(manifests[split], vocab, batch_size=cfg.batch_size,
+                              max_target_len=cfg.max_target_len, shuffle=split == "train",
+                              seed=cfg.seed, feat_cfg=feat, drop_last=split == "train")
+        for split in ("train", "dev")
+    }
+    model = model_cls(cfg, vocab.vocab_size, torch.Generator().manual_seed(0)).cuda()
+    opt = make_optimizer(model.parameters(), cfg, model_width(cfg))
+    return Trainer(model, opt, cfg, feat, vocab, loaders["train"],
+                   dev_loader=loaders["dev"], raw_features=True)
+
+
+def _train_from_cache(corpus, manifests) -> tuple:
+    """(b) The flagship recipe for 1 epoch from the cache with
+    ``eval_decode=joint``: finite losses; per train step K5 0, K1 6, K2 6,
+    K3 1, K4 1; per dev batch K5 0, K1 6 + 6 (the eval step and the
+    decode's encode), K3 1; K8 once per joint decode step; then one more
+    of the trainer's train steps counted alone. Returns (the run's
+    launches, that step's launches)."""
+    shutil.rmtree(os.path.join(WORK, "cache_exp"), ignore_errors=True)
+    trainer = _cached_trainer(corpus, manifests, "cached", num_epoch=1,
+                              eval_decode="joint", eval_beam_size=10)
+    reset_counters()
+    t0 = time.perf_counter()
+    with counted_steps(trainer.model) as n_steps:
+        trainer.train()
+    torch.cuda.synchronize()
+    counts = read_counters()
+    steps, n_eval = trainer.state.step, len(trainer.dev_loader)
+    want = {**{k: 0 for k in COUNTERS}, "fused_attention_fwd": 6 * steps + 12 * n_eval,
+            "fused_attention_bwd": 6 * steps, "ctc_alpha": steps + n_eval,
+            "ctc_beta": steps, "ctc_prefix": n_steps[0]}
+    rows = _logged_losses(trainer.exp_dir)
+    with open(os.path.join(trainer.exp_dir, "scalars.jsonl")) as f:
+        dev_rows = [r for r in map(json.loads, f) if "dev/decoded_cer" in r]
+    print(f"train from the cache: {steps} steps, {n_eval} dev batches, {n_steps[0]} joint "
+          f"decode steps in {time.perf_counter() - t0:.3f} s; losses "
+          f"{[round(r['train/loss'], 4) for r in rows]}; dev decoded_cer "
+          f"{[r['dev/decoded_cer'] for r in dev_rows]}; launches {counts}")
+    require(steps == 2 and len(rows) == steps, f"cached training ran {steps} steps")
+    require(all(np.isfinite(r["train/loss"]) for r in rows), "non-finite cached loss")
+    require(len(dev_rows) == 1 and n_steps[0] > 0, "no joint decode in the dev eval")
+    require(counts == want, f"cached training launches {counts} != {want}")
+    # one more train step of the trainer's own, counted alone
+    batch = list(trainer.train_loader.epoch(0))[0]
+    reset_counters()
+    trainer.train_step(trainer.state, *trainer._put_batch(batch), trainer.seed)
+    torch.cuda.synchronize()
+    per_step = read_counters()
+    want_step = {**train_launches(1, 0), "fbank": 0}
+    print(f"one cached train step: launches {per_step}")
+    require(per_step == want_step, f"a cached train step launches {per_step} != {want_step}")
+    return counts, per_step
+
+
+def _cache_equals_waves(corpus, dev) -> None:
+    """(c) One f32 step from the cache equals one from the waves: the same
+    weights (seed 0), no SpecAugment, dropout 0; 16 utterances cached as one
+    chunk and the same waves padded as that chunk pads them. Loss and
+    gradient norm within 1e-5 relative."""
+    recs = read_manifest(corpus["train"])[:16]
+    manifest = os.path.join(WORK, "cache", "one_chunk.jsonl")
+    with open(manifest, "w") as f:
+        f.writelines(json.dumps(r, ensure_ascii=False) + "\n" for r in recs)
+    cached = read_manifest(preprocess_features(
+        manifest, os.path.join(WORK, "cache", "one_chunk"), batch_size=16, device="cuda"))
+    waves = [load_wav(r["wave"]) for r in recs]
+    wave = np.zeros((16, max(len(w) for w in waves)), np.float32)
+    for i, w in enumerate(waves):
+        wave[i, : len(w)] = w
+    feats = [np.load(r["feature"]) for r in cached]
+    feat = np.zeros((16, max(len(x) for x in feats), feats[0].shape[1]), np.float32)
+    for i, x in enumerate(feats):
+        feat[i, : len(x)] = x
+    vocab = Vocab.load(corpus["vocab"])
+    ids = [vocab.str_to_ids(r["tgt"]) for r in recs]
+    labels = np.zeros((16, max(map(len, ids))), np.int32)
+    for i, x in enumerate(ids):
+        labels[i, : len(x)] = x
+    label_lens = torch.tensor([len(x) for x in ids], dtype=torch.int32)
+    cfg, tcfg, fcfg = _recipe("float32", dropout_rate=0.0)
+    tcfg.build(spec_augment=False)
+    out = {}
+    for raw, x, n in ((False, wave, [len(w) for w in waves]),
+                      (True, feat, [len(f) for f in feats])):
+        model = build_model(cfg, dev)
+        opt = make_optimizer(model.parameters(), tcfg, model_width(cfg))
+        init_fn, train_step, _ = make_step_fns(model, opt, fcfg, tcfg, raw_features=raw)
+        _, m = train_step(init_fn(), torch.from_numpy(x).to(dev),
+                          torch.tensor(n, dtype=torch.int32, device=dev),
+                          torch.from_numpy(labels).to(dev), label_lens.to(dev), 0)
+        out[raw] = (float(m["loss"]), float(m["grad_norm"]))
+    rel = [abs(a - b) / abs(b) for a, b in zip(out[True], out[False])]
+    print(f"f32 step from the cache vs from the waves (16 x {wave.shape[1]} samples): loss "
+          f"{out[True][0]:.6f} vs {out[False][0]:.6f} (rel {rel[0]:.2e}), grad_norm "
+          f"{out[True][1]:.6f} vs {out[False][1]:.6f} (rel {rel[1]:.2e})")
+    require(max(rel) <= 1e-5, "a step from the cache disagrees with one from the waves")
+
+
+TRACE_KERNELS = {  # the kernels' names in a trace, and launches per train step
+    "K1 attention_fwd_mma_kernel": 6, "K2 attention_bwd_dq_mma_kernel": 6,
+    "K2 attention_bwd_dkdv_mma_kernel": 6, "K3 ctc_emission_rows_kernel": 1,
+    "K3 ctc_alpha_recursion_kernel": 1, "K4 ctc_beta_recursion_kernel": 1,
+    "K4 ctc_grad_rows_kernel": 1, "K5 fbank_mma_kernel": 1,
+}
+
+
+def _check_trace_window(corpus) -> dict:
+    """(d) ``main.train`` with ``profile_from_step=2 profile_steps=2``: one
+    trace under ``exp_dir/trace/`` with two ``train_step`` ranges, host and
+    card, and inside the card's ranges each kernel of a train step exactly
+    as often as two steps launch it, none outside. Returns the run's
+    launches."""
+    exp_root = os.path.join(WORK, "trace_exp")
+    shutil.rmtree(exp_root, ignore_errors=True)
+    reset_counters()
+    trainer = main_train(**training_kwargs(corpus, exp_root, dev_manifest=None,
+                                           exp_name="trace", profile_from_step=2,
+                                           profile_steps=2))
+    torch.cuda.synchronize()
+    counts = read_counters()
+    require(counts == train_launches(trainer.state.step, 0),
+            f"trace run launches {counts}")
+    trace_dir = os.path.join(trainer.exp_dir, "trace")
+    files = os.listdir(trace_dir)
+    require(len(files) == 1, f"want one trace, found {files}")
+    with open(os.path.join(trace_dir, files[0])) as f:
+        events = [e for e in json.load(f)["traceEvents"] if e.get("ph") == "X"]
+    host = [e for e in events if e["name"] == "train_step"
+            and e.get("cat") == "user_annotation"]
+    gpu = [e for e in events if e["name"] == "train_step"
+           and e.get("cat") == "gpu_user_annotation"]
+    kernels = [e for e in events if e.get("cat") == "kernel"]
+    # the trace is the window: the profiler records from just before the
+    # first of its steps to just after the last
+    found = {label: sum(label.split()[1] in k["name"] for k in kernels)
+             for label in TRACE_KERNELS}
+    inside = {label: sum(label.split()[1] in k["name"] for k in kernels
+                         if any(g["ts"] <= k["ts"] <= g["ts"] + g["dur"] for g in gpu))
+              for label in TRACE_KERNELS}
+    print(f"trace window: {files[0]}, {len(host)} host and {len(gpu)} card train_step "
+          f"ranges, {len(kernels)} kernels; the kernels of a train step: {found}; of "
+          f"them inside the card's ranges: {inside}")
+    require(len(host) == len(gpu) == 2,
+            f"want two train_step ranges, found {len(host)} host and {len(gpu)} card")
+    # each kernel two steps' worth, all inside the card's train_step ranges
+    want = {label: 2 * per_step for label, per_step in TRACE_KERNELS.items()}
+    require(found == inside == want, f"trace: kernels {found}, inside {inside}, want {want}")
+    return counts
+
+
+def _soak_driver(corpus) -> None:
+    """(e) ``scripts/soak_flagship_torch.py``'s phase functions at flagship
+    width on phase 9's corpus (2 batches an epoch) for 3 epochs with
+    ``save_every_iter=1``: SIGKILL at the first checkpoint at step >= 2,
+    a resume that starts at the saved step, ``joint`` and ``beam`` decodes
+    of the dev set (CER printed, not gated)."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location(
+        "soak_flagship_torch", os.path.join(ROOT, "scripts", "soak_flagship_torch.py"))
+    soak = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(soak)
+    root = os.path.join(WORK, "soak")
+    shutil.rmtree(root, ignore_errors=True)
+    os.makedirs(root)
+    exp_root = os.path.join(root, "exp")
+    exp_dir = os.path.join(exp_root, soak.EXP_NAME)
+    paths = {**corpus, "test": ""}
+    extra = {"num_epoch": 3, "save_every_iter": 1, "log_every_iter": 1,
+             "eval_every_iter": 0, "use_native_io": "false"}
+    kill = soak.run_until_killed(soak.train_cmd(paths, exp_root, extra), exp_dir,
+                                 kill_step=2, log_path=os.path.join(root, "phase1.log"))
+    soak.run_to_completion(soak.train_cmd(paths, exp_root, {**extra, "from_ckpt": "latest"}),
+                           os.path.join(root, "phase2.log"))
+    summary = soak.summarize(exp_dir, kill)
+    resume = summary["resume"]
+    require(resume["first_logged_step_after_resume"] == kill["step"] + 1,
+            f"the resume did not start at the saved step: {resume}")
+    cer = {mode: soak.decode(paths, exp_dir, mode, os.path.join(root, f"decode_{mode}.json"))
+           for mode in ("joint", "beam")}
+    print(f"soak driver: killed at {kill['checkpoint']}, resumed at step "
+          f"{resume['first_logged_step_after_resume']} lr {resume['first_lr_after_resume']:.3e}"
+          f", ended at {summary['checkpoints']['latest']}; dev CER {cer}")
+
+
+def run_cache_trace_soak(corpus, dev) -> dict:
+    """Phase 15c: the feature cache (preprocess on the card, training from
+    it, cache = waves), the trainer's trace window and the soak driver at
+    tiny scale. Returns the launches of its main paths and per cached train
+    step."""
+    manifests, preprocessed = _cache_features(corpus, dev)
+    cached, per_step = _train_from_cache(corpus, manifests)
+    _cache_equals_waves(corpus, dev)
+    traced = _check_trace_window(corpus)
+    _soak_driver(corpus)
+    launches = {k: preprocessed[k] + cached[k] + traced[k] for k in COUNTERS}
+    return {"launches": launches, "per_step": per_step}
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: CUDA is not available")
@@ -2885,11 +3234,12 @@ def main() -> None:
     conformer = phase("14b", run_conformer, corpus, dev)
     rnn = phase(15, run_rnn_family, corpus, dev)
     flash_step = phase("15b", run_time_warp_and_flash, dev)
+    cache = phase("15c", run_cache_trace_soak, corpus, dev)
 
     # launches: the main paths' runs, each counted from 0
     launches = {
         k: serve[k] + decoded[k] + trained[k] + stream_trained[k] + stream_served[k]
-        + conformer["launches"][k] + rnn["launches"][k]
+        + conformer["launches"][k] + rnn["launches"][k] + cache["launches"][k]
         for k in COUNTERS
     }
     require(all(n > 0 for n in launches.values()), f"a kernel never launched: {launches}")
@@ -2920,6 +3270,7 @@ def main() -> None:
              "bilstm_ctc_train_step": rnn["per_step"]["BiLSTMCTC"][name],
              "las_train_step": rnn["per_step"]["LAS"][name],
              "flash_train_step": flash_step[name],
+             "cached_train_step": cache["per_step"][name],
              "serving_batch": serve[name] / serve_batches,
              "joint_serving_batch": decoded[name] / joint_batches,
              "las_joint_decode_step": rnn["per_joint_step"][name],

@@ -162,3 +162,57 @@ def test_three_train_steps_on_the_window_match_jax(monkeypatch):
                                  tm.vocab_size)
     for name, p in tm.state_dict().items():
         np.testing.assert_allclose(p.numpy(), want[name].numpy(), atol=1e-5, err_msg=name)
+
+
+@pytest.mark.parametrize("dtype,band,t,fits", [
+    (torch.bfloat16, 704, 1500, True),    # twelve resident tiles
+    (torch.bfloat16, 705, 1500, False),   # fourteen
+    (torch.bfloat16, 769, 1500, False),
+    (torch.bfloat16, 769, 768, True),     # no more tiles than T holds
+    (torch.bfloat16, 769, 769, False),
+    (torch.bfloat16, 50, 267, True),
+    (torch.float32, 769, 1500, True),     # the FMA kernels serve any band
+    (torch.float32, 2000, 4000, True),
+])
+def test_wide_band_route_decision(dtype, band, t, fits):
+    assert fa._window_fits(torch.zeros(1, 1, t, 8, dtype=dtype), band) == fits
+
+
+def test_wide_band_full_tile_equals_the_window():
+    """A window too wide for K6/K7 takes the full-tile route with the causal
+    band and ``k_lengths`` as both lengths: that plain path equals the
+    windowed plain version at band 769, T = 1500, dropout 0.1 (f32)."""
+    t, band, rate, seed = 1500, 769, 0.1, 11
+    rng = np.random.RandomState(4)
+    q, k, v, g = (torch.from_numpy(rng.randn(1, 2, t, 16).astype(np.float32))
+                  for _ in range(4))
+    lens = torch.tensor([1337], dtype=torch.int32)
+    win = fa.banded_attention_reference(q, k, v, lens, seed, SCALE, rate, band)
+    full = fa.attention_reference(q, k, v, lens, lens, seed, SCALE, rate, True, band)
+    torch.testing.assert_close(full, win, atol=1e-5, rtol=0)
+    win_g = fa.banded_attention_backward_reference(q, k, v, lens, seed, SCALE, rate, band, g)
+    full_g = fa.attention_backward_reference(
+        q, k, v, lens, lens, seed, SCALE, rate, True, band, g)
+    for a, b in zip(full_g, win_g):
+        torch.testing.assert_close(a, b, atol=1e-5, rtol=0)
+
+
+def test_wide_bf16_window_takes_the_full_tile_route(monkeypatch):
+    """Through the autograd Function: a bf16 call whose window does not fit
+    runs the full-tile version with ``k_lengths`` for both lengths (the
+    q_lengths passed are not used), a fitting one the windowed version."""
+    monkeypatch.setenv("ASR_BANDED_WINDOW", "1")
+    calls = []
+    for name in ("attention_reference", "banded_attention_reference"):
+        real = getattr(fa, name)
+
+        def spy(*a, _real=real, _name=name):
+            calls.append((_name, a[3].tolist()))
+            return _real(*a)
+
+        monkeypatch.setattr(fa, name, spy)
+    q = torch.zeros(1, 1, 1500, 8, dtype=torch.bfloat16)
+    k_len, q_len = torch.tensor([1400]), torch.tensor([1500])
+    fa.fused_attention_general(q, q, q, q_len, k_len, 1, 0.5, 0.1, True, 769)
+    fa.fused_attention_general(q, q, q, q_len, k_len, 1, 0.5, 0.1, True, 704)
+    assert calls == [("attention_reference", [1400]), ("banded_attention_reference", [1400])]

@@ -293,6 +293,10 @@ CARD_SCRIPTS = [
     REPO / "scripts" / "profile_torch_train.py",
     REPO / "scripts" / "profile_torch_attention.py",
     REPO / "scripts" / "profile_torch_kernels.py",
+    REPO / "scripts" / "soak_flagship_torch.py",
+    REPO / "scripts" / "soak_streaming_torch.py",
+    REPO / "scripts" / "soak_ab_torch.py",
+    REPO / "scripts" / "conformer_grad_gap_torch.py",
 ]
 
 
@@ -358,3 +362,19 @@ def test_cer_cli_and_config_copies_match_originals(tmp_path):
     c.save(str(tmp_path / "c.json"))
     assert JaxConfig.load(str(tmp_path / "c.json")).to_dict() == c.to_dict()
     assert os.path.getsize(tmp_path / "c.json") > 0
+
+
+def test_extract_copy_matches_original(tmp_path):
+    from asr_chinese_e2e_tpu.data.extract import extract_aishell1 as jax_extract_aishell1
+    from asr_chinese_e2e_tpu_torch.data.extract import extract_aishell1
+    from tests.test_extract import _make_fixture
+
+    outer = _make_fixture(tmp_path)
+    roots = [fn(str(outer), str(tmp_path / name)) for fn, name in (
+        (extract_aishell1, "ours"), (jax_extract_aishell1, "theirs"))]
+
+    def tree(root):
+        return {os.path.relpath(os.path.join(d, f), root): open(os.path.join(d, f), "rb").read()
+                for d, _, files in os.walk(root) for f in files}
+
+    assert tree(roots[0]) == tree(roots[1]) and len(tree(roots[0])) == 5
