@@ -26,6 +26,15 @@ The decode caches are updated IN PLACE (the JAX package returns new
 arrays): a step writes position ``index`` of the caches it was given and
 returns them, which saves a full cache copy per layer per step. A caller
 that needs the old state must clone it first.
+
+Under a mesh (``parallel/context.py::active_mesh``): ``Dense`` and
+``Embedding`` split over ``model`` by ``parallel/sharding.py::
+shard_model_`` sum or gather their results over the axis; the attention
+folds the rank's coordinates into its kernel's dropout seed as the JAX
+package's ``fused_attention_sharded_general`` does, and ``ring`` runs ring
+attention over ``seq``; hash dropout offsets its element index by the
+rank's first row of the global batch, so a data-parallel step draws what
+one process draws for the whole batch.
 """
 
 from __future__ import annotations
@@ -37,7 +46,16 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from ..ops.fused_attention import _mul32, _keep_threshold, fused_attention_general
+from ..ops.fused_attention import (
+    _keep_threshold,
+    _mul32,
+    fused_attention_general,
+    fused_attention_sharded_general,
+)
+from ..ops.ring_attention import ring_attention
+from ..ops.masks import padding_bias
+from ..parallel.collectives import copy_to, gather_from, reduce_from, split_to
+from ..parallel.context import get_active_mesh
 
 LN_EPS = 1e-6  # flax nn.LayerNorm's epsilon (torch's default is 1e-5)
 PE_MAX_LEN = 5000
@@ -49,13 +67,17 @@ def draw_seed(rng: torch.Generator) -> int:
     return int(torch.randint(0, _SEED_HI, (), generator=rng))
 
 
-def hash_keep_mask(seed: int, shape, rate: float, dtype, device) -> torch.Tensor:
+def hash_keep_mask(seed: int, shape, rate: float, dtype, device, offset: int = 0) -> torch.Tensor:
     """Keep mask scaled by 1/(1-rate) in ``dtype``: the murmur finalizer of
-    (flat element index, seed), bit-exact with the JAX package's
-    ``ConfigurableDropout(impl="hash")`` (uint32 arithmetic emulated in
-    int64 with ``_mul32``)."""
+    (flat element index + ``offset``, seed), bit-exact with the JAX
+    package's ``ConfigurableDropout(impl="hash")`` (uint32 arithmetic
+    emulated in int64 with ``_mul32``). ``offset`` is the index of the
+    tensor's first element in the global tensor it is a part of."""
     n = int(np.prod(shape))
-    h = _index_term(n, torch.device(device)) ^ _mul32(
+    idx = _index_term(n, torch.device(device))
+    if offset:
+        idx = (idx + _mul32(torch.tensor(offset & 0xFFFFFFFF, device=device), 0x9E3779B9)) & 0xFFFFFFFF
+    h = idx ^ _mul32(
         torch.tensor(int(seed) & 0xFFFFFFFF, dtype=torch.int64, device=device),
         0xC2B2AE35,
     )
@@ -74,11 +96,23 @@ def _index_term(n: int, device: torch.device) -> torch.Tensor:
     return _mul32(torch.arange(n, dtype=torch.int64, device=device), 0x9E3779B9)
 
 
+def data_index() -> int:
+    """This rank's index on the active mesh's ``data`` axis."""
+    mesh = get_active_mesh()
+    return 0 if mesh is None else mesh.index("data")
+
+
 class ConfigurableDropout(nn.Module):
     """Dropout with a selectable mask generator (``impl``): ``"rng"``
     draws a Bernoulli mask from a generator seeded per call, ``"hash"``
     hashes the flat element index with a per-call seed exactly as the JAX
-    package does. Identity when ``rng`` is None or the rate is 0."""
+    package does. Identity when ``rng`` is None or the rate is 0.
+
+    Under a data mesh ``x`` is this rank's rows of a global batch of equal
+    shares: the hash index starts at the rank's first global element, and
+    the rng draw folds in the rank. ``heads`` = (index, count) says that
+    ``x``'s second dimension is chunk ``index`` of ``count`` (heads split
+    over ``model``): the hash then indexes the whole heads dimension."""
 
     def __init__(self, rate: float, impl: str = "rng"):
         super().__init__()
@@ -86,13 +120,20 @@ class ConfigurableDropout(nn.Module):
             raise ValueError(f"unknown dropout_impl {impl!r}")
         self.rate, self.impl = float(rate), impl
 
-    def forward(self, x: torch.Tensor, rng) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, rng, heads=None) -> torch.Tensor:
         if rng is None or self.rate == 0.0:
             return x
         seed = draw_seed(rng)
+        d = data_index()
         if self.impl == "hash":
-            return x * hash_keep_mask(seed, x.shape, self.rate, x.dtype, x.device)
-        gen = torch.Generator(device=x.device).manual_seed(seed)
+            if heads is None or heads[1] == 1:
+                return x * hash_keep_mask(seed, x.shape, self.rate, x.dtype, x.device,
+                                          d * x.numel())
+            m, tp = heads
+            full = (x.shape[0], x.shape[1] * tp, *x.shape[2:])
+            keep = hash_keep_mask(seed, full, self.rate, x.dtype, x.device, d * x.numel() * tp)
+            return x * keep.chunk(tp, 1)[m]
+        gen = torch.Generator(device=x.device).manual_seed(seed + (d << 32))
         keep = torch.rand(x.shape, generator=gen, device=x.device) >= self.rate
         return x * keep.to(x.dtype) / torch.tensor(1.0 - self.rate, dtype=x.dtype,
                                                    device=x.device)
@@ -100,7 +141,14 @@ class ConfigurableDropout(nn.Module):
 
 class Dense(nn.Linear):
     """``nn.Linear`` that computes in ``dtype``: input, weight and bias are
-    cast at use (flax ``nn.Dense(dtype=...)`` with float32 parameters)."""
+    cast at use (flax ``nn.Dense(dtype=...)`` with float32 parameters).
+
+    ``tp`` (set by ``parallel/sharding.py::shard_model_``): "column" holds
+    a chunk of the output features (the input's gradient is summed over
+    the model axis), "row" a chunk of the input features (the partial
+    products are summed over the axis, then the whole bias added)."""
+
+    tp = None
 
     def __init__(self, in_features: int, out_features: int, dtype=torch.float32,
                  bias: bool = True):
@@ -108,6 +156,8 @@ class Dense(nn.Linear):
         self.compute_dtype = dtype
 
     def forward(self, x):
+        if self.tp is not None:
+            return self._forward_split(x)
         dt = self.compute_dtype
         if x.dtype == self.weight.dtype == dt:
             # weights already cast (the serving path): no cast calls on the
@@ -115,6 +165,14 @@ class Dense(nn.Linear):
             return F.linear(x, self.weight, self.bias)
         bias = None if self.bias is None else self.bias.to(dt)
         return F.linear(x.to(dt), self.weight.to(dt), bias)
+
+    def _forward_split(self, x):
+        dt, tp = self.compute_dtype, self.tp
+        bias = None if self.bias is None else self.bias.to(dt)
+        if tp.mode == "column":
+            return F.linear(copy_to(x, tp.group).to(dt), self.weight.to(dt), bias)
+        y = reduce_from(F.linear(x.to(dt), self.weight.to(dt)), tp.group)
+        return y if bias is None else y + bias
 
 
 class LayerNorm(nn.LayerNorm):
@@ -139,18 +197,36 @@ class LayerNorm(nn.LayerNorm):
 
 
 class Embedding(nn.Embedding):
-    """Embedding table cast to ``dtype`` at lookup (flax ``nn.Embed``)."""
+    """Embedding table cast to ``dtype`` at lookup (flax ``nn.Embed``).
+
+    ``tp`` "vocab" (set by ``shard_model_``): the table holds rows
+    [index * V/n, (index + 1) * V/n). A lookup takes the ids in that range
+    and sums over the model axis; the tied projection's logits of the
+    rows are gathered whole over the axis."""
+
+    tp = None
 
     def __init__(self, num: int, dim: int, dtype=torch.float32):
         super().__init__(num, dim)
         self.compute_dtype = dtype
 
     def forward(self, ids):
-        return F.embedding(ids, self.weight.to(self.compute_dtype))
+        tp = self.tp
+        if tp is None:
+            return F.embedding(ids, self.weight.to(self.compute_dtype))
+        rows = self.weight.shape[0]
+        local = ids - tp.index * rows
+        inside = (local >= 0) & (local < rows)
+        out = F.embedding(torch.where(inside, local, torch.zeros_like(local)),
+                          self.weight.to(self.compute_dtype))
+        return reduce_from(out * inside[..., None].to(out.dtype), tp.group)
 
     def attend(self, x):
         """Tied output projection: x @ table^T in the compute dtype."""
         dt = self.compute_dtype
+        if self.tp is not None:
+            logits = copy_to(x, self.tp.group).to(dt) @ self.weight.to(dt).t()
+            return gather_from(logits, self.tp.group, -1)
         if x.dtype == self.weight.dtype == dt:
             return x @ self.weight.t()
         return x.to(dt) @ self.weight.to(dt).t()
@@ -214,9 +290,20 @@ class MultiHeadAttention(nn.Module):
     def scale(self) -> float:
         return 1.0 / float(np.sqrt(self.head_dim))
 
+    @property
+    def local_heads(self) -> int:
+        """The heads this rank computes (all of them unless split over
+        ``model``)."""
+        return self.q_proj.weight.shape[0] // self.head_dim
+
+    def _head_shard(self):
+        """(index, count) of this rank's chunk of the heads, or None."""
+        tp = self.q_proj.tp
+        return None if tp is None else (tp.index, tp.size)
+
     def _split(self, y: torch.Tensor) -> torch.Tensor:
         """(B, T, H*d) -> (B, T, H, d)."""
-        return y.reshape(*y.shape[:-1], self.num_heads, self.head_dim)
+        return y.reshape(*y.shape[:-1], self.local_heads, self.head_dim)
 
     def _merge_out(self, out: torch.Tensor) -> torch.Tensor:
         """(B, T, H, d) -> output projection (B, T, D)."""
@@ -232,7 +319,7 @@ class MultiHeadAttention(nn.Module):
             logits = logits + bias
         weights = torch.softmax(logits, dim=-1).to(v.dtype)
         if self.weight_dropout:
-            weights = self.attn_drop(weights, rng)
+            weights = self.attn_drop(weights, rng, heads=self._head_shard())
         out = torch.einsum("bhqk,bkhd->bqhd", weights, v)
         return self.out_drop(self._merge_out(out), rng)
 
@@ -253,10 +340,14 @@ class MultiHeadAttention(nn.Module):
         if (rng is not None and weight_dropout and self.weight_dropout
                 and self.dropout_rate > 0.0):
             rate, seed = self.dropout_rate, draw_seed(rng)
-        out = fused_attention_general(
-            to_bhtd(q), to_bhtd(k), to_bhtd(v), q_lengths, k_lengths,
-            seed, self.scale, rate, causal, band,
-        )
+        args = (to_bhtd(q), to_bhtd(k), to_bhtd(v), q_lengths, k_lengths,
+                seed, self.scale, rate, causal, band)
+        mesh = get_active_mesh()
+        if mesh is not None:
+            out = fused_attention_sharded_general(
+                mesh, *args, heads_split=self.q_proj.tp is not None)
+        else:
+            out = fused_attention_general(*args)
         return self.out_drop(self._merge_out(out.transpose(1, 2)), rng)
 
     def fused(self, x, lengths, rng=None):
@@ -287,6 +378,31 @@ class MultiHeadAttention(nn.Module):
         tiles, queries masked by target length, keys by encoder length."""
         return self._fused_general(q_in, kv_in, q_lengths, k_lengths, False, rng)
 
+    def ring(self, x, lengths, rng=None):
+        """Self-attention of ``attn_impl="ring"``: ring attention over the
+        active mesh's ``seq`` axis (``ops/ring_attention.py``). With no
+        ``seq`` axis, the plain masked path. T is padded to a multiple of
+        the axis' size (padded keys are masked by length); each rank takes
+        its T / seq query rows and K/V block, and the blocks of the output
+        are gathered whole. No attention-weight dropout (as ``flash``);
+        the output dropout stays."""
+        mesh = get_active_mesh()
+        sp = 1 if mesh is None else mesh.shape["seq"]
+        q = self._split(self.q_proj(x))
+        k, v = self.kv(x)
+        if sp == 1:
+            return self._attend(q, k, v, padding_bias(lengths, x.shape[1]), rng)
+        group = mesh.group("seq")
+        t = x.shape[1]
+        t_pad = -(-t // sp) * sp
+        if t_pad != t:
+            pad = (0, 0, 0, 0, 0, t_pad - t)
+            q, k, v = F.pad(q, pad), F.pad(k, pad), F.pad(v, pad)
+        q, k, v = (split_to(a, group, 1) for a in (q, k, v))
+        out = ring_attention(q, k, v, lengths.to(x.device), group, self.scale)
+        out = gather_from(out, group, 1)[:, :t].to(self.out_proj.compute_dtype)
+        return self.out_drop(self._merge_out(out), rng)
+
     def step_self(self, x, cache: dict, index: int, bias):
         """Cached self-attention decode step. x: (B, 1, D); cache holds
         heads-major (B, H, Tmax, d) buffers, written in place at ``index``."""
@@ -311,7 +427,7 @@ class MultiHeadAttention(nn.Module):
         x: (B*K, 1, D) in beam-slot order; bias broadcastable to
         (B, H, K, L)."""
         b, k_beam, l = anc.shape
-        h, dk = self.num_heads, self.head_dim
+        h, dk = self.local_heads, self.head_dim
         q = self._split(self.q_proj(x))  # (B*K, 1, H, d)
         k_new, v_new = self.kv(x)
         kc, vc = cache["k"], cache["v"]  # (B*K, H, L, d)
@@ -341,7 +457,7 @@ class MultiHeadAttention(nn.Module):
         if k_beam == 1:
             return self._attend(q, kc, vc, bias)
         b = kc.shape[0]
-        h, dk = self.num_heads, self.head_dim
+        h, dk = self.local_heads, self.head_dim
         qb = q.reshape(b, k_beam, h, dk)
         s = torch.einsum("bkhd,bthd->bhkt", qb.float(), kc.float()) * self.scale
         if bias is not None:
@@ -352,7 +468,7 @@ class MultiHeadAttention(nn.Module):
 
     def make_cache(self, batch: int, max_len: int, dtype, device):
         """Heads-major (B, H, T, d) zero caches."""
-        shape = (batch, self.num_heads, max_len, self.head_dim)
+        shape = (batch, self.local_heads, max_len, self.head_dim)
         return {
             "k": torch.zeros(shape, dtype=dtype, device=device),
             "v": torch.zeros(shape, dtype=dtype, device=device),

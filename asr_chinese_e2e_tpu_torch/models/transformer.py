@@ -8,10 +8,10 @@ attention through the fused kernels (``attn_impl`` / ``decoder_attn_impl``
 = "fused") or plain products ("xla"). Both encoder families
 (``encoder_type`` "transformer" or "conformer"), both frontends
 (``frontend`` "linear" or "conv2d"), ``remat`` (per-layer activation
-recomputation, ``torch.utils.checkpoint``) and ``attn_impl="flash"``
-(the fused kernels without weight dropout) are ported. The ring
-attention path is not ported yet; asking for it raises
-``NotImplementedError`` naming the ROADMAP item.
+recomputation, ``torch.utils.checkpoint``), ``attn_impl="flash"`` (the
+fused kernels without weight dropout) and ``attn_impl="ring"`` (ring
+attention over the active mesh's ``seq`` axis, ``ops/ring_attention.py``;
+the plain masked path without one) are ported.
 
 Weights are created from an explicit ``torch.Generator`` (the JAX
 package draws them from a PRNG key), or converted from flax with
@@ -94,13 +94,9 @@ def deepnorm_coeffs(cfg):
 
 
 def check_supported(cfg) -> None:
-    """Raise ``NotImplementedError`` for configurations the port does not
-    run yet, naming the ROADMAP item that brings them."""
-    if cfg.get("attn_impl", "xla") == "ring":
-        raise NotImplementedError(
-            "attn_impl='ring' (ROADMAP §1, item 7: parallelism) is not ported yet"
-        )
-    if cfg.get("attn_impl", "xla") not in ("xla", "fused", "flash"):
+    """Raise ``ValueError`` for an unknown attention, encoder or frontend
+    choice."""
+    if cfg.get("attn_impl", "xla") not in ("xla", "fused", "flash", "ring"):
         raise ValueError(f"unknown attn_impl {cfg.attn_impl!r}")
     if cfg.get("decoder_attn_impl", "xla") not in ("xla", "fused"):
         raise ValueError(f"unknown decoder_attn_impl {cfg.decoder_attn_impl!r}")
@@ -165,6 +161,7 @@ def _encoder_self_attention(cfg, attn, x, bias, lengths, rng):
     attention kernels (band / causal patterns in the kernel), "flash" the
     same kernels without weight dropout (a band or causal pattern takes
     the plain bias path, as the JAX package's flash kernel has none),
+    "ring" ring attention over the mesh's ``seq`` axis (no pattern either),
     "xla" the plain masked products."""
     impl = cfg.get("attn_impl", "xla")
     band = cfg.get("attention_band", 0)
@@ -176,6 +173,8 @@ def _encoder_self_attention(cfg, attn, x, bias, lengths, rng):
             return attn.fused(x, lengths, rng)
         if impl == "flash" and not (band or causal):
             return attn.flash(x, lengths, rng)
+        if impl == "ring" and not (band or causal):
+            return attn.ring(x, lengths, rng)
     return attn(x, x, bias, rng)
 
 

@@ -66,12 +66,30 @@ __device__ __forceinline__ float lae(float a, float b) {
   return m + log1pf(expf(-fabsf(a - b)));
 }
 
-// The recursions' log-add-exp: lae's formula on the hardware's exp2 and
-// log2 (ex2.approx, lg2.approx), branch-free, 1e-7 from lae: the
-// step-to-step chain is two of them.
+// lae's formula on the hardware's exp2 and log2 (ex2.approx, lg2.approx),
+// branch-free, 1e-7 from lae a step. bf16 logits take it: their rounding
+// dwarfs the 1e-7. Over the T steps of an f32 recursion these errors
+// compound (a conformer step's f32 gradient 2e-4 from the CPU's), so f32
+// logits take lae, and expf / logf in the row passes (EXACT below).
 __device__ __forceinline__ float lae_fast(float a, float b) {
   const float m = fmaxf(a, b);
   return m + __logf(1.0f + __expf(-fabsf(a - b)));
+}
+
+// the log-add-exp, exp and log of one design: EXACT (f32 logits) on the
+// accurate expf / log1pf / logf, as the JAX package computes them; else
+// (bf16 logits) on the hardware's approximate functions
+template <bool EXACT>
+__device__ __forceinline__ float lae_of(float a, float b) {
+  return EXACT ? lae(a, b) : lae_fast(a, b);
+}
+template <bool EXACT>
+__device__ __forceinline__ float exp_of(float x) {
+  return EXACT ? expf(x) : __expf(x);
+}
+template <bool EXACT>
+__device__ __forceinline__ float log_of(float x) {
+  return EXACT ? logf(x) : __logf(x);
 }
 
 __device__ __forceinline__ bool can_skip(const int* ext, int s, int S, int blank) {
@@ -126,8 +144,9 @@ constexpr int ROW_DEPTH = 4;  // 16-byte loads in flight a lane
 // 8 loads and row_parts' unrolled loop, PERF.md): an online (max, sum) per
 // lane, the sum rescaled when the max grows, each term 2^(x log2 e - max
 // log2 e) by one fused multiply-add and one ex2, then the lanes merged by
-// the xor butterfly. Every lane returns it.
-template <typename T>
+// the xor butterfly. Every lane returns it. EXACT: each term expf(x - max),
+// the sum rescaled by expf, the log by logf.
+template <typename T, bool EXACT>
 __device__ __forceinline__ float warp_row_lse(const T* x, int C, int lane) {
   using V = Vec16<T>;
   using asr::ex2;
@@ -138,11 +157,17 @@ __device__ __forceinline__ float warp_row_lse(const T* x, int C, int lane) {
     float mn = m;
 #pragma unroll
     for (int k = 0; k < n; ++k) mn = fmaxf(mn, f[k]);
-    const float nb = -mn * LOG2E;
     float add = 0.0f;
+    if constexpr (EXACT) {
 #pragma unroll
-    for (int k = 0; k < n; ++k) add += ex2(fmaf(f[k], LOG2E, nb));
-    sum = fmaf(sum, ex2((m - mn) * LOG2E), add);  // exactly 1 while the max holds
+      for (int k = 0; k < n; ++k) add += expf(f[k] - mn);
+      sum = fmaf(sum, expf(m - mn), add);
+    } else {
+      const float nb = -mn * LOG2E;
+#pragma unroll
+      for (int k = 0; k < n; ++k) add += ex2(fmaf(f[k], LOG2E, nb));
+      sum = fmaf(sum, ex2((m - mn) * LOG2E), add);  // exactly 1 while the max holds
+    }
     m = mn;
   };
   const int mis = (int)((reinterpret_cast<uintptr_t>(x) / sizeof(T)) & (W - 1));
@@ -178,10 +203,10 @@ __device__ __forceinline__ float warp_row_lse(const T* x, int C, int lane) {
     const float mo = __shfl_xor_sync(0xffffffffu, m, off);
     const float so = __shfl_xor_sync(0xffffffffu, sum, off);
     const float mn = fmaxf(m, mo);
-    sum = sum * __expf(m - mn) + so * __expf(mo - mn);
+    sum = sum * exp_of<EXACT>(m - mn) + so * exp_of<EXACT>(mo - mn);
     m = mn;
   }
-  return m + __logf(sum);
+  return m + log_of<EXACT>(sum);
 }
 
 constexpr int ROW_WARPS = 8;   // one row (b, t) at a time per warp
@@ -191,7 +216,7 @@ constexpr int ROW_ROWS = 8;    // rows of one utterance per block
 // per row: lse[row], and for rows t < max(len, 1) the S emissions
 // emit[row][s] = logits[row][ext[s]] - lse[row], the classes staged once per
 // block in shared memory.
-template <typename T>
+template <typename T, bool EXACT>
 __global__ void __launch_bounds__(32 * ROW_WARPS)
 ctc_emission_rows_kernel(const T* __restrict__ logits, const int* __restrict__ ext_all,
                          const int* __restrict__ logit_len, float* __restrict__ lse,
@@ -210,7 +235,7 @@ ctc_emission_rows_kernel(const T* __restrict__ logits, const int* __restrict__ e
     if (t >= Tt) break;
     const size_t row = (size_t)b * Tt + t;
     const T* x = logits + row * C;
-    const float l = warp_row_lse(x, C, lane);
+    const float l = warp_row_lse<T, EXACT>(x, C, lane);
     if (lane == 0) lse[row] = l;
     if (t >= n) continue;
     for (int s = lane; s < S; s += 32) emit[row * S + s] = to_f32(x[ext[s]]) - l;
@@ -223,7 +248,7 @@ ctc_emission_rows_kernel(const T* __restrict__ logits, const int* __restrict__ e
 // copies its own emission of step t + P by cp.async into its slot of a ring
 // in shared memory, so the chain from one step to the next holds no load of
 // device memory. Writes alpha for t < max(len, 1) and the loss.
-template <int P>
+template <int P, bool EXACT>
 __global__ void __launch_bounds__(1024)
 ctc_alpha_recursion_kernel(const float* __restrict__ emit, const int* __restrict__ ext_all,
                            const int* __restrict__ logit_len, const int* __restrict__ label_len,
@@ -269,7 +294,8 @@ ctc_alpha_recursion_kernel(const float* __restrict__ emit, const int* __restrict
         __syncthreads();  // step t-1 is in buffer cur
         const float* prev = buf + cur * stride;
         if (valid)
-          val = lae_fast(lae_fast(prev[s + 2], prev[s + 1]), skip ? prev[s] : BIG_NEG) + e;
+          val = lae_of<EXACT>(lae_of<EXACT>(prev[s + 2], prev[s + 1]), skip ? prev[s] : BIG_NEG) +
+                e;
         cur ^= 1;
       }
       if (valid) {
@@ -302,7 +328,7 @@ ctc_alpha_recursion_kernel(const float* __restrict__ emit, const int* __restrict
 // a single warp issues every state's work in turn, 0.2197 ms at S = 65 and
 // 2.2438 ms at S = 401 against this design's 0.1116 and 0.3446 (PERF.md).
 // Writes z for t < len.
-template <typename T, int P>
+template <typename T, int P, bool EXACT>
 __global__ void __launch_bounds__(1024)
 ctc_beta_recursion_kernel(const T* __restrict__ logits, const float* __restrict__ lse,
                           const int* __restrict__ ext_all, const int* __restrict__ logit_len,
@@ -376,12 +402,13 @@ ctc_beta_recursion_kernel(const T* __restrict__ logits, const float* __restrict_
         __syncthreads();  // step t+1 is in buffer cur
         const float* next = buf + cur * stride;
         if (valid)
-          val = lae_fast(lae_fast(next[s], next[s + 1]), skip2 ? next[s + 2] : BIG_NEG) + e;
+          val = lae_of<EXACT>(lae_of<EXACT>(next[s], next[s + 1]), skip2 ? next[s + 2] : BIG_NEG) +
+                e;
         cur ^= 1;
       }
       if (valid) {
         buf[cur * stride + s] = val;
-        z[(row0 + t) * S + s] = __expf(fminf(slot[nth] + val - e + nll, 0.0f));
+        z[(row0 + t) * S + s] = exp_of<EXACT>(fminf(slot[nth] + val - e + nll, 0.0f));
       }
       fetch(u, t - P);
       asr::cp_async_commit();
@@ -417,12 +444,21 @@ __device__ __forceinline__ void row_parts(const T* x, int C, int lane, Scalar fn
 // are zeros. The class of every position and the link to the next position
 // of the same class are worked out once per block in shared memory; no row
 // of C floats and no atomics.
-template <typename T>
+//
+// EXACT (f32 logits) normalises each row's z by its sum, where the label
+// can be aligned (loss < 1e29): g (softmax - sum of their z / sum(z)). In
+// exact arithmetic sum(z) is 1 at every t < len; in f32, z = exp(alpha +
+// beta' - emit + loss) carries the ulp of terms near the loss (~1e-4 at a
+// loss of ~1700, a freshly initialised model's) into every z of the row
+// alike, which scales the whole gradient by as much. The normalisation
+// takes that common factor out.
+template <typename T, bool EXACT>
 __global__ void __launch_bounds__(32 * GRAD_WARPS)
 ctc_grad_rows_kernel(const T* __restrict__ logits, const float* __restrict__ lse,
                      const int* __restrict__ ext_all, const int* __restrict__ logit_len,
-                     const float* __restrict__ z, const float* __restrict__ g,
-                     T* __restrict__ dlogits, int Tt, int C, int S) {
+                     const float* __restrict__ loss, const float* __restrict__ z,
+                     const float* __restrict__ g, T* __restrict__ dlogits, int Tt, int C,
+                     int S) {
   using V = Vec16<T>;
   extern __shared__ int sm[];
   int* ext = sm;                                      // S classes
@@ -449,6 +485,7 @@ ctc_grad_rows_kernel(const T* __restrict__ logits, const float* __restrict__ lse
   __syncthreads();
 
   const float gb = g[b];
+  const bool normalise = EXACT && loss[b] < 1e29f;
   float* zr = zs_all + warp * S;
   for (int r = warp; r < GRAD_ROWS; r += GRAD_WARPS) {
     const int t = t0 + r;
@@ -470,14 +507,22 @@ ctc_grad_rows_kernel(const T* __restrict__ logits, const float* __restrict__ lse
       zs += v;
     }
     for (int off = 16; off > 0; off >>= 1) zs += __shfl_xor_sync(0xffffffffu, zs, off);
+    // w multiplies the softmax and inv the labels' sums: (sum(z), 1), or
+    // normalised (1, 1 / sum(z)), (0, 0) where every z of the row underflowed
+    float w = zs, inv = 1.0f;
+    if (normalise) {
+      w = zs > 0.0f ? 1.0f : 0.0f;
+      inv = zs > 0.0f ? 1.0f / zs : 0.0f;
+    }
     const float l = lse[row];
     row_parts(
-        x, C, lane, [&](int c) { out[c] = from_f32<T>(__expf(to_f32(x[c]) - l) * zs * gb); },
+        x, C, lane,
+        [&](int c) { out[c] = from_f32<T>(exp_of<EXACT>(to_f32(x[c]) - l) * w * gb); },
         [&](int head, int i) {
           float f[V::N];
           V::unpack(reinterpret_cast<const uint4*>(x + head)[i], f);
 #pragma unroll
-          for (int k = 0; k < V::N; ++k) f[k] = __expf(f[k] - l) * zs * gb;
+          for (int k = 0; k < V::N; ++k) f[k] = exp_of<EXACT>(f[k] - l) * w * gb;
           reinterpret_cast<uint4*>(out + head)[i] = V::pack(f);
         });
     __syncwarp();  // the row's z staged, and its class values written
@@ -487,7 +532,7 @@ ctc_grad_rows_kernel(const T* __restrict__ logits, const float* __restrict__ lse
       float sum = zr[s];
       for (int n = lk & (LINK_HEAD - 1); n < S; n = link[n] & (LINK_HEAD - 1)) sum += zr[n];
       const int c = ext[s];
-      out[c] = from_f32<T>((__expf(to_f32(x[c]) - l) * zs - sum) * gb);
+      out[c] = from_f32<T>((exp_of<EXACT>(to_f32(x[c]) - l) * w - sum * inv) * gb);
     }
     __syncwarp();  // zr is free for the warp's next row
   }
@@ -495,7 +540,7 @@ ctc_grad_rows_kernel(const T* __restrict__ logits, const float* __restrict__ lse
 
 int recursion_threads(int S) { return ((S + 31) / 32) * 32; }
 
-template <typename T>
+template <typename T, bool EXACT>
 int alpha_launch(const void* logits, const int* ext, const int* logit_len,
                  const int* label_len, float* lse, float* emit, float* alpha, float* loss,
                  int B, int Tt, int C, int S, int blank, cudaStream_t st) {
@@ -503,18 +548,18 @@ int alpha_launch(const void* logits, const int* ext, const int* logit_len,
   // buffers is 41 KB at S = 1024, under the 48 KB a launch gets by default
   constexpr int P = 8;
   dim3 grid((Tt + ROW_ROWS - 1) / ROW_ROWS, B);
-  ctc_emission_rows_kernel<T><<<grid, 32 * ROW_WARPS, sizeof(int) * S, st>>>(
+  ctc_emission_rows_kernel<T, EXACT><<<grid, 32 * ROW_WARPS, sizeof(int) * S, st>>>(
       (const T*)logits, ext, logit_len, lse, emit, Tt, C, S);
   int err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   const int nth = recursion_threads(S);
   const size_t smem = sizeof(float) * (2 * (S + 2) + P * nth);
-  ctc_alpha_recursion_kernel<P><<<B, nth, smem, st>>>(emit, ext, logit_len, label_len, alpha,
+  ctc_alpha_recursion_kernel<P, EXACT><<<B, nth, smem, st>>>(emit, ext, logit_len, label_len, alpha,
                                                       loss, Tt, S, blank);
   return (int)cudaGetLastError();
 }
 
-template <typename T>
+template <typename T, bool EXACT>
 int beta_launch(const void* logits, const int* ext, const int* logit_len,
                 const int* label_len, const float* lse, const float* alpha,
                 const float* loss, const float* g, float* z, void* dlogits,
@@ -525,23 +570,27 @@ int beta_launch(const void* logits, const int* ext, const int* logit_len,
   const size_t rec_smem = sizeof(float) * (2 * (S + 2) + P * 3 * nth);
   int err = cudaSuccess;
   if (rec_smem > 48 * 1024)
-    err = cudaFuncSetAttribute(ctc_beta_recursion_kernel<T, P>,
+    err = cudaFuncSetAttribute(ctc_beta_recursion_kernel<T, P, EXACT>,
                                cudaFuncAttributeMaxDynamicSharedMemorySize, (int)rec_smem);
   if (err != cudaSuccess) return err;
-  ctc_beta_recursion_kernel<T, P><<<B, nth, rec_smem, st>>>(
+  ctc_beta_recursion_kernel<T, P, EXACT><<<B, nth, rec_smem, st>>>(
       (const T*)logits, lse, ext, logit_len, label_len, alpha, loss, z, Tt, C, S, blank);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   const size_t smem = sizeof(int) * (size_t)(2 + GRAD_WARPS) * S;
   dim3 grid((Tt + GRAD_ROWS - 1) / GRAD_ROWS, B);
-  ctc_grad_rows_kernel<T><<<grid, 32 * GRAD_WARPS, smem, st>>>(
-      (const T*)logits, lse, ext, logit_len, z, g, (T*)dlogits, Tt, C, S);
+  ctc_grad_rows_kernel<T, EXACT><<<grid, 32 * GRAD_WARPS, smem, st>>>(
+      (const T*)logits, lse, ext, logit_len, loss, z, g, (T*)dlogits, Tt, C, S);
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
-// K3. logits: (B, T, C) bf16 (is_bf16=1) or f32, contiguous; ext: (B, S)
+// The logits' type, the last int argument of both entry points: f32 logits
+// take the accurate functions, bf16 logits the approximate ones.
+enum CtcVariant { CTC_F32 = 0, CTC_BF16 = 1 };
+
+// K3. logits: (B, T, C) bf16 or f32 (variant), contiguous; ext: (B, S)
 // int32 extended labels; logit_len/label_len: (B,) int32; emit: (B, T, S)
 // f32 scratch (the emission table). Writes lse (B, T) f32, the alpha table
 // (B, T, S) f32 (rows t < len only) and the loss (B,) f32. S <= 1024.
@@ -549,15 +598,15 @@ int beta_launch(const void* logits, const int* ext, const int* logit_len,
 extern "C" int asr_ctc_alpha(const void* logits, const int* ext,
                              const int* logit_len, const int* label_len,
                              float* lse, float* emit, float* alpha, float* loss,
-                             int B, int Tt, int C, int S, int blank, int is_bf16,
+                             int B, int Tt, int C, int S, int blank, int variant,
                              void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
   if (S > 1024) return (int)cudaErrorInvalidValue;
-  if (is_bf16)
-    return alpha_launch<__nv_bfloat16>(logits, ext, logit_len, label_len, lse, emit,
-                                       alpha, loss, B, Tt, C, S, blank, st);
-  return alpha_launch<float>(logits, ext, logit_len, label_len, lse, emit, alpha,
-                             loss, B, Tt, C, S, blank, st);
+  if (variant == CTC_BF16)
+    return alpha_launch<__nv_bfloat16, false>(logits, ext, logit_len, label_len, lse, emit,
+                                              alpha, loss, B, Tt, C, S, blank, st);
+  return alpha_launch<float, true>(logits, ext, logit_len, label_len, lse, emit, alpha,
+                                   loss, B, Tt, C, S, blank, st);
 }
 
 // K4. Inputs as K3, plus K3's lse, alpha and loss, and g: (B,) f32, the
@@ -568,13 +617,13 @@ extern "C" int asr_ctc_beta(const void* logits, const int* ext,
                             const float* lse, const float* alpha,
                             const float* loss, const float* g, float* z,
                             void* dlogits, int B, int Tt, int C, int S,
-                            int blank, int is_bf16, void* stream) {
+                            int blank, int variant, void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
   if (S > 1024) return (int)cudaErrorInvalidValue;
-  if (is_bf16)
-    return beta_launch<__nv_bfloat16>(logits, ext, logit_len, label_len, lse,
-                                      alpha, loss, g, z, dlogits, B, Tt, C, S,
-                                      blank, st);
-  return beta_launch<float>(logits, ext, logit_len, label_len, lse, alpha,
-                            loss, g, z, dlogits, B, Tt, C, S, blank, st);
+  if (variant == CTC_BF16)
+    return beta_launch<__nv_bfloat16, false>(logits, ext, logit_len, label_len, lse,
+                                             alpha, loss, g, z, dlogits, B, Tt, C, S,
+                                             blank, st);
+  return beta_launch<float, true>(logits, ext, logit_len, label_len, lse, alpha,
+                                  loss, g, z, dlogits, B, Tt, C, S, blank, st);
 }

@@ -30,10 +30,17 @@ def _shift_left(x: torch.Tensor, k: int) -> torch.Tensor:
     return torch.cat([x[:, k:], torch.full_like(x[:, :k], BIG_NEG)], dim=1)
 
 
+def _compute_dtype(logits) -> torch.dtype:
+    """f32 for bf16/f32 logits; f64 logits stay f64 (the float64
+    evaluations the card's checks hold the kernels to)."""
+    return torch.promote_types(logits.dtype, torch.float32)
+
+
 def ctc_alpha_reference(logits, ext, logit_lengths, label_lengths, blank_id=0):
     """Plain version of K3. Returns (loss (B,), alpha (B, T, S), lse (B, T)),
-    all float32; alpha is frozen past each logit length."""
-    logits32 = logits.float()
+    all float32 (float64 for float64 logits); alpha is frozen past each
+    logit length."""
+    logits32 = logits.to(_compute_dtype(logits))
     lse = torch.logsumexp(logits32, dim=-1)
     emit = _emissions(logits32, lse, ext)
     t_max, s = emit.shape[1], emit.shape[2]
@@ -54,8 +61,13 @@ def ctc_beta_reference(
     """Plain version of K4: the reverse beta' recursion, gamma = alpha +
     beta' - emit, z = exp(min(gamma + loss, 0)) masked past the length,
     the scatter of z onto the classes and the log-softmax chain, scaled by
-    the cotangent ``g`` (B,). Returns d_logits in the logits' dtype."""
-    logits32 = logits.float()
+    the cotangent ``g`` (B,). Returns d_logits in the logits' dtype
+    (arithmetic in f32, f64 for f64 logits). For f32 (and f64) logits each
+    row of z is normalised by its sum where the label can be aligned (loss
+    < 1e29), softmax - scattered / sum(z), as the kernel does: sum(z) is 1
+    in exact arithmetic, and in f32 it carries the rounding of the terms
+    near the loss into the whole row (``csrc/ctc.cu``)."""
+    logits32 = logits.to(_compute_dtype(logits))
     emit = _emissions(logits32, lse, ext)
     bsz, t_max, s = emit.shape
     dev = logits.device
@@ -63,7 +75,7 @@ def ctc_beta_reference(
     lens = logit_lengths.to(dev)[:, None]
     last = (2 * label_lengths.to(dev)).long()[:, None]
     s_idx = torch.arange(s, device=dev)[None, :]
-    big = torch.full((bsz, s), BIG_NEG, dtype=torch.float32, device=dev)
+    big = torch.full((bsz, s), BIG_NEG, dtype=logits32.dtype, device=dev)
     betas = [None] * t_max
     beta = big
     for t in range(t_max - 1, -1, -1):
@@ -86,8 +98,15 @@ def ctc_beta_reference(
         2, ext[:, None, :].expand(-1, t_max, -1), z
     )
     softmax = torch.exp(logits32 - lse[..., None])
-    d_logits = softmax * z.sum(-1, keepdim=True) - scattered
-    return (d_logits * g.float()[:, None, None]).to(logits.dtype)
+    zs = z.sum(-1, keepdim=True)
+    w, inv = zs, torch.ones_like(zs)
+    if logits.dtype != torch.bfloat16:
+        normalise = (loss < 1e29)[:, None, None]
+        pos = zs > 0
+        w = torch.where(normalise, pos.to(zs.dtype), zs)
+        inv = torch.where(normalise, torch.where(pos, 1.0 / torch.where(pos, zs, 1.0), 0.0), inv)
+    d_logits = softmax * w - scattered * inv
+    return (d_logits * g.to(logits32.dtype)[:, None, None]).to(logits.dtype)
 
 
 def _check_kernel_inputs(logits, ext, logit_lengths, label_lengths):
@@ -118,7 +137,8 @@ def ctc_alpha_kernel(logits, ext, logit_lengths, label_lengths, blank_id=0):
     Alpha rows at t >= the logit length are left unwritten. Two launches:
     the row pass, a warp per (b, t) row, writing the log-sum-exp and the
     (B, T, S) emission table (scratch, allocated here); the recursion, a
-    block per utterance and a thread per state."""
+    block per utterance and a thread per state. f32 logits take the
+    accurate exp / log, bf16 logits the approximate ones."""
     bsz, t_max, c = logits.shape
     s = ext.shape[1]
     dev = logits.device
@@ -147,7 +167,7 @@ def ctc_beta_kernel(
     (B,): returns d_logits (B, T, C) in the logits' dtype. Two launches: the
     reverse recursion, a block per utterance and a thread per state,
     writing the posteriors z (B, T, S); the gradient rows, a warp per (b, t)
-    row."""
+    row. The design by dtype as in ``ctc_alpha_kernel``."""
     bsz, t_max, c = logits.shape
     s = ext.shape[1]
     dev = logits.device

@@ -608,6 +608,48 @@ def fused_attention_general(
     )
 
 
+# the keep hash's seed and cell terms, seed * A + cell * K (mod 2**32,
+# csrc/common.cuh::keep_hash): a cell offset c moves the seed by c K / A
+_SEED_MUL, _CELL_MUL = 0xC2B2AE35, 0x27D4EB2F
+_SEED_PER_CELL = (_CELL_MUL * pow(_SEED_MUL, -1, 1 << 32)) & _M32
+
+
+def seed_at_cell(seed: int, cell: int) -> int:
+    """The seed whose keep mask over cells (b, h) equals ``seed``'s over
+    cells (b, h) + ``cell``: a call on rows [r, r + B) of a batch draws
+    what the whole batch's call draws on them with ``seed_at_cell(seed, r
+    H)``."""
+    return (int(seed) + int(cell) * _SEED_PER_CELL) & _M32
+
+
+def fused_attention_sharded_general(
+    mesh, q, k, v, q_lengths, k_lengths, seed,
+    scale: float, dropout_rate: float, causal: bool, band: int = 0,
+    heads_split: bool = True,
+):
+    """``fused_attention_general`` on this rank's rows (of ``data``) and
+    heads (of ``model``, where ``heads_split``) of the global call, the
+    counterpart of the JAX package's ``fused_attention_sharded_general``:
+    the kernels are per (batch, head) independent, so sharding needs no
+    communication. Its dropout seed is folded as there, seed + data_index
+    * model + model_index, so each rank's keep hash (local (b, h) cells)
+    is the JAX sharded call's. Where JAX falls back to the unsharded call
+    (data = model = 1, or heads that do not split: ``heads_split`` False
+    under model > 1) the seed moves to this rank's first global cell
+    instead, which draws the unsharded call's mask on these rows. (A batch
+    that does not divide ``data`` is not split at all: the caller runs it
+    under ``mesh.without("data")``.)"""
+    dp, tp = mesh.shape["data"], mesh.shape["model"]
+    if dropout_rate > 0.0 and (dp > 1 or tp > 1):
+        d = mesh.index("data")
+        if heads_split or tp == 1:
+            seed = int(seed) + d * tp + (mesh.index("model") if tp > 1 else 0)
+        else:
+            seed = seed_at_cell(seed, d * q.shape[0] * q.shape[1])
+    return fused_attention_general(
+        q, k, v, q_lengths, k_lengths, int(seed) & _M32, scale, dropout_rate, causal, band)
+
+
 # kernel launches so far (the CPU path does not count)
 fused_attention_general.launches = 0
 attention_backward_kernel.launches = 0

@@ -15,8 +15,16 @@ CTC prefix beam, ``ctc_beam_impl`` "device" (tensors on the card) or
 "host" (the exact numpy search), then attention rescoring; ``joint``: the
 one-pass joint CTC/attention beam, ``ctc_weight`` and ``ctc_prune``).
 ``pipeline_depth`` batches are dispatched before the oldest is drained,
-with the wav reading on a prefetch thread; 0 runs batch after batch. Mesh
-decode (``mesh_data``) is not ported (ROADMAP §1, item 7).
+with the wav reading on a prefetch thread; 0 runs batch after batch.
+
+``mesh_data`` (> 0, or -1 for every rank): data-parallel decode across
+processes, one per device, launched by ``torchrun`` (``python -m torch.
+distributed.run --nproc_per_node N -m asr_chinese_e2e_tpu_torch.recognize
+... --mesh_data N``). In ``beam`` mode each rank encodes and searches its
+rows of each batch and ``decode/distributed.py::distributed_beam_search``
+gathers the n-best, which equals one process's; the other modes decode
+every batch whole on each rank. Rank 0 alone prints and writes ``out``.
+``batch_size`` must divide the data axis.
 """
 
 from __future__ import annotations
@@ -40,7 +48,9 @@ from .decode.cer import corpus_cer
 from .decode.ctc_prefix import attention_rescore, ctc_prefix_beam_batch
 from .decode.ctc_prefix_device import ctc_prefix_beam_device, device_nbest_to_lists
 from .decode.greedy import attention_greedy_decode, ctc_greedy_decode, tokens_to_ids
+from .decode.distributed import distributed_beam_search
 from .decode.joint import joint_beam_search
+from .parallel.sharding import batch_rows, initialize_distributed, local_rank, make_mesh
 from .utils.cli import parse_kwargs
 from .utils.experiment import CKPT_DIR, load_experiment
 
@@ -148,11 +158,21 @@ def recognize(
     and audio seconds) is returned but not written to ``out``."""
     if mode not in MODES:
         raise SystemExit(f"unknown mode {mode}")
-    if mesh_data:
-        raise NotImplementedError(
-            "mesh_data is not ported yet (ROADMAP §1, item 7: parallelism)"
-        )
     dev = torch.device(device)
+    mesh, writer = None, True
+    if mesh_data:
+        world, rank = initialize_distributed(backend="gloo" if dev.type == "cpu" else None)
+        if mesh_data not in (-1, world):
+            raise SystemExit(f"mesh_data {mesh_data} needs as many processes (torchrun); "
+                             f"this run has {world}")
+        mesh = make_mesh(data=mesh_data)
+        if batch_size % mesh.shape["data"]:
+            raise SystemExit(f"batch_size {batch_size} not divisible by mesh_data "
+                             f"{mesh.shape['data']}")
+        writer = rank == 0
+        if dev.type == "cuda" and world > 1:
+            dev = torch.device("cuda", local_rank() % torch.cuda.device_count())
+    sharded = mesh is not None and mesh.shape["data"] > 1 and mode == "beam"
     model, _, feat_cfg, voc = _load_experiment_cached(exp, vocab, which, dev)
     if manifest:
         records = read_manifest(manifest)
@@ -173,6 +193,11 @@ def recognize(
         if mode == "attention_greedy":
             return attention_greedy_decode(model, enc_out, enc_lens, max_decode_len)
         if mode == "beam":
+            if sharded:
+                return distributed_beam_search(
+                    model, enc_out, enc_lens, beam_size, max_decode_len, mesh,
+                    length_penalty, local_rows=True,
+                )
             return beam_search(
                 model, enc_out, enc_lens, beam_size, max_decode_len, length_penalty
             )
@@ -199,6 +224,10 @@ def recognize(
         """Features, encoder and the mode's search for one batch; reads
         nothing back but what the search itself syncs on."""
         t0 = time.perf_counter()
+        audio_s = float(lengths[: len(chunk)].sum()) / feat_cfg.sample_rate
+        if sharded:  # this rank's rows of the batch
+            rows = batch_rows(mesh, len(wave))
+            wave, lengths = wave[rows], lengths[rows]
         with torch.inference_mode():
             wave_d = torch.from_numpy(wave).to(dev)
             lengths_d = torch.from_numpy(lengths).to(dev)
@@ -210,7 +239,7 @@ def recognize(
         timing["batches"] += 1
         timing["encode_s"] += t1 - t0
         timing["search_s"] += time.perf_counter() - t1
-        timing["audio_s"] += float(lengths[: len(chunk)].sum()) / feat_cfg.sample_rate
+        timing["audio_s"] += audio_s
         return chunk, pending
 
     def drain(chunk, pending):
@@ -251,7 +280,8 @@ def recognize(
                 outputs.append(entry)
             results["utts"][utt_id] = {"output": outputs}
             best_text = outputs[0]["rec_text"]
-            print(f"{utt_id}\t{best_text}")
+            if writer:
+                print(f"{utt_id}\t{best_text}")
             if "tgt" in record:
                 hyps_all.append(best_text)
                 refs_all.append(record["tgt"])
@@ -271,9 +301,10 @@ def recognize(
 
     if refs_all:
         cer = corpus_cer(hyps_all, refs_all)
-        print(f"# CER: {cer:.2f}% over {len(refs_all)} utts", file=sys.stderr)
+        if writer:
+            print(f"# CER: {cer:.2f}% over {len(refs_all)} utts", file=sys.stderr)
         results["cer"] = cer
-    if out:
+    if out and writer:
         with open(out, "w", encoding="utf-8") as f:
             json.dump(results, f, ensure_ascii=False, indent=2)
         print(f"# wrote {out}", file=sys.stderr)

@@ -19,6 +19,12 @@ names a deleted checkpoint. When ``export_dir`` is given, the best
 checkpoint's weights are also written as
 ``export_dir/torch_checkpoints/best.pt``, the file
 ``utils/experiment.py::load_experiment`` serves from.
+
+Across processes (``writer``): every rank keeps the index in step, only
+the writer (rank 0) writes files, and every rank restores. A sharded run
+hands ``save`` and ``restore`` its whole-tensor states and its cut
+(``parallel/sharding.py::gather_state`` / ``slice_state``), so the files
+are those of an unsharded run.
 """
 
 from __future__ import annotations
@@ -49,8 +55,10 @@ def _atomic_json(path: str, obj) -> None:
 
 class CheckpointManager:
     def __init__(self, directory: str, reference: str = "-loss",
-                 max_to_keep: int = 5, export_dir: Optional[str] = None):
+                 max_to_keep: int = 5, export_dir: Optional[str] = None,
+                 writer: bool = True):
         self.directory = os.path.abspath(directory)
+        self.writer = writer
         os.makedirs(self.directory, exist_ok=True)
         self.reference = reference
         self.max_to_keep = max_to_keep
@@ -69,16 +77,25 @@ class CheckpointManager:
 
     def save(self, state, epoch: int, config: Config | None = None,
              vocab_fingerprint: str | None = None,
-             metric: float | None = None) -> str:
+             metric: float | None = None, model_state=None,
+             optimizer_state=None) -> str:
         """Write checkpoint ``e{epoch}_s{step}`` of ``state`` (a
-        ``train_step.TrainState``), then publish it in the index."""
+        ``train_step.TrainState``; ``model_state`` / ``optimizer_state``
+        in place of its own state dicts), then publish it in the index."""
         step = state.step
         name = f"e{epoch}_s{step}"
         path = self._step_dir(name)
+        if model_state is None:
+            model_state = state.model.state_dict()
+        if optimizer_state is None:
+            optimizer_state = state.optimizer.state_dict()
+        if not self.writer:
+            self._publish(name, metric)
+            return path
         os.makedirs(path, exist_ok=True)
         blob = {
-            "model": state.model.state_dict(),
-            "optimizer": state.optimizer.state_dict(),
+            "model": model_state,
+            "optimizer": optimizer_state,
             "step": step,
             "epoch": int(epoch),
             "metric_sums": {k: v.detach().cpu() for k, v in state.metric_sums.items()},
@@ -93,25 +110,28 @@ class CheckpointManager:
             "config": config.to_dict() if config is not None else None,
             "metric": metric,
         })
-        self._index["latest"] = name
-        if name not in self._index["all"]:
-            self._index["all"].append(name)
-        if metric is not None and _metric_better(
-            self.reference, metric, self._index["best_metric"]
-        ):
-            self._index["best"] = name
-            self._index["best_metric"] = metric
-            if self.export_dir is not None:
-                save_torch_checkpoint(
-                    self.export_dir, state.model.state_dict(), vocab_fingerprint, "best"
-                )
-        victims = self._retire()
+        best, victims = self._publish(name, metric)
+        if best and self.export_dir is not None:
+            save_torch_checkpoint(self.export_dir, model_state, vocab_fingerprint, "best")
         _atomic_json(self._index_path, self._index)
         # deleted only once no published pointer names them: a kill in
         # between leaves a stale directory, never a dangling pointer
         for victim in victims:
             shutil.rmtree(self._step_dir(victim), ignore_errors=True)
         return path
+
+    def _publish(self, name: str, metric) -> tuple:
+        """Move the index's pointers to checkpoint ``name`` (in memory);
+        returns (whether it is the new best, the names it retires)."""
+        self._index["latest"] = name
+        if name not in self._index["all"]:
+            self._index["all"].append(name)
+        best = metric is not None and _metric_better(
+            self.reference, metric, self._index["best_metric"])
+        if best:
+            self._index["best"] = name
+            self._index["best_metric"] = metric
+        return best, self._retire()
 
     def _retire(self) -> list:
         """Drop the oldest checkpoints past ``max_to_keep`` from the index
@@ -124,10 +144,11 @@ class CheckpointManager:
             self._index["all"].remove(victims[-1])
         return victims
 
-    def restore(self, which: str, state) -> dict:
+    def restore(self, which: str, state, cut=None) -> dict:
         """Load 'latest' | 'best' | an explicit 'e{E}_s{S}' into ``state``
         (model, optimizer, step, metric sums, in place); returns the meta
-        dict."""
+        dict. ``cut(model_state, optimizer_state)`` -> the pair this
+        process loads (a sharded run's chunks of the whole tensors)."""
         if which in ("latest", "best"):
             self._index = self._load_index()
             name = self._index.get(which)
@@ -139,8 +160,11 @@ class CheckpointManager:
         dev = next(state.model.parameters()).device
         blob = torch.load(os.path.join(path, "state.pt"), map_location=dev,
                           weights_only=True)
-        state.model.load_state_dict(blob["model"])
-        state.optimizer.load_state_dict(blob["optimizer"])
+        model_state, optimizer_state = blob["model"], blob["optimizer"]
+        if cut is not None:
+            model_state, optimizer_state = cut(model_state, optimizer_state)
+        state.model.load_state_dict(model_state)
+        state.optimizer.load_state_dict(optimizer_state)
         state.step = int(blob["step"])
         for k, v in blob["metric_sums"].items():
             state.metric_sums[k] = v.to(dev)

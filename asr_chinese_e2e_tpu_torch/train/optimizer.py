@@ -14,6 +14,15 @@
 
 The update count is part of the optimizer state, so a checkpoint restores
 the learning-rate trajectory exactly.
+
+Under a mesh: ``step(data_group)`` sums the gradients over the ``data``
+axis first (one ``all_reduce`` of them all, flattened: the loss is
+normalised over the global batch, so the sum is the global gradient;
+tensor-parallel chunks are reduced over ``data`` only, as every other
+parameter). The clip's norm then counts the chunks of split parameters
+(``parallel/sharding.py::sharded_parameters``) summed over the ``model``
+axis. Adam's moments are made per parameter, so a chunk's moments are
+chunks too.
 """
 
 from __future__ import annotations
@@ -23,6 +32,7 @@ import warnings
 import torch
 
 from ..core.config import Config
+from ..parallel.collectives import all_reduce_sum
 
 
 def noam_schedule(d_model: int, warmup: int, factor: float = 1.0):
@@ -108,9 +118,24 @@ def clip_by_global_norm_(grads, max_norm: float) -> torch.Tensor:
     return norm
 
 
+def reduce_gradients_(grads, group) -> None:
+    """Sum the gradients over ``group`` in place, as one flat buffer."""
+    if group is None or not grads:
+        return
+    flat = all_reduce_sum(torch.cat([g.reshape(-1) for g in grads]), group)
+    offset = 0
+    for g in grads:
+        g.copy_(flat[offset : offset + g.numel()].view_as(g))
+        offset += g.numel()
+
+
 class Optimizer:
     """Clip, then Adam at ``schedule(count)``; ``count`` is the number of
-    updates taken."""
+    updates taken. ``set_tensor_parallel(model_group, sharded_ids)`` names
+    the parameters that hold chunks split over ``model``."""
+
+    model_group = None
+    sharded = frozenset()
 
     def __init__(self, params, cfg: Config, d_model: int):
         self.params = [p for p in params if p.requires_grad]
@@ -123,15 +148,37 @@ class Optimizer:
         )
         self.count = 0
 
-    def step(self) -> torch.Tensor:
-        """Apply one update from the parameters' ``.grad``; returns the
-        global gradient norm before clipping."""
+    def set_tensor_parallel(self, model_group, sharded_ids) -> None:
+        self.model_group, self.sharded = model_group, frozenset(sharded_ids)
+
+    def step(self, data_group=None) -> torch.Tensor:
+        """Apply one update from the parameters' ``.grad`` (summed over
+        ``data_group`` first); returns the global gradient norm before
+        clipping."""
         grads = [p.grad for p in self.params]
-        norm = clip_by_global_norm_(grads, self.max_norm)
+        reduce_gradients_(grads, data_group)
+        if self.model_group is None:
+            norm = clip_by_global_norm_(grads, self.max_norm)
+        else:
+            norm = self._clip_split_(grads)
         for group in self.adam.param_groups:
             group["lr"] = self.schedule(self.count)
         self.adam.step()
         self.count += 1
+        return norm
+
+    def _clip_split_(self, grads) -> torch.Tensor:
+        """``clip_by_global_norm_`` when some gradients are chunks: their
+        squares are summed over the model axis."""
+        split = [g for p, g in zip(self.params, grads) if id(p) in self.sharded]
+        whole = [g for p, g in zip(self.params, grads) if id(p) not in self.sharded]
+        sq_split = global_norm(split).square() if split else torch.zeros((), device=grads[0].device)
+        sq = all_reduce_sum(sq_split.clone(), self.model_group)
+        if whole:
+            sq = sq + global_norm(whole).square()
+        norm = torch.sqrt(sq)
+        scale = torch.where(norm < self.max_norm, torch.ones_like(norm), self.max_norm / norm)
+        torch._foreach_mul_(grads, scale)
         return norm
 
     def zero_grad(self) -> None:

@@ -15,6 +15,15 @@ there is no compiled step: the functions run the same sequence of
   microbatches (losses averaged, counts summed), as the JAX package does.
 - Metric sums stay on the device (weighted by batch size, with the sample
   count under ``"_n"``); the trainer reads them at log cadence.
+
+Under an active mesh (``parallel/context.py``) with a ``data`` axis the
+batch is this rank's rows of the global batch: the counts the losses
+divide by are summed over the axis first (``model_loss(totals=...)``), so
+the ranks' gradients sum to the global batch's; ``Optimizer.step`` sums
+them over the axis before the norm and the clip; the metrics are summed
+over it too, so every rank holds the global batch's. SpecAugment and rng
+dropout draw per rank (the rank folded into the generator), hash dropout
+by global element index (``models/layers.py``).
 """
 
 from __future__ import annotations
@@ -26,7 +35,10 @@ import torch
 
 from ..core.config import Config
 from ..data.features import FeatureConfig, parse_batch
+from ..data.vocab import IGNORE_ID
 from ..losses import model_loss
+from ..parallel.collectives import all_reduce_sum
+from ..parallel.context import get_active_mesh
 from .optimizer import Optimizer
 
 
@@ -41,10 +53,13 @@ class TrainState:
     metric_sums: dict
 
 
-def step_generators(seed: int, step: int, micro: int = 0):
+def step_generators(seed: int, step: int, micro: int = 0, rank: int = 0):
     """(augment, dropout) CPU generators for one (micro)step, seeded from
-    (seed, step, micro) through numpy's SeedSequence."""
+    (seed, step, micro) through numpy's SeedSequence; a data rank > 0 draws
+    its own augment masks (its rows are not rank 0's)."""
     s_aug, s_drop = np.random.SeedSequence([int(seed), int(step), int(micro)]).generate_state(2)
+    if rank:
+        s_aug = np.random.SeedSequence([int(seed), int(step), int(micro), int(rank)]).generate_state(1)[0]
     return (
         torch.Generator().manual_seed(int(s_aug)),
         torch.Generator().manual_seed(int(s_drop)),
@@ -88,23 +103,52 @@ def make_step_fns(model, optimizer: Optimizer, feat_cfg: FeatureConfig, cfg: Con
         sums = {k: torch.zeros((), device=dev) for k in keys + ("_n",)}
         return TrainState(model=model, optimizer=optimizer, step=0, metric_sums=sums)
 
+    def data_group():
+        mesh = get_active_mesh()
+        return None if mesh is None else mesh.group("data")
+
+    def global_totals(out, wave, group):
+        """(utterances, non-PAD targets) of the global batch, or None when
+        this rank holds all of it."""
+        if group is None:
+            return None
+        gold = out.get("gold")
+        n_word = float(0) if gold is None else (gold != IGNORE_ID).sum().float()
+        counts = torch.stack([torch.tensor(float(wave.shape[0]), device=wave.device),
+                              torch.as_tensor(n_word, device=wave.device)])
+        counts = all_reduce_sum(counts, group)
+        return counts[0], counts[1]
+
     def _backward(wave, wave_lengths, labels, label_lengths, gens, weight):
         """Forward with dropout, loss, backward (gradients accumulate in
         ``.grad`` scaled by ``weight``); returns detached metrics."""
         aug_gen, drop_gen = gens
         feats, feat_lens = featurize(wave, wave_lengths, aug_gen if use_specaug else None)
         out = model(feats, feat_lens, labels, label_lengths, rng=drop_gen)
-        loss, metrics = model_loss(out, labels, label_lengths, ctc_weight, smoothing, ctc_impl)
+        totals = global_totals(out, wave, data_group())
+        loss, metrics = model_loss(out, labels, label_lengths, ctc_weight, smoothing, ctc_impl,
+                                   totals)
         (loss * weight if weight != 1.0 else loss).backward()
         return {k: v.detach() for k, v in metrics.items()}
+
+    def reduce_metrics(metrics: dict, group) -> dict:
+        """The global batch's metrics from the ranks' parts (the losses are
+        already over the global counts: their parts sum)."""
+        if group is None:
+            return metrics
+        names = sorted(metrics)
+        vec = all_reduce_sum(torch.stack([metrics[k].float() for k in names]), group)
+        return dict(zip(names, vec.unbind(0)))
 
     def train_step(state: TrainState, wave, wave_lengths, labels, label_lengths, seed):
         model.train()
         optimizer.zero_grad()
+        group = data_group()
+        rank = get_active_mesh().index("data") if group is not None else 0
         if grad_accum == 1:
             metrics = _backward(
                 wave, wave_lengths, labels, label_lengths,
-                step_generators(seed, state.step), 1.0,
+                step_generators(seed, state.step, rank=rank), 1.0,
             )
         else:
             bsz = wave.shape[0]
@@ -118,7 +162,7 @@ def make_step_fns(model, optimizer: Optimizer, feat_cfg: FeatureConfig, cfg: Con
                 sl = slice(i * mb, (i + 1) * mb)
                 per_micro.append(_backward(
                     wave[sl], wave_lengths[sl], labels[sl], label_lengths[sl],
-                    step_generators(seed, state.step, i + 1), 1.0 / grad_accum,
+                    step_generators(seed, state.step, i + 1, rank), 1.0 / grad_accum,
                 ))
             metrics = {
                 k: (torch.stack([m[k] for m in per_micro]).sum(0)
@@ -126,8 +170,9 @@ def make_step_fns(model, optimizer: Optimizer, feat_cfg: FeatureConfig, cfg: Con
                     else torch.stack([m[k] for m in per_micro]).mean(0))
                 for k in per_micro[0]
             }
-        metrics["grad_norm"] = optimizer.step()
-        n = float(wave.shape[0])
+        metrics = reduce_metrics(metrics, group)
+        metrics["grad_norm"] = optimizer.step(group)
+        n = float(wave.shape[0]) * (1 if group is None else get_active_mesh().shape["data"])
         sums = state.metric_sums
         sums["_n"] += n
         for k in keys:
@@ -140,7 +185,10 @@ def make_step_fns(model, optimizer: Optimizer, feat_cfg: FeatureConfig, cfg: Con
         model.eval()
         feats, feat_lens = featurize(wave, wave_lengths, None)
         out = model(feats, feat_lens, labels, label_lengths)
-        _, metrics = model_loss(out, labels, label_lengths, ctc_weight, smoothing, ctc_impl)
+        group = data_group()
+        _, metrics = model_loss(out, labels, label_lengths, ctc_weight, smoothing, ctc_impl,
+                                global_totals(out, wave, group))
+        metrics = reduce_metrics(metrics, group)
         if "logits" in out:
             # teacher-forced argmax ids for host-side CER at eval cadence
             # (a CTC-only model has none)

@@ -25,8 +25,25 @@ steps)``, written to ``exp_dir/trace/``, each step in an
 ``annotate("train_step")`` range; the trace closes at the epoch's end if
 still open.
 
-Left out of the port (ROADMAP §1): the device mesh, ``steps_per_dispatch``
-and in-flight pacing (TPU remote-link workarounds).
+``mesh`` (``parallel/sharding.py::make_mesh``) trains across processes,
+one per device, as the JAX package's trainer does across devices:
+
+- ``data``: each rank trains its rows of the global batch (the loader's
+  batch is the global one, or, with ``num_hosts`` > 1, this data rank's
+  shard of the manifest). Losses are normalised over the global batch,
+  gradients summed over the axis before the norm and the clip, metric
+  sums are the global batch's. An evaluation batch that does not divide
+  the axis runs whole on every rank. ``eval_decode="beam"`` decodes
+  through ``decode/distributed.py::distributed_beam_search``.
+- ``model``: the model is split by ``shard_model_`` (tensor parallelism);
+  checkpoints hold whole tensors (gathered before a save, cut on restore).
+- ``seq``: ``attn_impl="ring"`` runs ring attention over the axis.
+
+Rank 0 alone writes ``config.json``, ``scalars.jsonl`` and the
+checkpoints; every rank restores. ``ThroughputMeter`` counts every rank.
+
+Left out of the port (ROADMAP §1): ``steps_per_dispatch`` and in-flight
+pacing (TPU remote-link workarounds).
 """
 
 from __future__ import annotations
@@ -37,7 +54,9 @@ import math
 import os
 from typing import Optional
 
+import numpy as np
 import torch
+import torch.distributed as dist
 
 from ..core.config import Config
 from ..data.batching import Batch, BucketedLoader
@@ -46,10 +65,13 @@ from ..data.features import parse_batch
 from ..decode.beam import beam_search
 from ..decode.cer import batch_cer_from_ids, corpus_cer
 from ..decode.greedy import attention_greedy_decode, ctc_greedy_decode, tokens_to_ids
+from ..decode.distributed import distributed_beam_search
 from ..decode.joint import joint_beam_search
+from ..parallel import sharding
+from ..parallel.context import active_mesh
 from ..utils.debug import annotate, profile_trace
 from .checkpoint import CheckpointManager
-from .metrics import MetricsAccumulator, ScalarWriter, ThroughputMeter
+from .metrics import MetricsAccumulator, NullScalarWriter, ScalarWriter, ThroughputMeter
 from .optimizer import Optimizer, current_lr, model_width
 from .train_step import make_step_fns
 
@@ -73,6 +95,7 @@ class Trainer:
         dev_loader: Optional[BucketedLoader] = None,
         test_loader: Optional[BucketedLoader] = None,
         raw_features: bool = False,
+        mesh=None,
     ) -> None:
         self._eval_decode = cfg.get("eval_decode", "none")
         if self._eval_decode not in EVAL_DECODE_MODES:
@@ -82,19 +105,30 @@ class Trainer:
         self.train_loader = train_loader
         self.dev_loader, self.test_loader = dev_loader, test_loader
         self.device = next(model.parameters()).device
+        self.mesh = mesh
+        self.rank0 = not (dist.is_available() and dist.is_initialized()) or dist.get_rank() == 0
+        if mesh is not None and mesh.shape["model"] > 1:
+            if not sharding.sharded_parameters(model):  # not split by the caller
+                sharding.shard_model_(model, mesh)
+            optimizer.set_tensor_parallel(mesh.group("model"),
+                                          sharding.sharded_parameters(model))
         exp_name = cfg.get("exp_name") or default_exp_name()
         self.exp_dir = os.path.join(cfg.get("exp_root", "ckpt"), exp_name)
-        if cfg.get("drop_exp", False) and os.path.isdir(self.exp_dir):
+        if self.rank0 and cfg.get("drop_exp", False) and os.path.isdir(self.exp_dir):
             import shutil
 
             shutil.rmtree(self.exp_dir)
+        self._barrier()
         os.makedirs(self.exp_dir, exist_ok=True)
-        cfg.save(os.path.join(self.exp_dir, "config.json"))
-        self.writer = ScalarWriter(self.exp_dir)
+        if self.rank0:
+            cfg.save(os.path.join(self.exp_dir, "config.json"))
+            self.writer = ScalarWriter(self.exp_dir)
+        else:
+            self.writer = NullScalarWriter()
         self.ckpt = CheckpointManager(
             os.path.join(self.exp_dir, "checkpoints"),
             reference=cfg.get("reference", "-loss"),
-            export_dir=self.exp_dir,
+            export_dir=self.exp_dir, writer=self.rank0,
         )
         self.init_fn, self.train_step, self.eval_step = make_step_fns(
             model, optimizer, feat_cfg, cfg, raw_features=raw_features
@@ -105,21 +139,69 @@ class Trainer:
         self.epoch = 0
         # Noam's width: the RNN family has hidden_size and no d_model
         self._d_model = model_width(cfg)
-        self.throughput = ThroughputMeter(1)
+        self.throughput = ThroughputMeter(1 if mesh is None else mesh.size)
+
+    def _barrier(self) -> None:
+        if self.mesh is not None and self.mesh.size > 1:
+            dist.barrier()
+
+    def _dp(self) -> int:
+        return 1 if self.mesh is None else self.mesh.shape["data"]
+
+    def _host_sharded(self, loader) -> bool:
+        """Whether ``loader``'s batches are this data rank's already (a
+        manifest shard per data rank)."""
+        return self._dp() > 1 and getattr(loader, "num_hosts", 1) > 1
+
+    def _view(self, batch: Batch, loader):
+        """(this rank's arrays of ``batch``, the mesh they run under):
+        its rows of a global batch under the mesh, or the whole batch under
+        the mesh without ``data`` where the rows do not divide it."""
+        arrays = (batch.wave, batch.wave_lengths, batch.labels, batch.label_lengths)
+        mesh = self.mesh
+        if mesh is not None and self._dp() > 1 and not self._host_sharded(loader):
+            if len(batch.wave) % self._dp():
+                mesh = mesh.without("data")
+            else:
+                arrays = sharding.shard_batch(mesh, list(arrays))
+        return self._put(arrays), mesh
+
+    def _put(self, arrays) -> list:
+        dev = self.device
+        return [torch.from_numpy(x).to(dev, non_blocking=True) for x in arrays]
 
     def _put_batch(self, batch: Batch) -> list:
-        dev = self.device
-        return [
-            torch.from_numpy(x).to(dev, non_blocking=True)
-            for x in (batch.wave, batch.wave_lengths, batch.labels, batch.label_lengths)
-        ]
+        """The whole batch on the device (no mesh)."""
+        return self._put((batch.wave, batch.wave_lengths, batch.labels, batch.label_lengths))
+
+    def _gather_rows(self, items: list, mesh) -> list:
+        """A per-row list of this rank's rows -> the global batch's, in rank
+        order (as is where the batch ran whole)."""
+        if mesh is None or mesh.shape["data"] == 1:
+            return items
+        out = [None] * mesh.shape["data"]
+        dist.all_gather_object(out, items, group=mesh.group("data"))
+        return [x for part in out for x in part]
+
+    def _texts(self, batch: Batch, loader, mesh) -> list:
+        """The global batch's transcripts."""
+        if self._host_sharded(loader) and mesh.shape["data"] > 1:
+            return self._gather_rows(list(batch.texts), mesh)
+        return list(batch.texts)
 
     def train(self, from_ckpt: Optional[str] = None) -> None:
         """Full training run; ``from_ckpt`` in {'latest', 'best',
         'e{E}_s{S}'} resumes."""
         self.state = self.init_fn()
         if from_ckpt is not None:
-            meta = self.ckpt.restore(from_ckpt, self.state)
+            cut = None
+            if self.mesh is not None and self.mesh.shape["model"] > 1:
+                model, opt = self.model, self.optimizer
+
+                def cut(model_state, optimizer_state):
+                    return (sharding.slice_state(model, model_state),
+                            sharding.slice_optimizer_state(model, opt, optimizer_state))
+            meta = self.ckpt.restore(from_ckpt, self.state, cut)
             self.epoch = int(meta["epoch"])
         for epoch in range(self.epoch, self.cfg.num_epoch):
             self.epoch = epoch
@@ -156,12 +238,16 @@ class Trainer:
                         and prof_from <= step_before < prof_from + prof_steps):
                     trace.enter_context(profile_trace(os.path.join(self.exp_dir, "trace")))
                     tracing = True
+                arrays, mesh = self._view(batch, self.train_loader)
                 with annotate("train_step") if tracing else contextlib.nullcontext():
-                    self.train_step(state, *self._put_batch(batch), self.seed)
+                    with active_mesh(mesh):
+                        self.train_step(state, *arrays, self.seed)
                 if tracing and state.step >= prof_from + prof_steps:
                     trace.close()
                     tracing = False
-                self.throughput.step(float(batch.wave_lengths.sum()) / sr)
+                audio = float(batch.wave_lengths.sum()) / sr
+                self.throughput.step(
+                    audio * self._dp() if self._host_sharded(self.train_loader) else audio)
                 step = state.step
                 if step % cfg.log_every_iter == 0:
                     names = list(state.metric_sums)
@@ -197,19 +283,21 @@ class Trainer:
         loader; returns the reference metric (None for an empty loader)."""
         acc = MetricsAccumulator()
         for batch in loader.epoch(0):
-            arrays = self._put_batch(batch)
-            metrics = self.eval_step(*arrays)
-            names = [k for k in metrics if k not in ("pred_ids", "gold_ids")]
-            values = torch.stack([metrics[k].float() for k in names]).tolist()
-            host = dict(zip(names, values))
-            if "pred_ids" in metrics:
-                host["cer"] = batch_cer_from_ids(
-                    metrics["pred_ids"].cpu().numpy(), metrics["gold_ids"].cpu().numpy(),
-                    self.vocab,
-                )
-            if self._eval_decode != "none":
-                host["decoded_cer"] = corpus_cer(self._decode(*arrays[:2]), batch.texts)
-            acc.update(host, num_samples=len(batch.texts))
+            arrays, mesh = self._view(batch, loader)
+            with active_mesh(mesh):
+                metrics = self.eval_step(*arrays)
+                names = [k for k in metrics if k not in ("pred_ids", "gold_ids")]
+                values = torch.stack([metrics[k].float() for k in names]).tolist()
+                host = dict(zip(names, values))
+                if "pred_ids" in metrics:
+                    pred = self._gather_rows(list(metrics["pred_ids"].cpu().numpy()), mesh)
+                    gold = self._gather_rows(list(metrics["gold_ids"].cpu().numpy()), mesh)
+                    host["cer"] = batch_cer_from_ids(np.stack(pred), np.stack(gold), self.vocab)
+                texts = self._texts(batch, loader, mesh)
+                if self._eval_decode != "none":
+                    hyps = self._decode(*arrays[:2], mesh=mesh)
+                    host["decoded_cer"] = corpus_cer(hyps, texts)
+            acc.update(host, num_samples=len(texts))
         means = acc.means()
         if not means:
             import warnings
@@ -225,10 +313,12 @@ class Trainer:
         return means.get(key, means.get("loss", 0.0))
 
     @torch.inference_mode()
-    def _decode(self, wave, wave_lengths) -> list:
+    def _decode(self, wave, wave_lengths, mesh=None) -> list:
         """Re-encode one eval batch and decode it in the ``eval_decode``
-        mode; returns the hypothesis texts. Cached features are encoded as
-        they come."""
+        mode; returns the hypothesis texts (of the global batch: ``beam``
+        gathers its n-best over ``data`` in ``distributed_beam_search``,
+        the other modes their texts). Cached features are encoded as they
+        come."""
         model = self.model
         if self._raw_features:
             feats, feat_lens = wave, wave_lengths
@@ -243,6 +333,10 @@ class Trainer:
             tokens, _ = attention_greedy_decode(model, enc_out, enc_lens, max_len)
             hyp_ids = tokens_to_ids(tokens)
         else:
+            if self._eval_decode == "beam" and mesh is not None and mesh.shape["data"] > 1:
+                res = distributed_beam_search(model, enc_out, enc_lens, beam, max_len, mesh,
+                                              local_rows=True)
+                return self._texts_of([h[0] for h in res.nbest_ids(1)])
             if self._eval_decode == "beam":
                 res = beam_search(model, enc_out, enc_lens, beam, max_len)
             else:
@@ -253,14 +347,26 @@ class Trainer:
                     ctc_weight=float(self.cfg.get("ctc_weight", 0.3)),
                 )
             hyp_ids = [h[0] for h in res.nbest_ids(1)]
+        return self._gather_rows(self._texts_of(hyp_ids), mesh)
+
+    def _texts_of(self, hyp_ids) -> list:
         return ["".join(self.vocab.ids_to_tokens(ids)) for ids in hyp_ids]
 
     def save(self, metric: Optional[float] = None,
              resume_epoch: Optional[int] = None) -> str:
-        return self.ckpt.save(
+        """Checkpoint the state (whole tensors: a split model's chunks are
+        gathered first; rank 0 writes, every rank waits for it)."""
+        model_state = optimizer_state = None
+        if self.mesh is not None and self.mesh.shape["model"] > 1:
+            model_state = sharding.gather_state(self.model, self.model.state_dict())
+            optimizer_state = sharding.gather_optimizer_state(
+                self.model, self.optimizer, self.optimizer.state_dict())
+        path = self.ckpt.save(
             self.state,
             self.epoch if resume_epoch is None else resume_epoch,
             config=self.cfg,
             vocab_fingerprint=self.vocab.fingerprint() if self.vocab else None,
-            metric=metric,
+            metric=metric, model_state=model_state, optimizer_state=optimizer_state,
         )
+        self._barrier()
+        return path

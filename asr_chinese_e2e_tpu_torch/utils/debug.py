@@ -20,30 +20,35 @@ import time
 import torch
 
 
+WARMUP_LAUNCHES = 32
+
+
 @contextlib.contextmanager
 def profile_trace(log_dir: str):
     """Trace the enclosed region; writes ``log_dir/trace_<ns>.json``
     (Chrome trace format) when it closes.
 
-    The profiler warms up before the region: tracing is on, one small
-    launch is made and waited for, and what the warm-up records is dropped.
-    On an H100, in a process that had traced before, the card's records of
-    the first ten or so launches after a start were missing from the trace
-    (their runtime calls were there); a launch waited for during the
-    warm-up takes that loss, and the region's records are whole."""
+    The profiler warms up before the region: tracing is on and
+    ``WARMUP_LAUNCHES`` small launches are made and waited for (their
+    records stay in the trace, before the region's). On an H100, in a
+    process that had traced before, the card's records of the first ten or
+    so launches after a start were missing from the trace (their runtime
+    calls were there). One warm-up launch, its records dropped at a
+    schedule step, did not always take that loss (the region's first launch
+    was lost once in two runs), so the warm-up makes more launches than the
+    loss takes, and no schedule step starts the region anew."""
     cuda = torch.cuda.is_available()
     activities = [torch.profiler.ProfilerActivity.CPU]
     if cuda:
         activities.append(torch.profiler.ProfilerActivity.CUDA)
     os.makedirs(log_dir, exist_ok=True)
-    prof = torch.profiler.profile(
-        activities=activities,
-        schedule=torch.profiler.schedule(wait=0, warmup=1, active=1 << 30))
-    prof.start()  # the warm-up
-    if cuda:
-        torch.ones(1, device="cuda").add_(1)
+    prof = torch.profiler.profile(activities=activities)
+    prof.start()
+    if cuda:  # the warm-up
+        x = torch.ones(1, device="cuda")
+        for _ in range(WARMUP_LAUNCHES):
+            x.add_(1)
         torch.cuda.synchronize()
-    prof.step()  # the region is recorded from here
     try:
         yield prof
     finally:

@@ -9,13 +9,14 @@ model family (causal-banded encoder) through ``main.train`` and
 served, streamed), then the RNN family (BiLSTMCTC and LAS, trained and
 served), SpecAugment's time warp and ``attn_impl="flash"``, then the
 feature cache (``preprocess features``, training from it), the trainer's
-trace window and the soak driver, and checks that every path went
-through its kernels.
+trace window and the soak driver, then two ranks on the one card
+(data-parallel training and the distributed beam), and checks that every
+path went through its kernels.
 Run from the repository root:
 
     python3 chip_smoke.py
 
-Phases (any failure raises, so the exit code is non-zero; phases 3-15, 8b,
+Phases (any failure raises, so the exit code is non-zero; phases 3-16, 8b,
 9b, 14b, 15b and 15c each print the seconds they took; 8b runs after 8, 9b
 after 9, 14b after 14, 15b and 15c after 15):
 
@@ -96,7 +97,10 @@ after 9, 14b after 14, 15b and 15c after 15):
    within 1e-5 abs; times at the first two in bf16 and at the first in f32
    (the RNN family's logits), and the two launches of K3 (row pass,
    recursion) and of K4 (recursion, gradient rows) timed apart under the
-   profiler;
+   profiler; then f32 logits at a fresh model's loss scale (near-uniform
+   rows, loss ~1700 a row) against a float64 evaluation and the plain f32
+   recursion (``F32_BOUNDS``, which the design before the accurate expf /
+   log1pf and the rows of z normalised by their sum missed);
 8. the serving path: a 512-wide, 6+6-layer, bf16 SpeechTransformer with a
    4233-token vocabulary decodes 16 synthetic utterances of 2-8 s (beam
    10, batches of 8); every utterance needs a finite-scored hypothesis,
@@ -183,8 +187,10 @@ after 9, 14b after 14, 15b and 15c after 15):
     and gradient norm within 1e-5 relative, K1 12 launches with remat: the
     forward and the recompute); one f32
     conformer step on the card vs the CPU's plain path (loss and gradient
-    norm within 1e-3 relative, as phase 10, and the six parameters with
-    the largest share of the gradient difference, card against CPU;
+    norm within 1e-3 relative, as phase 10, the six parameters with
+    the largest share of the gradient difference, card against CPU, and
+    every parameter's gradient within 1e-5 relative of the CPU's, but the
+    key projections' biases, zero in exact arithmetic;
     ``scripts/conformer_grad_gap_torch.py`` takes the gap apart); the
     pad-leak check: the same
     dev utterances' features and their copy padded by 50 frames of noise
@@ -243,7 +249,24 @@ after 9, 14b after 14, 15b and 15c after 15):
     3 epochs of 2 batches, ``save_every_iter=1``, killed at the first
     checkpoint at step >= 2, resumed at the saved step, then ``joint`` and
     ``beam`` decodes of the dev set (CER printed);
-16. print the kernels' JSON line (per kernel: route, source, the TPU
+16. parallel on the card: two ranks on the one H100 (spawned, gloo with
+    CUDA tensors) train the flagship recipe (hash dropout 0.1, no
+    SpecAugment, a constant lr of 1e-3) 3 steps on a global batch of 16 x
+    8 s, 8 rows each, in f32 and in bf16 (the activations' hash dropout;
+    the attention weights' folds the rank into its seed, as JAX's sharded
+    call, so it is off), against one process on the same global batch:
+    losses and gradient norms within 1e-5 relative in f32 (2e-2 in bf16),
+    per parameter the first step's gradient and the move over the steps
+    within ``PARALLEL_GRAD_REL`` / ``PARALLEL_MOVE_REL`` (|diff| / |ref|);
+    per rank and step K5 1, K1 6, K2 6, K3 1,
+    K4 1; ms per step on a rank beside one process's;
+    ``distributed_beam_search`` of phase 8's first serving batch (an f32
+    seed-0 flagship, beam 10) over the two ranks: tokens and finished
+    flags equal to one process's ``beam_search``, scores within 1e-5 of
+    max(1, |score|); ring attention and tensor
+    parallelism on a (1, 1, 1) mesh equal to the unsharded model, bit for
+    bit;
+17. print the kernels' JSON line (per kernel: route, source, the TPU
     kernel it replaces, launches on the main paths (the conformer's and the
     RNN family's and phase 15c's included) and per flagship train step,
     streaming train step, conformer train step, BiLSTMCTC and LAS train
@@ -295,6 +318,7 @@ from asr_chinese_e2e_tpu_torch.decode.beam import beam_search  # noqa: E402
 from asr_chinese_e2e_tpu_torch.decode.ctc_prefix_device import (  # noqa: E402
     ctc_prefix_beam_device,
 )
+from asr_chinese_e2e_tpu_torch.decode.distributed import distributed_beam_search  # noqa: E402
 from asr_chinese_e2e_tpu_torch.main import data_config  # noqa: E402
 from asr_chinese_e2e_tpu_torch.main import train as main_train  # noqa: E402
 from asr_chinese_e2e_tpu_torch.models import layers as layers_mod  # noqa: E402
@@ -308,6 +332,13 @@ from asr_chinese_e2e_tpu_torch.ops import ctc_kernel as ctc  # noqa: E402
 from asr_chinese_e2e_tpu_torch.ops import ctc_prefix_kernel as k8  # noqa: E402
 from asr_chinese_e2e_tpu_torch.ops import fused_attention as fa  # noqa: E402
 from asr_chinese_e2e_tpu_torch.ops.fbank import log_mel_spectrogram_kernel  # noqa: E402
+from asr_chinese_e2e_tpu_torch.parallel.context import active_mesh  # noqa: E402
+from asr_chinese_e2e_tpu_torch.parallel.dryrun import run_ranks  # noqa: E402
+from asr_chinese_e2e_tpu_torch.parallel.sharding import (  # noqa: E402
+    batch_rows,
+    make_mesh,
+    shard_model_,
+)
 from asr_chinese_e2e_tpu_torch.preprocess import features as preprocess_features  # noqa: E402
 from asr_chinese_e2e_tpu_torch.recognize import (  # noqa: E402
     _load_experiment_cached,
@@ -1413,10 +1444,49 @@ def check_ctc(dev) -> tuple[dict, dict]:
                 errs = {"alpha": (loss - want_loss).abs().max().item(), "beta": g_err}
                 timed[name, dname] = _time_ctc(logits, ext, lens, labels, lab_lens, g, lse,
                                                alpha, want_loss, shape, errs)
+    _check_f32_near_uniform(dev)
     first, other, f32 = (timed[k] for k in (("train", "bfloat16"), ("long-labels", "bfloat16"),
                                             ("train", "float32")))
     return tuple({**first[p], "max_abs_err": worst[p], "other_shapes": [other[p], f32[p]]}
                  for p in ("alpha", "beta"))
+
+
+# f32 logits at the scale of a freshly initialised model's CTC head
+# (near-uniform rows: loss about len ln C, ~1700 a row), against a float64
+# evaluation of the plain recursion and against the plain f32 one: (loss
+# max_rel, d_logits |diff| / |ref|) bounds, which the kernels' f32 design
+# (expf / log1pf, rows of z normalised) meets. The design before it (ex2 /
+# lg2, z = exp(alpha + beta' - emit + loss) as it came, each row carrying
+# the ulp of the ~1700-sized terms) missed the gradient bounds (PERF.md
+# §6). The loss does not tell designs apart: both are f32 sums (~9e-7 from
+# float64 here).
+F32_BOUNDS = {"float64": (2e-6, 1.5e-4), "plain f32": (2e-6, 3e-5)}
+
+
+def _check_f32_near_uniform(dev) -> None:
+    """K3/K4 on near-uniform f32 logits against float64 and against the
+    plain f32 recursion (``F32_BOUNDS``)."""
+    logits, lens, labels, lab_lens = _ctc_inputs(dev, torch.float32)
+    logits = logits * 0.25  # std 0.5: near-uniform rows
+    ext = ctc_ops.extend_labels(labels.long())
+    g = torch.linspace(0.5, 1.5, logits.shape[0], device=dev)
+    ext_i, lens_i, lab_i = ctc._check_kernel_inputs(logits, ext, lens, lab_lens)
+    loss, k_alpha, k_lse = ctc.ctc_alpha_kernel(logits, ext_i, lens_i, lab_i)
+    grad = ctc.ctc_beta_kernel(logits, ext_i, lens_i, lab_i, k_lse, k_alpha, loss, g).double()
+    for name, x in (("plain f32", logits), ("float64", logits.double())):
+        want_loss, alpha, lse = ctc.ctc_alpha_reference(x, ext, lens, lab_lens)
+        want_grad = ctc.ctc_beta_reference(
+            x, ext, lens, lab_lens, lse, alpha, want_loss, g.to(x.dtype)).double()
+        want_loss = want_loss.double()
+        rel = ((loss.double() - want_loss).abs() / want_loss.abs()).max().item()
+        g_rel = ((grad - want_grad).norm() / want_grad.norm()).item()
+        loss_bound, grad_bound = F32_BOUNDS[name]
+        print(f"ctc f32 near-uniform (64, 267, {VOCAB}) loss {want_loss.mean().item():.1f} a "
+              f"row vs {name}: loss max_rel={rel:.3e}, d_logits |diff| / |ref| {g_rel:.3e} "
+              f"(max_abs {(grad - want_grad).abs().max().item():.3e}); bounds "
+              f"{loss_bound:g} / {grad_bound:g}")
+        require(rel <= loss_bound and g_rel <= grad_bound,
+                f"ctc f32 near-uniform: the kernels miss their bound against {name}")
 
 
 def _time_ctc(logits, ext, lens, labels, lab_lens, g, lse, alpha, want_loss, shape,
@@ -1968,7 +2038,7 @@ def _recipe(dtype: str, **overrides) -> tuple:
     CTC kernels."""
     if overrides.get("model_name") in RNN_NAMES:
         cfg = get_model(overrides["model_name"])[1]().build(
-            dtype=dtype, fbank_impl="pallas", ctc_impl="pallas", **overrides)
+            dtype=dtype, fbank_impl="pallas", **{"ctc_impl": "pallas", **overrides})
         cfg = Config(**cfg.to_dict())
     else:
         cfg = flagship_config(dtype).build(**{"dropout_impl": "hash", "ctc_impl": "pallas",
@@ -1997,12 +2067,15 @@ def _one_step(cfg, tcfg, feat, batch, device):
     return float(m["loss"]), norm, grads
 
 
-def check_step_against_cpu(corpus, dev, label="flagship", worst_grads=0,
+def check_step_against_cpu(corpus, dev, label="flagship", worst_grads=0, grad_rel=None,
                            **overrides) -> None:
     """One f32 step of the recipe (``overrides``: model config) on the card
     and on the CPU's plain path: loss and gradient norm within 1e-3
     relative; with ``worst_grads`` the parameters whose gradients differ
-    most, card against CPU, and by how much."""
+    most, card against CPU, and by how much; with ``grad_rel`` every
+    parameter's gradient within it relative (|diff_p| / |g_p|), but the key
+    projections' biases, whose gradient is zero in exact arithmetic (a
+    softmax does not see a shift of its row) and so all rounding."""
     cfg, tcfg, feat = _recipe("float32", dropout_rate=0.0, **overrides)
     tcfg.build(spec_augment=False)
     recs = read_manifest(corpus["train"])[:2]
@@ -2038,6 +2111,14 @@ def check_step_against_cpu(corpus, dev, label="flagship", worst_grads=0,
                   f"{float(diff[k].norm() / cpu_grads[k].norm().clamp_min(1e-30)):.2e}"
                   for k in ranked))
     require(max(rel) <= 1e-3, f"{label} f32 train step on the card disagrees with the CPU")
+    if grad_rel is not None:
+        own = {k: float((card_grads[k] - g).norm() / g.norm().clamp_min(1e-30))
+               for k, g in cpu_grads.items() if not k.endswith("k_proj.bias")}
+        worst = max(own, key=own.get)
+        print(f"{label} f32 step, per-parameter gradient card vs cpu: largest |diff_p| / |g_p| "
+              f"{own[worst]:.3e} ({worst}) over {len(own)} parameters (bound {grad_rel:.0e})")
+        require(own[worst] <= grad_rel,
+                f"{label} f32 gradient of {worst} on the card disagrees with the CPU's")
 
 
 # -- phase 11: streaming training ----------------------------------------------
@@ -2682,7 +2763,8 @@ def run_conformer(corpus, dev) -> dict:
     _conv2d_conformer(dev)
     _check_remat(dev)
     # the gap's sources apart: scripts/conformer_grad_gap_torch.py
-    check_step_against_cpu(corpus, dev, label="conformer", worst_grads=6, **CONFORMER)
+    check_step_against_cpu(corpus, dev, label="conformer", worst_grads=6, grad_rel=1e-5,
+                           **CONFORMER)
     _check_pad_leak(exp_dir, corpus, dev)
     stream_trained, stream_exp = run_streaming_training(
         corpus, num_epoch=1, exp_name="streaming_conformer", model_name="Conformer",
@@ -3192,6 +3274,201 @@ def run_cache_trace_soak(corpus, dev) -> dict:
     return {"launches": launches, "per_step": per_step}
 
 
+# -- phase 16: parallel on the card ----------------------------------------------
+
+PARALLEL_BATCH, PARALLEL_STEPS = 16, 3
+# a constant lr: 3 Adam steps move each weight by about 3 lr, far above the
+# bounds (Noam's first steps at the flagship's width would move it by 5e-7)
+PARALLEL_LR = 1e-3
+# per dtype: losses and gradient norms (relative)
+PARALLEL_BOUNDS = {"float32": 1e-5, "bfloat16": 2e-2}
+# per dtype, per parameter: the first step's gradient and the move over the
+# steps, |diff| / |ref|. Set from scripts/parallel_grad_gap_torch.py on the
+# H100: in f32 9.4e-5 and 3.1e-2, from the feed-forward ReLUs (1222 of
+# their signs differ over the steps; with one process's signs imposed on
+# the ranks 5.4e-6 and 3.5e-4), Adam turning a sign-flipped near-zero
+# gradient into a +-lr move; in bf16 5.3e-2 and 0.18. A skipped, reversed
+# or doubled update moves a parameter by 1, 2 or 1 of its move.
+PARALLEL_GRAD_REL = {"float32": 2e-4, "bfloat16": 1e-1}
+PARALLEL_MOVE_REL = {"float32": 5e-2, "bfloat16": 3e-1}
+PARALLEL_SCORE_REL = 1e-5  # beam scores, of max(1, |score|): sums of ~64 log-probs
+
+
+def _parallel_recipe(dtype: str, **overrides):
+    """(model config, train config, feature config) of phase 16: the
+    flagship recipe at hash dropout 0.1 without the attention weights' (a
+    data-parallel attention call folds its rank into the keep hash's seed,
+    as the JAX package's sharded call does, so its weight dropout is not one
+    process's; ``tests/test_torch_parallel.py`` holds that fold to JAX's),
+    no SpecAugment, a constant lr of ``PARALLEL_LR``."""
+    cfg, tcfg, feat = _recipe(dtype, attn_weight_dropout=False, **overrides)
+    tcfg = default_train_config().combine(cfg).build(
+        spec_augment=False, lr_schedule="constant", lr=PARALLEL_LR)
+    return cfg, tcfg, feat
+
+
+def _parallel_steps(dtype: str, dev, mesh, **overrides) -> dict:
+    """``PARALLEL_STEPS`` flagship steps (``overrides``: model config) on
+    this rank's rows of the global batch of ``PARALLEL_BATCH`` x 8 s (all
+    of it without a data axis), from seed-0 weights: losses, gradient
+    norms, the first step's gradients, each parameter's move over the
+    steps, the launches of the steps and the wall ms of the last two."""
+    cfg, tcfg, feat = _parallel_recipe(dtype, **overrides)
+    model = build_model(cfg, dev)
+    start = {k: p.detach().float().cpu() for k, p in model.named_parameters()}
+    opt = make_optimizer(model.parameters(), tcfg, model_width(cfg))
+    init_fn, train_step, _ = make_step_fns(model, opt, feat, tcfg)
+    batch = [x[batch_rows(mesh, PARALLEL_BATCH)] for x in fixed_batch(dev, PARALLEL_BATCH)]
+    losses, norms, times, grads = [], [], [], None
+    with active_mesh(mesh):
+        state = init_fn()
+        reset_counters()
+        for _ in range(PARALLEL_STEPS):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            state, m = train_step(state, *batch, 0)
+            losses.append(float(m["loss"]))
+            norms.append(float(m["grad_norm"]))
+            times.append((time.perf_counter() - t0) * 1e3)
+            if grads is None:  # the first step's, summed over the ranks and clipped
+                grads = {k: p.grad.detach().float().cpu() for k, p in model.named_parameters()}
+    counts = read_counters()
+    return {"losses": losses, "norms": norms, "ms": statistics.median(times[1:]),
+            "launches": {k: v / PARALLEL_STEPS for k, v in counts.items()}, "grads": grads,
+            "moves": {k: p.detach().float().cpu() - start[k]
+                      for k, p in model.named_parameters()}}
+
+
+def parallel_gaps(got: dict, ref: dict) -> dict:
+    """Two runs of ``_parallel_steps`` apart: the largest relative gap of
+    their losses and gradient norms, and per parameter |diff| / |ref| of
+    the first step's gradient and of the move over the steps, the key
+    projections' biases left out (their gradient is zero in exact
+    arithmetic, a softmax not seeing a shift of its row, so all rounding,
+    and Adam moves such a weight by +-lr on the rounding's sign)."""
+    def own(a, b):
+        return {k: float((a[k] - v).norm() / v.norm().clamp_min(1e-30))
+                for k, v in b.items() if not k.endswith("k_proj.bias")}
+
+    rel = max(max(abs(a - b) / abs(b) for a, b in zip(got[k], ref[k]))
+              for k in ("losses", "norms"))
+    return {"rel": rel, "grads": own(got["grads"], ref["grads"]),
+            "moves": own(got["moves"], ref["moves"])}
+
+
+def worst(gaps: dict) -> tuple:
+    """(name, gap) of the largest of ``gaps``."""
+    name = max(gaps, key=gaps.get)
+    return name, gaps[name]
+
+
+def _serving_beam(manifest, dev, mesh=None):
+    """phase 8's serving batch (the first 8 utterances) through an f32
+    seed-0 flagship: ``beam_search`` (beam 10), or with ``mesh``
+    ``distributed_beam_search`` over its data axis."""
+    model = SpeechTransformer(flagship_config("float32"), VOCAB,
+                              torch.Generator().manual_seed(0)).to(dev).eval()
+    enc, lens = _first_batch(model, FeatureConfig(fbank_impl="pallas"), manifest, dev)
+    with torch.inference_mode():
+        if mesh is None:
+            return beam_search(model, enc, lens, 10, 64).materialize()
+        return distributed_beam_search(model, enc, lens, 10, 64, mesh).materialize()
+
+
+def _parallel_rank(manifest: str) -> dict:
+    """One of the two ranks on the card: data-parallel steps in f32 and
+    bf16, and the distributed beam."""
+    dev = torch.device("cuda", 0)
+    torch.cuda.set_device(dev)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    mesh = make_mesh(data=2)
+    out = {dtype: _parallel_steps(dtype, dev, mesh) for dtype in PARALLEL_BOUNDS}
+    res = _serving_beam(manifest, dev, mesh)
+    out["beam"] = (res.tokens, res.scores, res.finished)
+    return out
+
+
+def _axis_size_one(dev) -> None:
+    """Ring attention and tensor parallelism on a (1, 1, 1) mesh: the f32
+    flagship encoder with ``attn_impl="ring"`` equals the xla one's, and a
+    train step under the mesh (``shard_model_`` a no-op) equals one without,
+    bit for bit."""
+    mesh = make_mesh()
+    cfg, _, feat = _parallel_recipe("float32")
+    batch = fixed_batch(dev, 2)
+    encs = []
+    for impl in ("ring", "xla"):
+        model = build_model(Config(**{**cfg.to_dict(), "attn_impl": impl}), dev).eval()
+        with active_mesh(mesh), torch.inference_mode():
+            feats, lens = parse_batch(batch[0], batch[1], feat)
+            encs.append(model.encode(feats, lens)[0])
+    steps = []
+    for m in (mesh, None):
+        cfg, tcfg, feat = _parallel_recipe("float32")
+        model = build_model(cfg, dev)
+        shard_model_(model, mesh)
+        opt = make_optimizer(model.parameters(), tcfg, model_width(cfg))
+        init_fn, train_step, _ = make_step_fns(model, opt, feat, tcfg)
+        with active_mesh(m):
+            _, metrics = train_step(init_fn(), *batch, 0)
+        steps.append((float(metrics["loss"]), float(metrics["grad_norm"])))
+    print(f"axis size 1: ring encoder = xla encoder {torch.equal(encs[0], encs[1])}; a step "
+          f"under the (1, 1, 1) mesh = one without {steps[0] == steps[1]} {steps[0]}")
+    require(torch.equal(encs[0], encs[1]) and steps[0] == steps[1],
+            "ring / tensor parallelism at axis size 1 differ from the unsharded model")
+
+
+def run_parallel(serve_corpus, dev) -> dict:
+    """Phase 16: two ranks on the one card (gloo, CUDA tensors): data-
+    parallel flagship steps in f32 and bf16 against one process on the same
+    global batch, their launches per rank and step, the distributed beam
+    against one process's beam, and ring / tensor parallelism at axis size
+    1. Returns the ms per step of each."""
+    one = {dtype: _parallel_steps(dtype, dev, None) for dtype in PARALLEL_BOUNDS}
+    want_beam = _serving_beam(serve_corpus["test"], dev)
+    ranks = run_ranks(2, _parallel_rank, serve_corpus["test"])
+    timing = {"one_process_ms": {}, "rank_ms": {}}
+    for dtype, bound in PARALLEL_BOUNDS.items():
+        ref = one[dtype]
+        timing["one_process_ms"][dtype] = ref["ms"]
+        timing["rank_ms"][dtype] = [r[dtype]["ms"] for r in ranks]
+        for rank, r in enumerate(ranks):
+            got = r[dtype]
+            gaps = parallel_gaps(got, ref)
+            (g_name, g_gap), (w_name, w_gap) = worst(gaps["grads"]), worst(gaps["moves"])
+            g_bound, w_bound = PARALLEL_GRAD_REL[dtype], PARALLEL_MOVE_REL[dtype]
+            print(f"parallel {dtype} rank {rank}: {PARALLEL_STEPS} steps of {PARALLEL_BATCH // 2}"
+                  f" rows vs one process of {PARALLEL_BATCH} at lr {PARALLEL_LR:.0e}: losses "
+                  f"{got['losses']} vs {ref['losses']}, loss/grad norm max rel "
+                  f"{gaps['rel']:.3e} (bound {bound:.0e}); per parameter, the first step's "
+                  f"gradient max |diff| / |g| {g_gap:.3e} ({g_name}; bound {g_bound:.0e}), the "
+                  f"move over the steps max |diff| / |move| {w_gap:.3e} ({w_name}; bound "
+                  f"{w_bound:.0e}); {got['ms']:.1f} ms/step on the rank vs {ref['ms']:.1f} in "
+                  f"one process; launches per step {got['launches']}")
+            require(gaps["rel"] <= bound and g_gap <= g_bound and w_gap <= w_bound,
+                    f"parallel {dtype}: rank {rank} disagrees with one process")
+            want = {k: 0.0 for k in COUNTERS}
+            want.update(fbank=1.0, fused_attention_fwd=6.0, fused_attention_bwd=6.0,
+                        ctc_alpha=1.0, ctc_beta=1.0)
+            require(got["launches"] == want,
+                    f"parallel {dtype}: rank {rank} launches {got['launches']} != {want}")
+    for rank, r in enumerate(ranks):
+        tokens, scores, finished = r["beam"]
+        diff = np.abs(scores - want_beam.scores)
+        rel = float((diff / np.maximum(1.0, np.abs(want_beam.scores))).max())
+        same = np.array_equal(tokens, want_beam.tokens)
+        print(f"distributed beam, rank {rank}: 8 utterances over data 2 vs one process: "
+              f"tokens equal {same}, finished equal "
+              f"{np.array_equal(finished, want_beam.finished)}, scores max_abs="
+              f"{float(diff.max()):.3e}, of max(1, |score|) {rel:.3e} (bound "
+              f"{PARALLEL_SCORE_REL:.0e})")
+        require(same and np.array_equal(finished, want_beam.finished)
+                and rel <= PARALLEL_SCORE_REL,
+                f"distributed beam: rank {rank} disagrees with one process")
+    _axis_size_one(dev)
+    return timing
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: CUDA is not available")
@@ -3235,6 +3512,7 @@ def main() -> None:
     rnn = phase(15, run_rnn_family, corpus, dev)
     flash_step = phase("15b", run_time_warp_and_flash, dev)
     cache = phase("15c", run_cache_trace_soak, corpus, dev)
+    phase(16, run_parallel, serve_corpus, dev)
 
     # launches: the main paths' runs, each counted from 0
     launches = {

@@ -2,13 +2,15 @@
 """Where the conformer's f32 gradient gap, card against CPU, comes from, on
 one CUDA card: the f32 conformer step of ``chip_smoke.py`` phase 14b (a
 corpus like phase 9's, two utterances) on the card and on the CPU with the
-parameters whose gradients differ most, once through the CTC kernels
-(K3/K4) and once with the plain CTC recursion (``ctc_impl=scan``) on both
-sides; then one ``ConvModule`` and the depthwise conv's weight gradient
-alone, card and CPU in f32, each against a float64 evaluation on the card.
-Prints the numbers; gates nothing.
+parameters whose gradients differ most and each parameter's |diff| / |g|,
+once through the CTC kernels (K3/K4) and once with the plain CTC recursion
+(``ctc_impl=scan``) on both sides; then one ``ConvModule`` and the
+depthwise conv's weight gradient alone, card and CPU in f32, each against
+a float64 evaluation on the card. With ``--rnn``, the same two steps of
+``BiLSTMCTC`` and ``LAS`` (phase 15's f32 step) instead. Prints the
+numbers; gates nothing.
 
-    python3 scripts/conformer_grad_gap_torch.py
+    python3 scripts/conformer_grad_gap_torch.py [--rnn]
 
 The kernels are built from the checkout at first use, as in
 ``chip_smoke.py``.
@@ -81,10 +83,18 @@ def main() -> None:
         os.path.join(chip_smoke.WORK, "grad_gap_corpus"), n_train=2, n_dev=0, n_test=0,
         n_tone_chars=40, vocab_size=chip_smoke.VOCAB, seconds_range=(7.5, 8.0), seed=1,
     )
-    for label, extra in (("conformer", {}), ("conformer ctc_impl=scan", {"ctc_impl": "scan"})):
-        chip_smoke.check_step_against_cpu(corpus, dev, label=label, worst_grads=6,
-                                          **extra, **chip_smoke.CONFORMER)
-    conv_module_against_f64(dev)
+    models = ([{"model_name": n} for n in ("BiLSTMCTC", "LAS")] if "--rnn" in sys.argv[1:]
+              else [chip_smoke.CONFORMER])
+    for model in models:
+        name = model.get("model_name", "conformer")
+        for label, extra in ((name, {}), (f"{name} ctc_impl=scan", {"ctc_impl": "scan"})):
+            try:
+                chip_smoke.check_step_against_cpu(corpus, dev, label=label, worst_grads=6,
+                                                  grad_rel=1e-5, **extra, **model)
+            except AssertionError as err:  # printed, not gated
+                print(f"{label}: {err}")
+    if "--rnn" not in sys.argv[1:]:
+        conv_module_against_f64(dev)
 
 
 if __name__ == "__main__":

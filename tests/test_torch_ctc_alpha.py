@@ -17,10 +17,11 @@ What the emulation keeps of the kernel:
   pads in front, position s reading s, s - 1 and s - 2 of the step before,
   the skip term log-zero where the mask is off (a select, no branch);
 - the loss from the last two states, last = min(2 label_len, S - 1).
-The kernel takes each term of a lane's sum as 2^(x log2 e - max log2 e),
-one fused multiply-add and one ex2, and its log and log-add-exp are the
-hardware's approximations too (1e-7 from these); here they are torch's
-float32 exp, log and logaddexp.
+For bf16 logits the kernel takes each term of a lane's sum as 2^(x log2 e
+- max log2 e), one fused multiply-add and one ex2, and its log and
+log-add-exp are the hardware's approximations too (1e-7 from these); for
+f32 logits it takes expf, logf and log1pf. Here they are torch's float32
+exp, log and logaddexp.
 
 Tolerances, the bounds ``chip_smoke.py`` holds the kernel to on the card:
 loss rtol 1e-4 (also against JAX), lse 1e-5 abs, alpha on rows t < len

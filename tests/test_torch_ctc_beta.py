@@ -11,7 +11,9 @@ per step for t < len; then the gradient rows: g softmax sum(z) for every
 class, sum(z) in the warp's order (lane partials, then the xor butterfly),
 and the label positions written again from the first position of their
 class, its duplicates summed along the links in the order of s, one
-rounding to the logits' type.
+rounding to the logits' type. For f32 logits the kernel normalises each
+row of z by its sum (g (softmax - label sums / sum(z))) where the label
+can be aligned, as the plain version does.
 """
 
 import jax
@@ -101,13 +103,20 @@ def warp_sum(z):
     return parts[..., 0]
 
 
-def emulate_gradient(logits, ext, lens, lse, z, g, zsum="warp"):
+def emulate_gradient(logits, ext, lens, lse, z, g, loss, zsum="warp"):
     """d_logits as ctc_grad_rows_kernel writes them; ``zsum="torch"`` sums
-    z as the plain version does, to compare bit for bit."""
+    z as the plain version does, to compare bit for bit. f32 logits: each
+    row of z normalised by its sum where the loss is below 1e29 (w = 1, inv
+    = 1 / sum(z)); bf16: w = sum(z), inv = 1."""
     softmax = torch.exp(logits.float() - lse[..., None])
     zs = warp_sum(z) if zsum == "warp" else z.sum(-1)
+    w, inv = zs, torch.ones_like(zs)
+    if logits.dtype == torch.float32:
+        normalise = (loss < 1e29)[:, None]
+        w = torch.where(normalise, (zs > 0).float(), zs)
+        inv = torch.where(normalise, torch.where(zs > 0, 1.0 / zs, 0.0), inv)
     gb = g.float()[:, None, None]
-    out = softmax * zs[..., None] * gb
+    out = softmax * w[..., None] * gb
     for b in range(logits.shape[0]):
         head, nxt = links(ext[b])
         for s in (i for i in range(ext.shape[1]) if head[i]):
@@ -116,7 +125,7 @@ def emulate_gradient(logits, ext, lens, lse, z, g, zsum="warp"):
                 total = total + z[b, :, n]
                 n = nxt[n]
             c = int(ext[b, s])
-            out[b, :, c] = (softmax[b, :, c] * zs[b] - total) * gb[b, 0]
+            out[b, :, c] = (softmax[b, :, c] * w[b] - total * inv[b]) * gb[b, 0]
     t_ok = torch.arange(logits.shape[1])[None, :, None] < lens.long()[:, None, None]
     return torch.where(t_ok, out, torch.zeros(())).to(logits.dtype)
 
@@ -157,9 +166,9 @@ def test_emulation_is_the_plain_version_bit_for_bit(case, dtype):
     logits, lens, _, lab_lens, ext, loss, alpha, lse, g = make_case(**CASES[case], dtype=dtype)
     want = ctc_kernel.ctc_beta_reference(logits, ext, lens, lab_lens, lse, alpha, loss, g)
     z = emulate_recursion(logits, ext, lens, lab_lens, lse, alpha, loss)
-    got = emulate_gradient(logits, ext, lens, lse, z, g, zsum="torch")
+    got = emulate_gradient(logits, ext, lens, lse, z, g, loss, zsum="torch")
     assert got.dtype == want.dtype and torch.equal(got, want)
-    warp = emulate_gradient(logits, ext, lens, lse, z, g).float()
+    warp = emulate_gradient(logits, ext, lens, lse, z, g, loss).float()
     bound = 1e-6 if dtype == torch.float32 else 1e-2  # bf16: one rounding apart at most
     assert (warp - want.float()).abs().max().item() <= bound
 
@@ -195,7 +204,7 @@ def test_emulation_matches_jax_gradients(case):
         lens = torch.tensor([6, 6], dtype=torch.int32)
         loss, alpha, lse = ctc_kernel.ctc_alpha_reference(logits, ext, lens, lab_lens)
     z = emulate_recursion(logits, ext, lens, lab_lens, lse, alpha, loss)
-    got = emulate_gradient(logits, ext, lens, lse, z, g)
+    got = emulate_gradient(logits, ext, lens, lse, z, g, loss)
     assert bool(torch.isfinite(got).all())
 
     def total(x):

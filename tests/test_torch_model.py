@@ -217,9 +217,13 @@ def test_flash_keeps_the_output_dropout_only():
 
 @pytest.mark.parametrize("overrides", [dict(attn_impl="ring")])
 def test_unported_options_raise(overrides):
-    cfg = Config(**tiny_config(**overrides).to_dict())
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        SpeechTransformer(cfg, VOCAB)
+    """``attn_impl="ring"``, the last option the port refused, now builds:
+    with no mesh (no ``seq`` axis) its encoder is the JAX ring model's
+    plain masked path (tests/test_torch_ring_attention.py runs the ring)."""
+    jm, params, tm = model_pair(tiny_config(**overrides))
+    feats, lens = _inputs(seed=10)
+    j_enc, _, t_enc, _ = _encode_both(jm, params, tm, feats, lens)
+    np.testing.assert_allclose(t_enc.numpy(), j_enc, atol=TOL, rtol=0)
 
 
 @pytest.mark.parametrize("overrides", [

@@ -215,11 +215,13 @@ def test_pipeline_depth_gives_the_same_json(experiment, tmp_path, mode):
 
 @pytest.mark.parametrize("kw,error", [
     (dict(mode="greedy"), SystemExit),
-    (dict(mode="beam", mesh_data=2), NotImplementedError),
+    (dict(mode="beam", mesh_data=2), SystemExit),
 ])
 def test_recognize_refuses_unknown_modes_and_mesh(experiment, kw, error):
+    """An unknown mode, and a data mesh of 2 in a run of one process (a
+    mesh takes one process per rank: torchrun)."""
     exp, corpus, *_ = experiment
-    with pytest.raises(error, match="mode|ROADMAP"):
+    with pytest.raises(error, match="mode|mesh_data"):
         recognize(exp, corpus["vocab"], manifest=corpus["test"], device="cpu", **kw)
 
 
@@ -265,6 +267,15 @@ DECODE_MODULES = {
 }
 
 
+# the parallelism slice's modules
+PARALLEL_MODULES = {
+    "asr_chinese_e2e_tpu_torch." + m for m in (
+        "parallel.sharding", "parallel.context", "parallel.collectives",
+        "parallel.dryrun", "decode.distributed", "ops.ring_attention",
+    )
+}
+
+
 def test_port_imports_with_jax_blocked():
     """The test environment may import jax before a test starts, so the
     subprocess blocks the import rather than checking jax is absent."""
@@ -277,6 +288,7 @@ def test_port_imports_with_jax_blocked():
     assert len(names) >= 37
     assert TRAINING_MODULES <= names, TRAINING_MODULES - names
     assert DECODE_MODULES <= names, DECODE_MODULES - names
+    assert PARALLEL_MODULES <= names, PARALLEL_MODULES - names
 
 
 def _imported_modules(path: Path):
