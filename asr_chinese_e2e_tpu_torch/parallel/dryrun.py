@@ -25,9 +25,11 @@ import torch.distributed as dist
 import torch.multiprocessing as mp
 
 
-def _rank_main(rank: int, n: int, store: str, out_dir: str, fn, args) -> None:
+def _rank_main(rank: int, n: int, store: str, out_dir: str, fn, args, backend: str) -> None:
     torch.set_num_threads(1)
-    dist.init_process_group("gloo", init_method=f"file://{store}", world_size=n, rank=rank)
+    if backend == "nccl":
+        torch.cuda.set_device(rank)
+    dist.init_process_group(backend, init_method=f"file://{store}", world_size=n, rank=rank)
     try:
         result = fn(*args)
         torch.save(result, os.path.join(out_dir, f"rank{rank}.pt"))
@@ -36,14 +38,15 @@ def _rank_main(rank: int, n: int, store: str, out_dir: str, fn, args) -> None:
         dist.destroy_process_group()
 
 
-def run_ranks(n: int, fn, *args) -> list:
-    """Run ``fn(*args)`` in ``n`` spawned processes that form a gloo group
-    on the CPU (one torch thread each); returns each rank's result, in rank
-    order. ``fn`` must be importable by name (a module-level function).
-    A rank that raises fails the call with its traceback."""
+def run_ranks(n: int, fn, *args, backend: str = "gloo") -> list:
+    """Run ``fn(*args)`` in ``n`` spawned processes that form a process
+    group (one torch thread each): gloo on the CPU, or with ``backend=
+    "nccl"`` rank r on card r; returns each rank's result, in rank order.
+    ``fn`` must be importable by name (a module-level function). A rank
+    that raises fails the call with its traceback."""
     with tempfile.TemporaryDirectory() as tmp:
         store = os.path.join(tmp, "store")
-        mp.start_processes(_rank_main, args=(n, store, tmp, fn, args), nprocs=n,
+        mp.start_processes(_rank_main, args=(n, store, tmp, fn, args, backend), nprocs=n,
                            join=True, start_method="spawn")
         return [torch.load(os.path.join(tmp, f"rank{r}.pt"), weights_only=False)
                 for r in range(n)]

@@ -10,13 +10,15 @@ served, streamed), then the RNN family (BiLSTMCTC and LAS, trained and
 served), SpecAugment's time warp and ``attn_impl="flash"``, then the
 feature cache (``preprocess features``, training from it), the trainer's
 trace window and the soak driver, then two ranks on the one card
-(data-parallel training and the distributed beam), and checks that every
-path went through its kernels.
+(data-parallel training and the distributed beam), then the measuring
+programs (``asr_chinese_e2e_tpu_torch/bench.py``, the decode and stream
+benches, the decode profile), and checks that every path went through its
+kernels.
 Run from the repository root:
 
     python3 chip_smoke.py
 
-Phases (any failure raises, so the exit code is non-zero; phases 3-16, 8b,
+Phases (any failure raises, so the exit code is non-zero; phases 3-17, 8b,
 9b, 14b, 15b and 15c each print the seconds they took; 8b runs after 8, 9b
 after 9, 14b after 14, 15b and 15c after 15):
 
@@ -165,8 +167,10 @@ after 9, 14b after 14, 15b and 15c after 15):
     be within 1e-3 of the offline encode of the bucketed segment; in
     bf16 the number of agreeing finals is printed; median and p90 ms of
     a partial and of a final in each mode;
-13. throughput: 20 timed flagship steps on one fixed batch of 64 x 8 s
-    after 3 warm-up steps: ms per step, steps/s, audio-s/s and MFU
+13. throughput: ``asr_chinese_e2e_tpu_torch.bench.main`` (the JAX bench's
+    recipe and fixed batch of 64 x 8 s: a first step, 2 warm-up steps, 20
+    timed), its JSON line; per step (all 23 counted) K5 1, K1 6, K2 6, K3
+    1, K4 1 and nothing else; ms per step, steps/s, audio-s/s and MFU
     against the H100 SXM dense bf16 peak;
 14. streaming throughput: the streaming recipe on one fixed batch of
     64 x 8 s, one model, 3 warm-up steps on each route, then 5 pairs of
@@ -266,11 +270,26 @@ after 9, 14b after 14, 15b and 15c after 15):
     max(1, |score|); ring attention and tensor
     parallelism on a (1, 1, 1) mesh equal to the unsharded model, bit for
     bit;
-17. print the kernels' JSON line (per kernel: route, source, the TPU
+17. the benches, each at flagship width but short:
+    ``bench.via_trainer_main`` on 4 batches of 64 x 8 s (per step the
+    flagship step's launches), ``scripts/bench_decode_torch.py`` in
+    ``lazy``, ``gather`` and ``joint`` with one timed search each (per
+    batch of 64 K5 1 and K1 6 for the encode, K8 once per decode step of
+    ``joint`` and never in the others; ``lazy`` against ``gather``: in
+    bf16 the shares of equal best hypotheses and n-best printed, in f32
+    (one more run of both) every best hypothesis equal and the scores
+    within 1e-5 of max(1, |score|): the two reorders round in other
+    orders, so a near tie lower in the n-best may part),
+    ``scripts/bench_stream_torch.py`` at bucket 8 s with 2
+    timed calls a path, one component pass of
+    ``scripts/profile_torch_decode.py`` and ``bench.scaling_main`` at count
+    1 (one NCCL rank in its own process): every number finite and
+    positive;
+18. print the kernels' JSON line (per kernel: route, source, the TPU
     kernel it replaces, launches on the main paths (the conformer's and the
     RNN family's and phase 15c's included) and per flagship train step,
     streaming train step, conformer train step, BiLSTMCTC and LAS train
-    step, flash train step, cached-feature train step, beam and joint serving batch, LAS joint decode step (K8 also per
+    step, flash train step, cached-feature train step, beam and joint serving batch, LAS joint decode step, bench-decode batch of 64 per mode (K8 also per
     joint decode step), and at the
     training shape ``shape``, ``max_abs_err``, ``ms``, ``plain_ms``,
     ``bound_ms``, ``bound_by``, ``library_ms``, ``device_ms`` (20 launches
@@ -284,10 +303,10 @@ after 9, 14b after 14, 15b and 15c after 15):
 import contextlib
 import dataclasses
 import json
+import math
 import os
 import shutil
 import statistics
-import subprocess
 import sys
 import time
 
@@ -298,6 +317,15 @@ import torch.nn.functional as F
 ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, ROOT)
 
+from asr_chinese_e2e_tpu_torch import bench  # noqa: E402
+from asr_chinese_e2e_tpu_torch.bench import (  # noqa: E402
+    H100_SXM_BF16_PEAK,
+    H100_SXM_BYTES_PER_S,
+    H100_SXM_F32_PEAK,
+    RNN_NAMES,
+    analytic_train_flops,
+    card_line,
+)
 from asr_chinese_e2e_tpu_torch.core.config import Config, resolve_config  # noqa: E402
 from asr_chinese_e2e_tpu_torch.core.registry import get_model  # noqa: E402
 from asr_chinese_e2e_tpu_torch.data import timewarp  # noqa: E402
@@ -366,13 +394,13 @@ from asr_chinese_e2e_tpu_torch.utils.synth import (  # noqa: E402
     tone_chars,
 )
 
+sys.path.insert(0, os.path.join(ROOT, "scripts"))
+import bench_decode_torch  # noqa: E402
+import bench_stream_torch  # noqa: E402
+import profile_torch_decode  # noqa: E402
+
 WORK = os.path.join(ROOT, "build", "chip_smoke")
 N_TIMED = 30
-# NVIDIA H100 SXM datasheet: dense bf16 tensor-core peak, FLOP/s
-H100_SXM_BF16_PEAK = 989.4e12
-# same datasheet: f32 outside the tensor cores, FLOP/s; device memory, bytes/s
-H100_SXM_F32_PEAK = 67e12
-H100_SXM_BYTES_PER_S = 3.35e12
 VOCAB = 4233
 
 # every kernel wrapper's launch counter, by the kernel's name
@@ -395,14 +423,6 @@ def reset_counters() -> None:
 
 def read_counters() -> dict:
     return {name: fn.launches for name, fn in COUNTERS.items()}
-
-
-def card_line() -> str:
-    out = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True, timeout=60,
-    )
-    return out.stdout.strip().splitlines()[0]
 
 
 def _event_times(fn, n, warmup, reps=1) -> list:
@@ -2028,9 +2048,6 @@ def run_training_path(dev):
 # -- phase 10: one f32 step, card vs CPU ----------------------------------------
 
 
-RNN_NAMES = ("BiLSTMCTC", "LAS")
-
-
 def _recipe(dtype: str, **overrides) -> tuple:
     """(model config, train config, feature config) of the flagship recipe,
     or with ``model_name`` one of the RNN family, of its registry config
@@ -2325,69 +2342,6 @@ def run_streaming_serving(exp_dir: str, vocab_path: str, dev, n_streams=4,
 # -- phase 13: throughput ------------------------------------------------------
 
 
-def analytic_train_flops(cfg, feat_cfg, vocab_size: int, batch: int,
-                         n_samples: int, label_len: int) -> float:
-    """Matmul FLOPs of one train step (fwd + bwd = 3x fwd): a copy of the
-    JAX package's ``bench.py::analytic_train_flops`` (projections,
-    attention products, FFNs, vocabulary heads, the DFT-as-matmul fbank;
-    elementwise work excluded, as MFU accounting does), with the conformer
-    block (its second FFN, the conv module's pointwise d -> 2d and d -> d
-    and its depthwise conv, k taps a channel a frame) and the conv2d
-    frontend (two 3x3 convolutions and the projection, over 4x fewer
-    encoder frames) counted too."""
-    t_frames = feat_cfg.num_frames(n_samples)
-    t = feat_cfg.num_lfr_frames(t_frames)
-    l = label_len + 1  # decoder is BOS-prefixed
-    v = vocab_size
-    n_bins = feat_cfg.n_fft // 2 + 1
-    fwd = t_frames * feat_cfg.win_length * (2 * n_bins) * 2
-    fwd += t_frames * n_bins * feat_cfg.n_mels * 2
-    if cfg.get("model_name") in RNN_NAMES:
-        return 3.0 * (fwd + rnn_forward_flops(cfg, feat_cfg, v, t, l)) * batch
-    d, ff = cfg.d_model, cfg.d_ff
-    le, ld = cfg.num_encoder_layers, cfg.num_decoder_layers
-    if cfg.get("frontend", "linear") == "conv2d":
-        c, f = d // 8, feat_cfg.feature_dim
-        t1, f1 = -(-t // 2), -(-f // 2)
-        t, f2 = -(-t1 // 2), -(-f1 // 2)
-        fwd += t1 * f1 * c * 9 * 2 + t * f2 * c * 9 * c * 2 + t * f2 * c * d * 2
-    else:
-        fwd += t * feat_cfg.feature_dim * d * 2
-    layer = 4 * t * d * d * 2 + 2 * t * t * d * 2 + 2 * t * d * ff * 2
-    if cfg.get("encoder_type", "transformer") == "conformer":
-        k = cfg.get("conv_kernel_size", 15)
-        layer += 2 * t * d * ff * 2 + t * d * 2 * d * 2 + t * d * d * 2 + t * d * k * 2
-    fwd += le * layer
-    if float(cfg.get("ctc_weight", 0.0)) > 0:
-        fwd += t * d * v * 2
-    fwd += ld * (4 * l * d * d * 2 + 2 * l * l * d * 2 + 2 * l * d * d * 2
-                 + 2 * t * d * d * 2 + 2 * l * t * d * 2 + 2 * l * d * ff * 2)
-    fwd += l * d * v * 2
-    return 3.0 * fwd * batch
-
-
-def rnn_forward_flops(cfg, feat_cfg, v: int, t: int, l: int) -> int:
-    """Matmul FLOPs of one utterance's RNN forward past the fbank: each
-    LSTM direction's gates (4h x (in + h) a frame), the CTC head, and for
-    LAS per target position the decoder cell, the query projection, the
-    location conv (filters x kernel a frame), its projection, the score and
-    the context products and the output projection over [s, context],
-    with the encoder's projection once."""
-    h, n_in = cfg.hidden_size, feat_cfg.feature_dim
-    fwd = 0
-    for i in range(cfg.num_encoder_layers):
-        fwd += 2 * t * 4 * h * ((n_in if i == 0 else 2 * h) + h) * 2
-    if float(cfg.get("ctc_weight", 0.0)) > 0:
-        fwd += t * 2 * h * v * 2
-    if cfg.get("model_name") == "LAS":
-        e, a, f, k = cfg.embed_dim, cfg.attention_dim, cfg.location_filters, cfg.location_kernel
-        step = 4 * h * (e + 2 * h + h) * 2 + h * a * 2
-        step += t * f * k * 2 + t * f * a * 2 + t * a * 2 + t * 2 * h * 2
-        step += (h + 2 * h) * v * 2
-        fwd += l * step + t * 2 * h * a * 2
-    return fwd
-
-
 THROUGHPUT_BATCH, THROUGHPUT_SECONDS, THROUGHPUT_LABEL_LEN = 64, 8.0, 20
 
 
@@ -2467,7 +2421,7 @@ def measure_training_throughput(dev, n_warmup=3, n_timed=20, label="flagship",
     else:
         require(counts["fused_attention_bwd"] == 6 * n_timed and counts["ctc_beta"] == n_timed,
                 f"throughput loop launches {counts}")
-    peak = H100_SXM_BF16_PEAK if dtype == "bfloat16" else H100_SXM_F32_PEAK
+    peak = bench.peak_flops(dtype)
     out = {
         "launches_per_step": {k: v / n_timed for k, v in counts.items()},
         "ms_per_step": step_s * 1e3,
@@ -2491,6 +2445,45 @@ def measure_training_throughput(dev, n_warmup=3, n_timed=20, label="flagship",
           f"{peak / 1e12:.1f} TFLOP/s {short}, peak memory "
           f"{out['peak_mem_gib']:.2f} GiB, final loss {float(m['loss']):.4f}{device}")
     return out
+
+
+def flagship_step_launches() -> dict:
+    """The launches of one flagship train step (and of one step of each
+    recipe that shares its kernels)."""
+    want = {k: 0.0 for k in COUNTERS}
+    want.update(fbank=1.0, fused_attention_fwd=6.0, fused_attention_bwd=6.0, ctc_alpha=1.0,
+                ctc_beta=1.0)
+    return want
+
+
+def require_positive(what: str, result: dict, keys) -> None:
+    """Each of ``keys`` in ``result`` a finite positive number."""
+    bad = {k: result.get(k) for k in keys
+           if not (isinstance(result.get(k), (int, float)) and math.isfinite(result[k])
+                   and result[k] > 0)}
+    require(not bad, f"{what}: not finite and positive: {bad}")
+
+
+def measure_flagship_throughput(dev, n_steps=20) -> dict:
+    """Phase 13: ``asr_chinese_e2e_tpu_torch.bench.main`` (the flagship
+    recipe on the JAX bench's fixed batch of 64 x 8 s: a first step, 2
+    warm-up steps, ``n_steps`` timed); its line, the launches per step of
+    all its steps, MFU against the bf16 peak."""
+    torch.cuda.reset_peak_memory_stats()
+    reset_counters()
+    r = bench.main(n_steps=n_steps, _return_result=True)
+    per_step = {k: v / (n_steps + 3) for k, v in read_counters().items()}
+    require(per_step == flagship_step_launches(),
+            f"bench.main launches per step {per_step}")
+    require_positive("bench.main", r, ("value", "steps_per_s", "flops_per_step", "mfu"))
+    ms = 1e3 / r["steps_per_s"]
+    print(f"train throughput, flagship bf16 (bench.main), batch 64 x 8 s, {n_steps} steps "
+          f"after 3: {ms:.3f} ms/step, {r['steps_per_s']:.4f} steps/s, {r['value']:.1f} "
+          f"audio-s/s, {r['flops_per_step'] / 1e12:.4f} TFLOP/step, MFU {r['mfu'] * 100:.3f} % "
+          f"of {H100_SXM_BF16_PEAK / 1e12:.1f} TFLOP/s bf16, peak memory "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    print(f"bench.main: {json.dumps(r)}")
+    return {"launches_per_step": per_step, "ms_per_step": ms}
 
 
 # -- phase 14: streaming throughput, windowed vs full-tile ---------------------
@@ -3447,9 +3440,7 @@ def run_parallel(serve_corpus, dev) -> dict:
                   f"one process; launches per step {got['launches']}")
             require(gaps["rel"] <= bound and g_gap <= g_bound and w_gap <= w_bound,
                     f"parallel {dtype}: rank {rank} disagrees with one process")
-            want = {k: 0.0 for k in COUNTERS}
-            want.update(fbank=1.0, fused_attention_fwd=6.0, fused_attention_bwd=6.0,
-                        ctc_alpha=1.0, ctc_beta=1.0)
+            want = flagship_step_launches()
             require(got["launches"] == want,
                     f"parallel {dtype}: rank {rank} launches {got['launches']} != {want}")
     for rank, r in enumerate(ranks):
@@ -3467,6 +3458,115 @@ def run_parallel(serve_corpus, dev) -> dict:
                 f"distributed beam: rank {rank} disagrees with one process")
     _axis_size_one(dev)
     return timing
+
+
+# -- phase 17: the benches ----------------------------------------------------
+
+BENCH_DECODE_MODES = ("lazy", "gather", "joint")
+# beam scores, of max(1, |score|), lazy against gather in f32 (as phase 16's
+# distributed beam against one process)
+BENCH_SCORE_REL = 1e-5
+
+
+@contextlib.contextmanager
+def counted_class_steps(cls, method):
+    """Count the decode steps of every instance of ``cls`` while the block
+    runs (``counted_steps`` for a model built out of reach)."""
+    n = [0]
+    inner = getattr(cls, method)
+
+    def step(self, *a, **kw):
+        n[0] += 1
+        return inner(self, *a, **kw)
+
+    setattr(cls, method, step)
+    try:
+        yield n
+    finally:
+        setattr(cls, method, inner)
+
+
+def run_benches() -> dict:
+    """Phase 17: each measuring program at flagship width, short:
+    ``bench.via_trainer_main`` on 4 batches of 64 x 8 s (per step the
+    flagship's launches), ``scripts/bench_decode_torch.py::main`` once per
+    mode with 1 timed search (per batch K5 1 and K1 6 for the encode, K8
+    once a decode step in ``joint`` and never in the others; ``lazy`` and
+    ``gather`` in f32 give the same best hypotheses and scores within 1e-5,
+    in bf16 their agreement is printed), ``scripts/bench_stream_torch.py`` at
+    bucket 8 s with 2 timed calls, one component pass of
+    ``scripts/profile_torch_decode.py`` and ``bench.scaling_main`` at count
+    1 (one NCCL rank); every number finite and positive. Returns the
+    launches per bench-decode batch by mode and the launches counted."""
+    counted = {k: 0 for k in COUNTERS}
+
+    def take(counts):
+        for k, v in counts.items():
+            counted[k] += v
+        return counts
+
+    reset_counters()
+    r = bench.via_trainer_main(n_batches=4, corpus_dir=os.path.join(WORK, "bench_corpus"))
+    per_step = {k: v / 8 for k, v in take(read_counters()).items()}
+    require(per_step == flagship_step_launches(), f"via_trainer_main launches {per_step}")
+    require_positive("via_trainer_main", r, ("value", "steps_per_s", "mfu"))
+
+    per_batch, tokens = {}, {}
+    for mode in BENCH_DECODE_MODES:
+        reset_counters()
+        method = "decode_step" if mode == "gather" else "decode_step_lazy"
+        with counted_class_steps(SpeechTransformer, method) as steps:
+            r = bench_decode_torch.main(n_iters=1, modes=mode)[mode]
+        counts = take(read_counters())
+        want = {k: 0 for k in COUNTERS}
+        want.update(fbank=1, fused_attention_fwd=6, ctc_prefix=steps[0] if mode == "joint" else 0)
+        require(counts == want, f"bench decode {mode}: launches {counts} != {want} "
+                f"({steps[0]} decode steps in 2 searches)")
+        require_positive(f"bench decode {mode}", r, ("ms_per_batch", "audio_s_per_s"))
+        # per batch: the one encode, and one of the two searches
+        per_batch[mode] = {k: v / 2 if k == "ctc_prefix" else v for k, v in counts.items()}
+        tokens[mode] = r
+        print(f"bench decode {mode}: {steps[0] // 2} decode steps a search, launches per "
+              f"batch of 64 {per_batch[mode]}")
+    # the two reorders round the self-attention in other orders (lazy sums
+    # over every slot's cache, the absent ones weighted zero, in one product
+    # over slots and positions), so hypotheses at a near tie may swap or
+    # part. bf16: printed. f32: every best hypothesis equal and the n-best
+    # scores within BENCH_SCORE_REL, required.
+    reset_counters()
+    tokens["f32"] = bench_decode_torch.main(n_iters=1, modes="lazy,gather", dtype="float32")
+    take(read_counters())
+    agree = {}
+    for dtype, (lazy, gather) in (("bf16", (tokens["lazy"], tokens["gather"])),
+                                  ("f32", (tokens["f32"]["lazy"], tokens["f32"]["gather"]))):
+        a, b = lazy["tokens"], gather["tokens"]
+        rel = float((np.abs(lazy["scores"] - gather["scores"])
+                     / np.maximum(1.0, np.abs(gather["scores"]))).max())
+        same_set = np.mean([sorted(map(tuple, x)) == sorted(map(tuple, y)) for x, y in zip(a, b)])
+        agree[dtype] = (bool((a[:, 0] == b[:, 0]).all()), rel)
+        print(f"bench decode {dtype}, lazy vs gather over 64 utterances: best hypothesis equal "
+              f"in {(a[:, 0] == b[:, 0]).all(-1).mean() * 100:.1f} %, the whole n-best in "
+              f"{(a == b).all((1, 2)).mean() * 100:.1f} %, the same n-best as a set in "
+              f"{same_set * 100:.1f} %; scores max |diff| / max(1, |score|) {rel:.3e}")
+    require(agree["f32"][0] and agree["f32"][1] <= BENCH_SCORE_REL,
+            f"bench decode f32: lazy and gather disagree {agree['f32']}")
+
+    s = bench_stream_torch.main(bucket_seconds="8", n_iters=2)
+    require(len(s["rows"]) == 3 and len(s["incremental"]) == 3, "stream bench rows")
+    for mode, _, partial, final in s["rows"]:
+        require_positive(f"stream bench {mode}", {"partial": partial, "final": final},
+                         ("partial", "final"))
+    for row in s["incremental"]:
+        require_positive(f"stream bench incremental {row['mode']}", row,
+                         ("partial_mean_ms", "partial_p95_ms", "final_ms"))
+
+    p = profile_torch_decode.main(n=3, do_trace=False)
+    require_positive("decode profile", p["components"], list(p["components"]))
+
+    r = bench.scaling_main(chip_counts="1", n_steps=5)
+    require(r["table"][0]["efficiency"] == 1.0, f"scaling table {r['table']}")
+    require_positive("scaling_main", r["table"][0], ("audio_s_per_s_per_chip", "mfu"))
+    return {"per_batch": per_batch, "launches": counted}
 
 
 def main() -> None:
@@ -3506,18 +3606,20 @@ def main() -> None:
     phase(10, check_step_against_cpu, corpus, dev)
     stream_trained, stream_exp = phase(11, run_streaming_training, corpus)
     stream_served = phase(12, run_streaming_serving, stream_exp, corpus["vocab"], dev)
-    flagship_step = phase(13, measure_training_throughput, dev)["launches_per_step"]
+    flagship_step = phase(13, measure_flagship_throughput, dev)["launches_per_step"]
     streaming_step = phase(14, measure_streaming_throughput, dev)
     conformer = phase("14b", run_conformer, corpus, dev)
     rnn = phase(15, run_rnn_family, corpus, dev)
     flash_step = phase("15b", run_time_warp_and_flash, dev)
     cache = phase("15c", run_cache_trace_soak, corpus, dev)
     phase(16, run_parallel, serve_corpus, dev)
+    benches = phase(17, run_benches)
 
     # launches: the main paths' runs, each counted from 0
     launches = {
         k: serve[k] + decoded[k] + trained[k] + stream_trained[k] + stream_served[k]
         + conformer["launches"][k] + rnn["launches"][k] + cache["launches"][k]
+        + benches["launches"][k]
         for k in COUNTERS
     }
     require(all(n > 0 for n in launches.values()), f"a kernel never launched: {launches}")
@@ -3552,6 +3654,8 @@ def main() -> None:
              "serving_batch": serve[name] / serve_batches,
              "joint_serving_batch": decoded[name] / joint_batches,
              "las_joint_decode_step": rnn["per_joint_step"][name],
+             **{f"bench_decode_{mode}_batch": benches["per_batch"][mode][name]
+                for mode in BENCH_DECODE_MODES},
          }, **measured}
         for name, (src, rep, measured) in sources.items()
     ]

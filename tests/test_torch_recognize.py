@@ -240,12 +240,19 @@ import asr_chinese_e2e_tpu_torch as pkg
 names = [m.name for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + ".")]
 for name in names:
     importlib.import_module(name)
+# the measuring scripts, which import the port and each other
+sys.path.insert(0, "scripts")
+scripts = ("bench_decode_torch", "bench_stream_torch", "profile_torch_decode",
+           "sweep_postln_torch", "lr_ab_torch")
+for script in scripts:
+    importlib.import_module(script)
 leaked = sorted(
     m for m in sys.modules
     if m == "asr_chinese_e2e_tpu" or m.startswith("asr_chinese_e2e_tpu.")
+    or m in ("bench", "recognize", "main", "preprocess")
 )
 assert not leaked, leaked
-print(" ".join(names))
+print(" ".join(names + list(scripts)))
 """
 
 # the training slice's modules, each of which must import without jax
@@ -276,6 +283,14 @@ PARALLEL_MODULES = {
 }
 
 
+# the measuring programs (the JAX package's bench.py and its decode and
+# stream benches, decode profile, post-LN sweep and LR A/B)
+BENCH_MODULES = {"asr_chinese_e2e_tpu_torch.bench"} | {
+    "bench_decode_torch", "bench_stream_torch", "profile_torch_decode", "sweep_postln_torch",
+    "lr_ab_torch",
+}
+
+
 def test_port_imports_with_jax_blocked():
     """The test environment may import jax before a test starts, so the
     subprocess blocks the import rather than checking jax is absent."""
@@ -289,6 +304,7 @@ def test_port_imports_with_jax_blocked():
     assert TRAINING_MODULES <= names, TRAINING_MODULES - names
     assert DECODE_MODULES <= names, DECODE_MODULES - names
     assert PARALLEL_MODULES <= names, PARALLEL_MODULES - names
+    assert BENCH_MODULES <= names, BENCH_MODULES - names
 
 
 def _imported_modules(path: Path):
@@ -309,6 +325,11 @@ CARD_SCRIPTS = [
     REPO / "scripts" / "soak_streaming_torch.py",
     REPO / "scripts" / "soak_ab_torch.py",
     REPO / "scripts" / "conformer_grad_gap_torch.py",
+    REPO / "scripts" / "bench_decode_torch.py",
+    REPO / "scripts" / "bench_stream_torch.py",
+    REPO / "scripts" / "profile_torch_decode.py",
+    REPO / "scripts" / "sweep_postln_torch.py",
+    REPO / "scripts" / "lr_ab_torch.py",
 ]
 
 
