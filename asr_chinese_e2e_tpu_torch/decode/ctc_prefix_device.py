@@ -6,10 +6,12 @@ this version keeps the beam as tensors on the encoder's device:
 
 - state: prefixes (B, K, L), lengths (B, K), last tokens (B, K), and the
   per-prefix (log p ending in blank, ending in non-blank) pair (B, K);
-- one step per frame, a host loop over T with no host sync: per-frame
-  vocabulary pruning to P candidates, a (B, K·(P+1)) candidate score
-  matrix (the +1 is the "stay" candidate: blank or repeat of the last
-  token), global top-K, batched gathers to reorder the state;
+- one step per frame: per-frame vocabulary pruning to P candidates, a
+  (B, K·(P+1)) candidate score matrix (the +1 is the "stay" candidate:
+  blank or repeat of the last token), global top-K, batched gathers to
+  reorder the state; on the card the whole loop is one call of K9
+  (``ops/ctc_prefix_beam_kernel.py``), on the CPU its plain version
+  ``ctc_prefix_beam_reference``, a host loop over T with no host sync;
 - variable lengths by freezing the carry past each utterance's length.
 
 Duplicate prefixes (one string reached from two parent beams) are merged at
@@ -28,6 +30,7 @@ import torch
 
 from ..data.vocab import BLANK_ID
 from ..ops.ctc import BIG_NEG
+from ..ops.ctc_prefix_beam_kernel import ctc_prefix_beam_kernel
 from .beam import _top_k_stable
 
 
@@ -71,16 +74,9 @@ def _merge_duplicates(prefixes, plen, last, pb, pnb):
     )
 
 
-@torch.inference_mode()
-def ctc_prefix_beam_device(
-    log_probs: torch.Tensor,  # (B, T, C)
-    logit_lengths: torch.Tensor,  # (B,)
-    beam_size: int = 10,
-    prune: int = 8,
-    max_prefix_len: int = 64,
-):
-    """Returns (prefixes (B, K, L) int64, prefix_lengths (B, K), scores
-    (B, K)) sorted best-first."""
+def ctc_prefix_beam_reference(log_probs, logit_lengths, beam_size, prune, max_prefix_len):
+    """Plain version of K9, the search on the CPU: the contract of
+    ``ctc_prefix_beam_device``."""
     bsz, t_max, vocab = log_probs.shape
     k, p, l = beam_size, min(prune, vocab), max_prefix_len
     dev = log_probs.device
@@ -184,6 +180,27 @@ def ctc_prefix_beam_device(
         plen.gather(1, order),
         scores.gather(1, order),
     )
+
+
+@torch.inference_mode()
+def ctc_prefix_beam_device(
+    log_probs: torch.Tensor,  # (B, T, C)
+    logit_lengths: torch.Tensor,  # (B,)
+    beam_size: int = 10,
+    prune: int = 8,
+    max_prefix_len: int = 64,
+):
+    """Returns (prefixes (B, K, L) int64, prefix_lengths (B, K), scores
+    (B, K)) sorted best-first: the plain version on CPU tensors, K9 on CUDA
+    tensors (the log-probs cast to f32 first, as the plain version does)."""
+    dev = log_probs.device.type
+    if dev == "cpu":
+        return ctc_prefix_beam_reference(
+            log_probs, logit_lengths, beam_size, prune, max_prefix_len)
+    if dev == "cuda":
+        return ctc_prefix_beam_kernel(
+            log_probs.float(), logit_lengths, beam_size, prune, max_prefix_len)
+    raise ValueError(f"ctc prefix beam: unsupported device {log_probs.device}")
 
 
 def device_nbest_to_lists(prefixes, plen, scores) -> List[List[Tuple[Tuple[int, ...], float]]]:

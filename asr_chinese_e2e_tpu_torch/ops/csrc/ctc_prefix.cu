@@ -19,11 +19,22 @@
 // What bounds it on the H100: a chain of T steps of two log-add-exps each
 // per hypothesis, independent across the B*K hypotheses (80 at the serving
 // shape): latency, not bytes (the whole call moves about half a megabyte,
-// 0.14 us at 3.35 TB/s). Design: one thread per hypothesis; it walks its
-// token's row and the utterance's blank row of the table and its parent's
-// registers in order, so each 128-byte line serves 32 steps; the loads do
-// not depend on the chain, and the loop is unrolled by 8 over __restrict__
-// pointers so that the compiler may issue a group's loads ahead of it.
+// 0.14 us at 3.35 TB/s). Design: one warp per hypothesis, a scan over
+// frames. A valid frame t >= 1 is an affine map of the state (nb, bb) in the
+// log semiring (+ is log-add-exp, x is +):
+//   nb' = x_t nb + (phi[t-1] x_t),   bb' = bl_t nb + bl_t bb,
+// so a run of frames composes into nb' = a nb + e, bb' = c nb + d bb + f
+// (the entry of bb in nb' stays log-zero); an invalid frame is the
+// identity. Each lane composes the maps of its contiguous chunk of about
+// (T - 1) / 32 frames; the warp scans the 32 chunk maps with __shfl_up_sync
+// in 5 rounds; each lane applies the scan of the lanes before it to the
+// frame-0 state and replays its chunk with the plain recursion from there,
+// writing every frame. The chain is about 2 T / 32 + 5 steps instead of T.
+// Log-zero entries of a composed map sum several LOG_ZEROs and fall below
+// -1e30; the carries are clamped at LOG_ZERO, where the plain recursion
+// sits for a cell it cannot reach (a LOG_ZERO plus any finite term rounds
+// back to LOG_ZERO in f32), so the replay writes what the plain recursion
+// writes up to the rounding of the reassociated chunk sums.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -32,14 +43,39 @@
 namespace {
 
 constexpr float LOG_ZERO = -1e30f;
-constexpr int THREADS = 128;
+constexpr int WARPS = 4;  // hypotheses per block, a warp each
+constexpr unsigned FULL = 0xffffffffu;
 
 __device__ __forceinline__ float lae(float a, float b) {
   const float m = fmaxf(a, b);
   return m + log1pf(expf(-fabsf(a - b)));
 }
 
-__global__ void __launch_bounds__(THREADS)
+// nb' = lae(a + nb, e); bb' = lae(lae(c + nb, d + bb), f)
+struct Map {
+  float a, c, d, e, f;
+};
+
+__device__ __forceinline__ Map identity_map() {
+  return {0.0f, LOG_ZERO, 0.0f, LOG_ZERO, LOG_ZERO};
+}
+
+// `later` applied after `earlier`
+__device__ __forceinline__ Map compose(const Map& later, const Map& earlier) {
+  return {later.a + earlier.a,
+          lae(later.c + earlier.a, later.d + earlier.c),
+          later.d + earlier.d,
+          lae(later.a + earlier.e, later.e),
+          lae(lae(later.c + earlier.e, later.d + earlier.f), later.f)};
+}
+
+__device__ __forceinline__ Map shfl_up(const Map& m, int off) {
+  return {__shfl_up_sync(FULL, m.a, off), __shfl_up_sync(FULL, m.c, off),
+          __shfl_up_sync(FULL, m.d, off), __shfl_up_sync(FULL, m.e, off),
+          __shfl_up_sync(FULL, m.f, off)};
+}
+
+__global__ void __launch_bounds__(WARPS * 32)
 ctc_prefix_registers_kernel(const float* __restrict__ lp_flat,
                             const uint8_t* __restrict__ frame_mask,
                             const float* __restrict__ r_nb_g,
@@ -48,8 +84,9 @@ ctc_prefix_registers_kernel(const float* __restrict__ lp_flat,
                             const int64_t* __restrict__ last, int empty,
                             float* __restrict__ r_nb, float* __restrict__ r_b,
                             int B, int K, int C, int T, int blank) {
-  const int i = blockIdx.x * THREADS + threadIdx.x;  // hypothesis b * K + k
-  if (i >= B * K) return;
+  const int lane = threadIdx.x % 32;
+  const int i = blockIdx.x * WARPS + threadIdx.x / 32;  // hypothesis b * K + k
+  if (i >= B * K) return;  // a whole warp: the shuffles below stay full
   const int b = i / K;
   const int64_t tok = token[i];
   const float* xs = lp_flat + ((int64_t)b * C + tok) * T;
@@ -61,14 +98,35 @@ ctc_prefix_registers_kernel(const float* __restrict__ lp_flat,
   float* ob = r_b + (int64_t)i * T;
   const bool same = tok == last[i];
 
-  float nb = (empty && fm[0]) ? xs[0] : LOG_ZERO;
-  float bb = LOG_ZERO;
-  onb[0] = nb;
-  ob[0] = bb;
-  float phi = same ? gb[0] : lae(gb[0], gnb[0]);
-#pragma unroll 8
-  for (int t = 1; t < T; ++t) {
+  // frames 1 .. T-1 in 32 contiguous chunks
+  const int chunk = (T - 1 + 31) / 32;
+  const int lo = min(1 + lane * chunk, T), hi = min(lo + chunk, T);
+  Map m = identity_map();
+  for (int t = lo; t < hi; ++t) {
+    if (!fm[t]) continue;
+    const float x = xs[t], bt = bl[t];
+    const float phi = same ? gb[t - 1] : lae(gb[t - 1], gnb[t - 1]);
+    m = {x + m.a, lae(bt + m.a, bt + m.c), bt + m.d, lae(x + m.e, phi + x),
+         lae(bt + m.e, bt + m.f)};
+  }
+#pragma unroll
+  for (int off = 1; off < 32; off <<= 1) {
+    const Map earlier = shfl_up(m, off);
+    if (lane >= off) m = compose(m, earlier);
+  }
+  Map before = shfl_up(m, 1);
+  if (lane == 0) before = identity_map();
+
+  const float nb0 = (empty && fm[0]) ? xs[0] : LOG_ZERO;
+  float nb = fmaxf(lae(before.a + nb0, before.e), LOG_ZERO);
+  float bb = fmaxf(lae(lae(before.c + nb0, before.d + LOG_ZERO), before.f), LOG_ZERO);
+  if (lane == 0) {
+    onb[0] = nb0;
+    ob[0] = LOG_ZERO;
+  }
+  for (int t = lo; t < hi; ++t) {
     const float x = xs[t];
+    const float phi = same ? gb[t - 1] : lae(gb[t - 1], gnb[t - 1]);
     const float nb_new = lae(nb + x, phi + x);
     const float bb_new = lae(bb, nb) + bl[t];
     if (fm[t]) {
@@ -77,7 +135,6 @@ ctc_prefix_registers_kernel(const float* __restrict__ lp_flat,
     }
     onb[t] = nb;
     ob[t] = bb;
-    phi = same ? gb[t] : lae(gb[t], gnb[t]);
   }
 }
 
@@ -95,8 +152,8 @@ extern "C" int asr_ctc_prefix_registers(const float* lp_flat, const uint8_t* fra
                                         int C,
                                         int T, int blank, void* stream) {
   if (B * K == 0 || T == 0) return 0;
-  const int blocks = (B * K + THREADS - 1) / THREADS;
-  ctc_prefix_registers_kernel<<<blocks, THREADS, 0, (cudaStream_t)stream>>>(
+  const int blocks = (B * K + WARPS - 1) / WARPS;
+  ctc_prefix_registers_kernel<<<blocks, WARPS * 32, 0, (cudaStream_t)stream>>>(
       lp_flat, frame_mask, r_nb_g, r_b_g, token, last, empty, r_nb, r_b, B, K, C, T, blank);
   return (int)cudaGetLastError();
 }

@@ -6,7 +6,9 @@ For each of the B*K selected extensions h = g·token of a decode step, the
 per-frame registers r_nb(t) (CTC prefix mass ending in a non-blank) and
 r_b(t) (ending in a blank) from the parent's registers and the CTC
 log-probs. The recursion is sequential in T and independent across
-hypotheses: one kernel launch per decode step, a thread per hypothesis.
+hypotheses: one kernel launch per decode step, a warp per hypothesis, which
+scans the frames as compositions of affine maps in the log semiring (32
+chunks of frames, then a replay of each chunk from its carry-in).
 
 ``ctc_selected_registers`` runs the plain version
 ``ctc_selected_registers_reference`` (a loop over frames on tensors) on CPU

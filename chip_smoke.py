@@ -110,21 +110,32 @@ after 9, 14b after 14, 15b and 15c after 15):
    batch, and the kernel path's f32 encoder output must agree with the
    CPU run of the plain path (which the CPU tests hold to the JAX
    package);
-8b. decoding modes and K8: the joint search's CTC prefix registers kernel
-   vs ``ctc_selected_registers_reference`` at the serving shape (8, 10,
-   288) with ragged frame masks and at 15 s (8, 10, 512), parents empty
-   and not, tokens equal to the parent's last on every third
-   hypothesis (1e-5 of max(1, |plain|) on reachable cells, log-zero on
-   both sides elsewhere; ``ms``, ``plain_ms``, ``device_ms`` of 20
-   launches back to back, ``bound_ms``; no PyTorch call computes it);
+8b. decoding modes, K8 and K9: the joint search's CTC prefix registers
+   kernel (K8, a warp scan) vs ``ctc_selected_registers_reference`` at the
+   serving shape (8, 10, 288) with ragged frame masks, at 15 s (8, 10,
+   512) and at the bench decode's (64, 10, 267), parents empty and not,
+   tokens equal to the parent's last on every third hypothesis (1e-5 of
+   max(1, |plain|) on reachable cells, log-zero on both sides elsewhere;
+   ``ms``, ``plain_ms``, ``device_ms`` of 20 calls back to back, the
+   kernel alone under the profiler, ``bound_ms``; no PyTorch call
+   computes it); the device CTC prefix beam (K9) vs
+   ``ctc_prefix_beam_reference`` at beam 10, prune 8, L 64 on the
+   flagship's CTC log-probs of phase 8's first serving batch, on peaky
+   rows and on rows with planted ties at (8, 288, 4233) and at 15 s (8,
+   512), ragged lengths (prefixes and lengths identical, scores within
+   1e-5 of max(1, |plain|); ``ms``, ``plain_ms``, ``device_ms``, the row
+   pass and the recursion apart under the profiler, ``bound_ms`` over the
+   frames t < len at the serving batch and at 15 s; the wall time of one
+   call, its one wrapper launch by the counter and its two kernels);
    then phase 8's experiment and 16 utterances through ``recognize`` in
    every mode (``ctc_greedy``, ``attention_greedy``, ``beam``, ``rescore``
    with the device and the host prefix beam, ``joint`` at ctc_weight 0.3
    and prune 30): a hypothesis for every utterance, finite scores (beam,
    joint, attention_greedy), K5 1 and K1 6 per batch, K8 once per decode
-   step in ``joint`` and never in the others, encode and search ms per
-   batch of 8 and audio-s/s; the device prefix beam's frame loop (wall,
-   kernels a frame, device time); and on one batch of 8 the joint search
+   step in ``joint`` and never in the others, K9 once per batch in
+   ``rescore`` with the device prefix beam and never in the others (the
+   plain loop never runs on a CUDA tensor), encode and search ms per
+   batch of 8 and audio-s/s; and on one batch of 8 the joint search
    with K8 and with the plain recursion forced (identical tokens, scores
    within 1e-4), in f32 at ctc_weight 0 with the whole vocabulary as
    prune (the tokens of ``beam_search``), and at ctc_weight 1 on 2
@@ -289,14 +300,18 @@ after 9, 14b after 14, 15b and 15c after 15):
     kernel it replaces, launches on the main paths (the conformer's and the
     RNN family's and phase 15c's included) and per flagship train step,
     streaming train step, conformer train step, BiLSTMCTC and LAS train
-    step, flash train step, cached-feature train step, beam and joint serving batch, LAS joint decode step, bench-decode batch of 64 per mode (K8 also per
+    step, flash train step, cached-feature train step, beam, joint and rescore serving
+    batch, LAS joint decode step, bench-decode batch of 64 per mode (K8 also per
     joint decode step), and at the
     training shape ``shape``, ``max_abs_err``, ``ms``, ``plain_ms``,
     ``bound_ms``, ``bound_by``, ``library_ms``, ``device_ms`` (20 launches
     back to back: of the C entry point for the attention kernels, of the
-    wrapper for K3-K5) and for K2 and K7 ``checked_ms``; ``other_shapes`` holds
-    the same for the serving shapes, and for K3/K4 for f32 logits at the
-    training shape), the card line, and last
+    wrapper for K3-K5, K8 and K9), for K2 and K7 ``checked_ms``, for K8
+    and K9 ``profiler_ms`` (the kernels alone: K8 at the serving shape,
+    K9 at the serving batch, its row pass and recursion apart);
+    ``other_shapes`` holds the same for the serving shapes, for K3/K4
+    for f32 logits at the training shape, for K8 at 15 s and the bench
+    decode's shape, for K9 at 15 s), the card line, and last
     ``{"ok": true, "device": {...}}``.
 """
 
@@ -345,6 +360,7 @@ from asr_chinese_e2e_tpu_torch.decode import joint as joint_mod  # noqa: E402
 from asr_chinese_e2e_tpu_torch.decode.beam import beam_search  # noqa: E402
 from asr_chinese_e2e_tpu_torch.decode.ctc_prefix_device import (  # noqa: E402
     ctc_prefix_beam_device,
+    ctc_prefix_beam_reference,
 )
 from asr_chinese_e2e_tpu_torch.decode.distributed import distributed_beam_search  # noqa: E402
 from asr_chinese_e2e_tpu_torch.main import data_config  # noqa: E402
@@ -357,6 +373,7 @@ from asr_chinese_e2e_tpu_torch.models.transformer import (  # noqa: E402
 from asr_chinese_e2e_tpu_torch.ops import _build  # noqa: E402
 from asr_chinese_e2e_tpu_torch.ops import ctc as ctc_ops  # noqa: E402
 from asr_chinese_e2e_tpu_torch.ops import ctc_kernel as ctc  # noqa: E402
+from asr_chinese_e2e_tpu_torch.ops import ctc_prefix_beam_kernel as k9  # noqa: E402
 from asr_chinese_e2e_tpu_torch.ops import ctc_prefix_kernel as k8  # noqa: E402
 from asr_chinese_e2e_tpu_torch.ops import fused_attention as fa  # noqa: E402
 from asr_chinese_e2e_tpu_torch.ops.fbank import log_mel_spectrogram_kernel  # noqa: E402
@@ -413,6 +430,7 @@ COUNTERS = {
     "ctc_alpha": ctc.ctc_alpha_kernel,
     "ctc_beta": ctc.ctc_beta_kernel,
     "ctc_prefix": k8.ctc_selected_registers_kernel,
+    "ctc_prefix_beam": k9.ctc_prefix_beam_kernel,
 }
 
 
@@ -1372,23 +1390,48 @@ LSE_ABS = 1e-5  # a row's log-sum-exp (~10 at C = 4233), in f32 with the hardwar
 LOG_ZERO = -1e29  # an unreachable cell: log-zero (-1e30) plus emissions
 
 
-def _launch_device_ms(fn, names: dict, n=DEVICE_REPS) -> dict:
-    """Device ms per launch of each named kernel over ``n`` calls of ``fn``,
-    under ``torch.profiler``."""
+# spin kernels launched and waited for after the profiler starts: in a
+# process that has traced before, the card's records of the first launches
+# after a start can be missing (``utils/debug.py``); one run lost all 20
+# launches of a 9 us kernel that had no warm-up before it
+PROFILER_WARMUP = 64
+WARMUP_KERNEL = "spin_kernel"  # ``torch.cuda._sleep``'s kernel
+
+
+@contextlib.contextmanager
+def _traced():
+    """``torch.profiler`` on the card's activity, started and warmed by
+    ``PROFILER_WARMUP`` spin kernels before the region; their records,
+    named ``WARMUP_KERNEL``, stay in the trace."""
     from torch.profiler import ProfilerActivity, profile
 
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(PROFILER_WARMUP):
+            torch.cuda._sleep(1000)
+        torch.cuda.synchronize()
+        yield prof
+        torch.cuda.synchronize()
+
+
+def _launch_device_ms(fn, names: dict, n=DEVICE_REPS) -> dict:
+    """Device ms per launch of each named kernel over ``n`` calls of ``fn``,
+    under ``torch.profiler``; traced once more, and said so, if a kernel's
+    records are all missing (the launches themselves are counted apart)."""
     for _ in range(3):
         fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(n):
-            fn()
-        torch.cuda.synchronize()
-    out = {}
-    for e in prof.key_averages():
-        for part, kernel in names.items():
-            if kernel in e.key and e.count:
-                out[part] = e.self_device_time_total / e.count / 1e3
+    for attempt in range(2):
+        with _traced() as prof:
+            for _ in range(n):
+                fn()
+        out = {}
+        for e in prof.key_averages():
+            for part, kernel in names.items():
+                if kernel in e.key and e.count:
+                    out[part] = e.self_device_time_total / e.count / 1e3
+        if set(out) == set(names):
+            break
+        print(f"profiler trace {attempt + 1} saw {sorted(out)} of {sorted(names)}")
     require(set(out) == set(names), f"profiler saw {sorted(out)} of {sorted(names)}")
     return out
 
@@ -1720,12 +1763,15 @@ def _check_registers(what, got, want) -> float:
     return worst
 
 
+# K8's shapes: the serving batch, 15 s, the bench decode's batch of 64 x 8 s
+K8_SHAPES = ((8, 10, 288), (8, 10, 512), (64, 10, 267))
+
+
 def check_ctc_prefix_kernel(dev) -> dict:
-    """K8 vs ``ctc_selected_registers_reference`` at the serving shape (8,
-    10, 288) and at 15 s (8, 10, 512), parents empty and not; times at both
-    shapes."""
+    """K8 vs ``ctc_selected_registers_reference`` at ``K8_SHAPES``, parents
+    empty and not; times at each shape."""
     worst, timed = 0.0, []
-    for b, k, t in ((8, 10, 288), (8, 10, 512)):
+    for b, k, t in K8_SHAPES:
         args = _k8_inputs(dev, b, k, t, seed=t)
         for empty in (True, False):
             got = k8.ctc_selected_registers(*args, empty)
@@ -1742,7 +1788,13 @@ def check_ctc_prefix_kernel(dev) -> dict:
         print(f"K8 {(b, k, t)}: no PyTorch call computes this recursion (library_ms null)")
         device = _wrapper_device_times("K8 ctc prefix registers", [b, k, t],
                                        lambda: k8.ctc_selected_registers(*args, False), limits)
-        timed.append({**_measured([b, k, t], worst, times, limits), **device})
+        # the scan outruns its wrapper's host work: the kernel alone
+        prof = _launch_device_ms(lambda: k8.ctc_selected_registers(*args, False),
+                                 {"kernel": "ctc_prefix_registers_kernel"})
+        print(f"K8 {(b, k, t)}: the kernel alone under the profiler {prof['kernel']:.4f} ms "
+              f"({limits['bound_ms'] / prof['kernel'] * 100:.2f} % of the bound)")
+        timed.append({**_measured([b, k, t], worst, times, limits), **device,
+                      "profiler_ms": prof["kernel"]})
     return {**timed[0], "max_abs_err": worst, "other_shapes": timed[1:]}
 
 
@@ -1839,42 +1891,127 @@ def check_joint_search(exp, corpus, dev) -> None:
         require(err <= ORACLE_REL * max(1.0, abs(want_sc)), "joint score != host oracle")
 
 
-def _device_prefix_beam_cost(exp, corpus, dev) -> None:
-    """Wall time and kernel launches of the device CTC prefix beam's frame
-    loop on one batch of 8."""
-    from torch.profiler import ProfilerActivity, profile
+K9_REL = 1e-5  # K9's scores: of max(1, |plain|); prefixes and lengths identical
+K9_ARGS = dict(beam_size=10, prune=8, max_prefix_len=64)  # what ``recognize`` sends
 
+
+def ctc_prefix_beam_bound(lens, t, c, k, p, l) -> dict:
+    """K9 on utterances of ``lens`` frames (of T = ``t``): the rows t < len
+    of the log-probs read once (the search uses no frame past an
+    utterance's length) and the lengths; the prefixes, their lengths and the
+    scores written. Operations, f32, per frame an utterance has: one
+    comparison a class for the frame's top P, K x K comparisons of up to L
+    tokens for the duplicate merge, and ten a candidate for the K (P + 1)
+    candidates' scores and selection (more than this run's data needs: the
+    bound is the bytes' by far)."""
+    b = len(lens)
+    frames = float(sum(min(int(n), t) for n in lens))
+    n_bytes = 4.0 * frames * c + 8.0 * b + 8.0 * b * k * l + 12.0 * b * k
+    flops = frames * (c + k * k * l + 10 * k * (p + 1))
+    return bound(n_bytes, flops, H100_SXM_F32_PEAK)
+
+
+def _peaky_rows(dev, b, t, seed, ties=False) -> tuple:
+    """(B, T, C) f32 log-probs of the flagship's vocabulary on the card and
+    ragged lengths (the first full). ``ties``: logits on a grid of four
+    levels (most classes tie with many others), the blank at the top level
+    on every third frame, and every fifth frame one value throughout."""
+    g = torch.Generator().manual_seed(seed)
+    if ties:
+        logits = torch.randint(0, 4, (b, t, VOCAB), generator=g).float() * 1.5
+        logits[:, ::3, 0] = 4.5
+        logits[:, ::5] = 0.0
+    else:
+        logits = torch.randn(b, t, VOCAB, generator=g) * 3.0
+    lens = torch.randint(t // 4, t + 1, (b,), generator=g)
+    lens[0] = t
+    return torch.log_softmax(logits, dim=-1).to(dev), lens.to(dev)
+
+
+def _check_prefix_beam(what, lp, lens) -> float:
+    """K9 against its plain version on the same inputs: identical prefixes
+    and lengths, scores within ``K9_REL`` of max(1, |plain|). Returns the
+    largest abs score difference."""
+    got = ctc_prefix_beam_device(lp, lens, **K9_ARGS)
+    want = ctc_prefix_beam_reference(lp, lens, **K9_ARGS)
+    torch.cuda.synchronize()
+    same_pref = bool(torch.equal(got[0], want[0]))
+    same_len = bool(torch.equal(got[1], want[1]))
+    err = (got[2] - want[2]).abs()
+    rel = (err / want[2].abs().clamp(min=1.0)).max().item()
+    print(f"K9 {what} {tuple(lp.shape)} lengths {lens.tolist()}: prefixes equal {same_pref}, "
+          f"lengths equal {same_len}, scores max_abs={err.max().item():.3e} max_rel={rel:.3e}; "
+          f"best {got[1][:, 0].tolist()} tokens long")
+    if not (same_pref and same_len):
+        rows = (got[0] != want[0]).flatten(1).any(1) | (got[1] != want[1]).any(1)
+        for b in rows.nonzero().flatten().tolist():
+            print(f"K9 {what} utterance {b}: kernel lengths {got[1][b].tolist()} scores "
+                  f"{got[2][b].tolist()}; plain {want[1][b].tolist()} {want[2][b].tolist()}")
+    require(same_pref and same_len and rel <= K9_REL, f"K9 {what}: disagrees with plain")
+    return err.max().item()
+
+
+def check_ctc_prefix_beam_kernel(exp, corpus, dev) -> dict:
+    """K9 vs ``ctc_prefix_beam_reference`` at beam 10, prune 8, L 64: on the
+    flagship's CTC log-probs of phase 8's first serving batch (its ragged
+    lengths), on synthetic peaky rows and on rows with planted ties at (8,
+    288), and at 15 s (8, 512); times at the serving batch and at 15 s, the
+    wall time of one call, its launches by the counter and its kernels under
+    the profiler."""
     model, _, feat_cfg, _ = load_experiment(exp, corpus["vocab"], "best", device=dev)
     enc, lens = _first_batch(model, feat_cfg, corpus["test"], dev)
     with torch.inference_mode():
-        lp = model.ctc_log_probs(enc)
-    ctc_prefix_beam_device(lp, lens, beam_size=10)
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    ctc_prefix_beam_device(lp, lens, beam_size=10)
-    torch.cuda.synchronize()
-    ms = (time.perf_counter() - t0) * 1e3
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        ctc_prefix_beam_device(lp, lens, beam_size=10)
+        lp = model.ctc_log_probs(enc).float()
+    del model
+    inputs = {"flagship": (lp, lens), "peaky": _peaky_rows(dev, 8, 288, seed=1),
+              "ties": _peaky_rows(dev, 8, 288, seed=2, ties=True),
+              "15 s": _peaky_rows(dev, 8, 512, seed=3)}
+    worst = max(_check_prefix_beam(what, *args) for what, args in inputs.items())
+    timed = []
+    for what in ("flagship", "15 s"):
+        x, n = inputs[what]
+        b, t, c = x.shape
+        limits = ctc_prefix_beam_bound(n.tolist(), t, c, K9_ARGS["beam_size"],
+                                       K9_ARGS["prune"], K9_ARGS["max_prefix_len"])
+        # the plain loop takes 0.3-1.5 s a call: 2 samples a visit
+        times = turns_ms({
+            "kernel": lambda: ctc_prefix_beam_device(x, n, **K9_ARGS),
+            "plain": lambda: ctc_prefix_beam_reference(x, n, **K9_ARGS),
+        }, n=2, warmup=1)
+        _print_times("K9 ctc prefix beam", [b, t, c], times, limits, n=2)
+        print(f"K9 {(b, t, c)}: no PyTorch call runs this search (library_ms null)")
+        device = _wrapper_device_times("K9 ctc prefix beam", [b, t, c],
+                                       lambda: ctc_prefix_beam_device(x, n, **K9_ARGS),
+                                       limits)
+        parts = _launch_device_ms(lambda: ctc_prefix_beam_device(x, n, **K9_ARGS), {
+            "rows": "prefix_beam_rows_kernel", "recursion": "prefix_beam_recursion_kernel"})
+        before = k9.ctc_prefix_beam_kernel.launches
         torch.cuda.synchronize()
-    kernels = [e for e in prof.events() if str(e.device_type).endswith("CUDA")]
-    device_ms = sum(e.device_time for e in kernels) / 1e3
-    t = lp.shape[1]
-    print(f"device CTC prefix beam (8 x {t} frames, beam 10, prune 8): {ms:.1f} ms wall, "
-          f"{len(kernels)} kernels ({len(kernels) / t:.1f} a frame), {device_ms:.2f} ms of "
-          f"device time")
+        t0 = time.perf_counter()
+        ctc_prefix_beam_device(x, n, **K9_ARGS)
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+        calls = k9.ctc_prefix_beam_kernel.launches - before
+        print(f"K9 {(b, t, c)}: row pass {parts['rows']:.4f} ms + recursion "
+              f"{parts['recursion']:.4f} ms under the profiler; one call {wall:.3f} ms wall, "
+              f"{calls} wrapper launch, {len(parts)} kernels ({', '.join(parts)})")
+        require(calls == 1, f"K9: {calls} wrapper launches in one call")
+        timed.append({**_measured([b, t, c], worst, times, limits), **device,
+                      "profiler_ms": parts})
+    return {**timed[0], "max_abs_err": worst, "other_shapes": timed[1:]}
 
 
 def run_decoding_modes(exp, corpus, dev) -> tuple:
-    """K8 against its plain version, every ``recognize`` mode on phase 8's
-    experiment and corpus (16 utterances, batches of 8, beam 10), the cost
-    of the device prefix beam's frame loop, then the joint search's checks.
-    Returns the joint run's launch counts, its batch count and K8's times
-    with the decode steps of that run."""
+    """K8 and K9 against their plain versions, every ``recognize`` mode on
+    phase 8's experiment and corpus (16 utterances, batches of 8, beam 10),
+    then the joint search's checks. Returns the joint run's launch counts,
+    its batch count, and K8's and K9's times with the decode steps of that
+    run and the device rescore run's launch counts and batch count."""
     k8_times = check_ctc_prefix_kernel(dev)
+    k9_times = check_ctc_prefix_beam_kernel(exp, corpus, dev)
     # the model ``recognize`` memoizes, so its decode steps can be counted
     model, *_ = _load_experiment_cached(exp, corpus["vocab"], "best", torch.device("cuda"))
-    joint_counts, joint_batches, joint_steps = None, 0, 0
+    joint_counts, joint_batches, joint_steps, rescore = None, 0, 0, None
     for name, kw in DECODE_MODES.items():
         mode = kw.get("mode", name)
         with counted_steps(model) as n_steps:
@@ -1900,16 +2037,23 @@ def run_decoding_modes(exp, corpus, dev) -> tuple:
         want_k8 = n_steps[0] if mode == "joint" else 0
         require(counts["ctc_prefix"] == want_k8,
                 f"{name}: K8 launches {counts['ctc_prefix']} != {want_k8} decode steps")
+        # K9: the device prefix beam once per rescore batch, the plain loop never
+        want_k9 = n if name == "rescore-device" else 0
+        require(counts["ctc_prefix_beam"] == want_k9,
+                f"{name}: K9 launches {counts['ctc_prefix_beam']} != {want_k9}")
         if mode == "joint":
             joint_counts, joint_batches, joint_steps = counts, n, n_steps[0]
+        if name == "rescore-device":
+            rescore = (counts, n)
         print(f"recognize {name}: {n} batches, {tm['audio_s']:.3f} s audio; per batch of 8 "
               f"encode {tm['encode_s'] / n * 1e3:.3f} ms, search {tm['search_s'] / n * 1e3:.3f} "
               f"ms; audio-s/s {tm['audio_s'] / (tm['encode_s'] + tm['search_s']):.3f} "
               f"(encode+search), {tm['audio_s'] / wall:.3f} (wall); K8 launches "
-              f"{counts['ctc_prefix']} over {n_steps[0]} decode steps")
-    _device_prefix_beam_cost(exp, corpus, dev)
+              f"{counts['ctc_prefix']} over {n_steps[0]} decode steps, K9 launches "
+              f"{counts['ctc_prefix_beam']}")
     check_joint_search(exp, corpus, dev)
-    return joint_counts, joint_batches, {"k8": k8_times, "steps_run": joint_steps}
+    return joint_counts, joint_batches, {"k8": k8_times, "k9": k9_times,
+                                         "steps_run": joint_steps, "rescore": rescore}
 
 
 # -- phase 9b: decoded CER in evaluation ---------------------------------------
@@ -2384,14 +2528,12 @@ def _step_device_ms(train_step, state, batch, n=3) -> float:
     self device time of the device's own events (kernels, copies), summed;
     a host operator's device time is that of the kernels it launched."""
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
 
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+    with _traced() as prof:
         for _ in range(n):
             state, _ = train_step(state, *batch, 0)
-        torch.cuda.synchronize()
     return sum(e.self_device_time_total for e in prof.key_averages()
-               if e.device_type != DeviceType.CPU) / n / 1e3
+               if e.device_type != DeviceType.CPU and WARMUP_KERNEL not in e.key) / n / 1e3
 
 
 def measure_training_throughput(dev, n_warmup=3, n_timed=20, label="flagship",
@@ -3619,7 +3761,7 @@ def main() -> None:
     launches = {
         k: serve[k] + decoded[k] + trained[k] + stream_trained[k] + stream_served[k]
         + conformer["launches"][k] + rnn["launches"][k] + cache["launches"][k]
-        + benches["launches"][k]
+        + benches["launches"][k] + joint["rescore"][0][k]
         for k in COUNTERS
     }
     require(all(n > 0 for n in launches.values()), f"a kernel never launched: {launches}")
@@ -3638,7 +3780,11 @@ def main() -> None:
         "ctc_prefix": ("ctc_prefix.cu",
                        "none (lax.scan): asr_chinese_e2e_tpu/decode/joint.py:253",
                        joint["k8"]),
+        "ctc_prefix_beam": ("ctc_prefix_beam.cu",
+                            "none (lax.scan): asr_chinese_e2e_tpu/decode/ctc_prefix_device.py:214",
+                            joint["k9"]),
     }
+    rescore_counts, rescore_batches = joint["rescore"]
     kernels = [
         {"name": name, "route": "cuda",
          "source": f"asr_chinese_e2e_tpu_torch/ops/csrc/{src}", "replaces": rep,
@@ -3653,13 +3799,14 @@ def main() -> None:
              "cached_train_step": cache["per_step"][name],
              "serving_batch": serve[name] / serve_batches,
              "joint_serving_batch": decoded[name] / joint_batches,
+             "rescore_serving_batch": rescore_counts[name] / rescore_batches,
              "las_joint_decode_step": rnn["per_joint_step"][name],
              **{f"bench_decode_{mode}_batch": benches["per_batch"][mode][name]
                 for mode in BENCH_DECODE_MODES},
          }, **measured}
         for name, (src, rep, measured) in sources.items()
     ]
-    kernels[-1]["launches_per_step"]["joint_decode_step"] = (
+    kernels[-2]["launches_per_step"]["joint_decode_step"] = (
         decoded["ctc_prefix"] / joint["steps_run"])
     print(json.dumps({"kernels": kernels}))
     print(f"card: {card}")

@@ -1,16 +1,20 @@
 #!/usr/bin/env python
-"""The PyTorch port's fbank (K5) and CTC (K3, K4) kernels on one GPU,
-kernel by kernel: what ``nvcc -Xptxas -v`` says of each kernel of
-``fbank.cu`` and ``ctc.cu`` (registers, static shared memory, spills),
+"""The PyTorch port's fbank (K5), CTC (K3, K4) and CTC prefix (K8, K9)
+kernels on one GPU, kernel by kernel: what ``nvcc -Xptxas -v`` says of each
+kernel of ``fbank.cu``, ``ctc.cu``, ``ctc_prefix.cu`` and
+``ctc_prefix_beam.cu`` (registers, static shared memory, spills),
 then the device time of each kernel that one call of a wrapper launches,
 under ``torch.profiler``: K5 at the training batch (64, 128000) and the
 serving batch (8, 128000) f32, K3 and K4 at the flagship's CTC shape (64,
 267, 4233) bf16 with label pad 32 (S = 65) and at (8, 501, 4233) with label
-pad 200 (S = 401). How a wrapper's time splits over its launches
+pad 200 (S = 401), K8 at the serving batch (8, 10, 288) and the bench
+decode's (64, 10, 267), K9 at beam 10, prune 8, L 64 on peaky rows of
+(8, 288, 4233) and (8, 512, 4233). How a wrapper's time splits over its launches
 (``chip_smoke.py`` times the wrappers as wholes): K3's row pass
 (``ctc_emission_rows_kernel``) and recursion (``ctc_alpha_recursion_kernel``),
 K4's recursion (``ctc_beta_recursion_kernel``) and gradient rows
-(``ctc_grad_rows_kernel``).
+(``ctc_grad_rows_kernel``), K9's row pass (``prefix_beam_rows_kernel``)
+and recursion (``prefix_beam_recursion_kernel``).
 
     python3 scripts/profile_torch_kernels.py
 
@@ -26,7 +30,6 @@ import tempfile
 
 import numpy as np
 import torch
-from torch.profiler import ProfilerActivity, profile
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
@@ -37,7 +40,7 @@ from asr_chinese_e2e_tpu_torch.ops import ctc as ctc_ops  # noqa: E402
 from asr_chinese_e2e_tpu_torch.ops import ctc_kernel as ctc  # noqa: E402
 from asr_chinese_e2e_tpu_torch.ops.fbank import log_mel_spectrogram_kernel  # noqa: E402
 
-SOURCES = ("fbank.cu", "ctc.cu")
+SOURCES = ("fbank.cu", "ctc.cu", "ctc_prefix.cu", "ctc_prefix_beam.cu")
 N_CALLS = 20
 
 
@@ -66,15 +69,14 @@ def profile_calls(what, fn) -> None:
     for _ in range(3):
         fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+    with chip_smoke._traced() as prof:
         for _ in range(N_CALLS):
             fn()
-        torch.cuda.synchronize()
     print(f"{what}: device us per launch under the profiler ({N_CALLS} calls; the "
           f"launches it listed per call)")
     total = 0.0
     for e in prof.key_averages():
-        if e.self_device_time_total > 0 and e.count:
+        if e.self_device_time_total > 0 and e.count and chip_smoke.WARMUP_KERNEL not in e.key:
             us = e.self_device_time_total / e.count
             per_call = e.count / N_CALLS
             total += us * round(per_call)
@@ -108,6 +110,14 @@ def main() -> None:
         profile_calls(f"K4 CTC beta + gradient {shape}",
                       lambda: ctc.ctc_beta_kernel(
                           logits, ext, lens, lab_lens, lse, alpha, loss, g))
+    for b, k, t in ((8, 10, 288), (64, 10, 267)):
+        args = chip_smoke._k8_inputs(dev, b, k, t, seed=t)
+        profile_calls(f"K8 ctc prefix registers ({b}, {k}, {t}) f32",
+                      lambda: chip_smoke.k8.ctc_selected_registers(*args, False))
+    for t in (288, 512):
+        lp, lens = chip_smoke._peaky_rows(dev, 8, t, seed=t)
+        profile_calls(f"K9 ctc prefix beam (8, {t}, 4233) f32, beam 10, prune 8",
+                      lambda: chip_smoke.ctc_prefix_beam_device(lp, lens, **chip_smoke.K9_ARGS))
 
 
 if __name__ == "__main__":

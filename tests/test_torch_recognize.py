@@ -269,7 +269,7 @@ TRAINING_MODULES = {
 DECODE_MODULES = {
     "asr_chinese_e2e_tpu_torch." + m for m in (
         "decode.joint", "decode.ctc_prefix", "decode.ctc_prefix_device",
-        "ops.ctc_prefix_kernel", "recognize",
+        "ops.ctc_prefix_kernel", "ops.ctc_prefix_beam_kernel", "recognize",
     )
 }
 
@@ -321,6 +321,7 @@ CARD_SCRIPTS = [
     REPO / "scripts" / "profile_torch_train.py",
     REPO / "scripts" / "profile_torch_attention.py",
     REPO / "scripts" / "profile_torch_kernels.py",
+    REPO / "scripts" / "profile_k8_torch.py",
     REPO / "scripts" / "soak_flagship_torch.py",
     REPO / "scripts" / "soak_streaming_torch.py",
     REPO / "scripts" / "soak_ab_torch.py",
