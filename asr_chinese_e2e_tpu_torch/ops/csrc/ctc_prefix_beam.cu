@@ -5,16 +5,15 @@
 // (:71-228, the scan at :214), which XLA compiles into one loop on the TPU:
 // no Pallas kernel stood there, but the port's plain version
 // (decode/ctc_prefix_device.py::ctc_prefix_beam_reference) is a host loop
-// of about 165 small launches a frame. This computes that loop step for
-// step, in f32, with torch's logaddexp formula and the accurate expf / logf
-// / log1pf, so that the kernel and its plain version round alike:
+// of about 165 small launches a frame. This computes what that loop
+// computes, in f32, with torch's logaddexp formula and the accurate expf /
+// logf / log1pf, so that the kernel and its plain version round alike:
 //
 //   per frame t, per utterance b (state: K prefixes of at most L stored
 //   tokens, their lengths, last tokens and (pb, pnb) log masses):
-//   1. merge duplicate prefixes: the K x K equality over the stored tokens,
-//      gated by `live` (logaddexp(pb, pnb) > BIG_NEG / 2); each column's
-//      first equal row takes the masked log-sum-exp of its copies' masses,
-//      the copies get BIG_NEG;
+//   1. merge duplicate prefixes: each live prefix's first live equal row
+//      takes the masked log-sum-exp of its copies' masses (the other K - 1
+//      entries count as BIG_NEG), the copies get BIG_NEG;
 //   2. the frame's top P classes in torch's stable order (value descending,
 //      the lower index first among equals); the blank keeps its slot with
 //      the value BIG_NEG;
@@ -22,30 +21,73 @@
 //      token equal to the beam's last extends only its blank-ended mass, a
 //      full prefix (plen >= L) does not extend;
 //   4. merge before select: an extension of beam j that recreates beam i
-//      (i = j + [last_i]) folds into i's stay candidate and is killed;
+//      (i = j + [last_i], both live) folds into i's stay candidate and is
+//      killed;
 //   5. the stable top K of the K (P + 1) candidates; the parents' prefixes
 //      are gathered and the token written at min(plen, L - 1);
 //   6. past the utterance's length the carry is the merged carry.
 //   At the end one more merge and a stable sort by score.
 //
 // What bounds it on the H100: the rows t < len of the log-probs must be read
-// once, at most 39 MB at the serving shape (8, 288, 4233), 0.012 ms at
-// 3.35 TB/s; everything else is a chain of dependent frames of small K x K
-// and K (P + 1) steps per utterance: latency. Design, two launches:
-// - a row pass, a warp per (b, t) frame row with t < len, 4 rows a block
-//   (the recursion reads no row past an utterance's length): each lane keeps
-//   its own stable top-P list (in shared memory, a column per lane) over the
-//   classes c = lane (mod 32), which it visits in increasing order, so an
-//   equal value never displaces an earlier index; then P rounds of a warp
-//   arg-max by (value, index) over the lists' heads write the frame's top P
-//   to (B, T, P) scratch. This does not depend on the beam, so every frame
-//   runs at once, at the byte bound's pace;
-// - the recursion, one block of 128 threads per utterance: the whole state in
-//   shared memory (double-buffered prefixes), seven barriers a frame; the
-//   frame's top P, its blank and the K gathers p(last) are loaded into
-//   registers at the top of the frame, ahead of the merge that does not need
-//   them. The top K is a rank count (a candidate's rank is the number of
-//   candidates before it in the stable order), exact under ties.
+// once, 13 MB at the flagship's serving batch, 0.004 ms at 3.35 TB/s; the
+// real limit is the chain of frames, each a few dependent warp steps per
+// utterance. Two launches:
+//
+// - the row pass, a block of four warps per (b, t) row with t < len: thread
+//   tid visits the classes c = tid (mod 128) in increasing order, 16 loads
+//   in flight, and keeps the best PMAX (P rounded up to a power of two) in a
+//   sorted register list, inserting a class only ahead of the entries it
+//   comes before, so an equal value never displaces a lower index; each
+//   warp merges its 32 lists by P rounds of two warp reductions (the largest
+//   value's 32-bit order key, then the least class index holding it), the
+//   winner popping its head, and one warp merges the four warp lists the
+//   same way into (B, T, P) scratch. Every frame runs at once.
+// - the search, a warp per utterance, lane i holding beam i (K <= 32) in
+//   registers: its length, last token, folded (pb, pnb), log p_any, its
+//   liveness and the lane of its parent (the live beam it extends by one
+//   token), with no block barrier. What follows from the plain loop, and
+//   shapes the design (tests/test_torch_ctc_prefix_beam_kernel.py holds a
+//   rehearsal of it to the plain version):
+//   * live beams are distinct strings at every frame: the merge kills
+//     copies, a live stay is one per beam, two live extensions that spell
+//     one string would need equal parents, and an extension that spells a
+//     live beam is killed (step 4). So step 1 folds each row into itself,
+//     and step 4's fold has at most one term. Such a fold is exact without
+//     a transcendental: x + 0 (the sum is exp(0) = 1) where x is finite and,
+//     for K > 1, above BIG_NEG, else BIG_NEG. It is done at the end of the
+//     frame.
+//   * a live beam is at most L tokens long (a full prefix's extensions
+//     are BIG_NEG, dead, and so are their children), so its stored tokens
+//     are its string; only dead beams overwrite slot L - 1, and the plain
+//     loop masks every pair relation by liveness. No pair at length L - 1
+//     or above needs its tokens compared.
+//   * the parent relation is carried from frame to frame, not recomputed
+//     from the K x K x L tokens: an extension's parent is its own parent's
+//     stay, if that was selected (any other copy of that string was killed
+//     in step 4); a stay's is the stay of its parent's parent, if that was
+//     live. The one relation that does not carry is a stay whose parent
+//     string was in no beam, recreated this frame by an extension of a
+//     shorter beam. A warp match on (length, last token) against the stay's
+//     (length - 1, second to last token) names the candidates, and only
+//     their stored tokens are compared, from the end. No other pair
+//     compares tokens.
+//   * the top K: the K (P + 1) candidates, index c = j (P + 1) + slot, lie
+//     in contiguous blocks of ceil(K (P + 1) / 32) a lane (all 32 lanes
+//     work), each packed as (order key of its value, complement of its
+//     place) into 64 bits and sorted in the lane. K rounds: one warp
+//     reduction of the heads' order keys, a ballot, and the lowest lane
+//     holding the maximum wins (its indices are below the next lane's, so
+//     ties keep the stable order) and shifts its block, with no branch.
+//   * the stored tokens sit in a pool of K rows in shared memory: a
+//     parent's first child keeps its row, its other children copy it, 16
+//     bytes at a time and all at once, into the rows of the beams that have
+//     no child, and an extension writes its token: no K x L copy a frame.
+//     The next frame's top P, blank and the p(last token) of every beam it
+//     can hold (the K current last tokens and the P classes of this frame)
+//     are loaded a frame ahead.
+//   Ties stay exact: the order keys are a bijection of the floats (-0 taken
+//   as +0, the plain sort's tie), and every merge picks the lowest index
+//   among equal values.
 // The wrapper holds K, P <= 32 and L <= 128.
 
 #include <climits>
@@ -59,8 +101,9 @@ constexpr float BIG_NEG = -1e30f;
 constexpr int MAX_K = 32;
 constexpr int MAX_P = 32;
 constexpr int MAX_L = 128;
-constexpr int ROW_WARPS = 4;
-constexpr int THREADS = 128;
+constexpr int ROW_WARPS = 4;  // a row's warps
+constexpr int ROW_THREADS = ROW_WARPS * 32;
+constexpr int ROW_CHUNK = 16;  // a thread's loads in flight
 constexpr unsigned FULL = 0xffffffffu;
 
 // torch.logaddexp: a itself when both are the same infinity
@@ -75,317 +118,396 @@ __device__ __forceinline__ bool before(float va, int ia, float vb, int ib) {
   return va > vb || (va == vb && ia < ib);
 }
 
-__global__ void __launch_bounds__(ROW_WARPS * 32)
+// a key whose unsigned order is the floats' order, -0 taken as +0; 0 is
+// left for "no candidate"
+__device__ __forceinline__ unsigned order_key(float v) {
+  const unsigned u = __float_as_uint(v == 0.0f ? 0.0f : v);
+  return (u & 0x80000000u) ? ~u : (u | 0x80000000u);
+}
+
+// the masked log-sum-exp of decode/ctc_prefix_device.py over K entries of
+// which only x is unmasked (the others count as BIG_NEG). Its terms are 0, 1
+// or exp(x - m), so it is exactly x + log 1 = x + 0 where x is finite and,
+// for K > 1, above BIG_NEG, and BIG_NEG elsewhere (BIG_NEG + log(K - 1 or
+// K) rounds to BIG_NEG, or the sum is not finite)
+__device__ __forceinline__ float fold1(float x, int K) {
+  return isfinite(x) && (K == 1 || x > BIG_NEG) ? x + 0.0f : BIG_NEG;
+}
+
+// a candidate's place in its lane's stable order, as one integer: the order
+// key of its value above, the complement of its slot below (the lower slot
+// first among equals); 0 is "none"
+__device__ __forceinline__ unsigned long long pack(float v, int slot) {
+  return ((unsigned long long)order_key(v) << 32) | (unsigned)~slot;
+}
+
+// a load issued where it stands: the compiler may not sink it to its use,
+// a frame later (read-only data)
+__device__ __forceinline__ float load_now(const float* p) {
+  float v;
+  asm volatile("ld.global.nc.f32 %0, [%1];" : "=f"(v) : "l"(p));
+  return v;
+}
+__device__ __forceinline__ int load_now(const int* p) {
+  int v;
+  asm volatile("ld.global.nc.s32 %0, [%1];" : "=r"(v) : "l"(p));
+  return v;
+}
+
+// One round of a merge of sorted lists: the warp's best head by (value,
+// index); true in the lane that holds it. key 0: an empty list; `m` the
+// largest key, 0 if every list is empty.
+__device__ __forceinline__ bool warp_best(unsigned key, int idx, unsigned& m) {
+  m = __reduce_max_sync(FULL, key);
+  const unsigned least = __reduce_min_sync(FULL, key == m ? (unsigned)idx : UINT_MAX);
+  return m != 0u && key == m && (unsigned)idx == least;
+}
+
+template <int PMAX>
+__global__ void __launch_bounds__(ROW_THREADS)
 prefix_beam_rows_kernel(const float* __restrict__ lp, const int64_t* __restrict__ lengths,
-                        int rows, int T, int C, int P, float* __restrict__ top_val,
+                        int T, int C, int P, float* __restrict__ top_val,
                         int* __restrict__ top_idx) {
-  __shared__ float s_val[ROW_WARPS][MAX_P][32];
-  __shared__ int s_idx[ROW_WARPS][MAX_P][32];
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int row = blockIdx.x * ROW_WARPS + warp;
-  // warp-level work only below: no block barrier
-  if (row >= rows || row % T >= lengths[row / T]) return;
-  float(*sv)[32] = s_val[warp];
-  int(*si)[32] = s_idx[warp];
-  for (int q = 0; q < P; ++q) {
-    sv[q][lane] = -INFINITY;
-    si[q][lane] = INT_MAX;
+  __shared__ float s_val[ROW_WARPS][MAX_P];
+  __shared__ int s_idx[ROW_WARPS][MAX_P];
+  const int row = blockIdx.x, tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  if (row % T >= lengths[row / T]) return;  // the whole block
+  float lv[PMAX];
+  int li[PMAX];
+#pragma unroll
+  for (int q = 0; q < PMAX; ++q) {
+    lv[q] = -INFINITY;
+    li[q] = INT_MAX;
   }
-  float thr_v = -INFINITY;  // the lane's P-th entry so far
-  int thr_i = INT_MAX;
   const float* x = lp + (int64_t)row * C;
-#pragma unroll 4
-  for (int c = lane; c < C; c += 32) {
-    const float v = x[c];
-    if (before(v, c, thr_v, thr_i)) {
-      int q = P - 1;
-      while (q > 0 && before(v, c, sv[q - 1][lane], si[q - 1][lane])) {
-        sv[q][lane] = sv[q - 1][lane];
-        si[q][lane] = si[q - 1][lane];
-        --q;
+  for (int base = tid; base < C; base += ROW_THREADS * ROW_CHUNK) {
+    float v[ROW_CHUNK];
+#pragma unroll
+    for (int u = 0; u < ROW_CHUNK; ++u) {
+      const int c = base + u * ROW_THREADS;
+      v[u] = c < C ? __ldg(x + c) : 0.0f;
+    }
+#pragma unroll
+    for (int u = 0; u < ROW_CHUNK; ++u) {
+      int ci = base + u * ROW_THREADS;
+      float cv = v[u];
+      if (ci < C && before(cv, ci, lv[PMAX - 1], li[PMAX - 1])) {
+#pragma unroll
+        for (int q = 0; q < PMAX; ++q) {  // the new entry bubbles into place
+          if (before(cv, ci, lv[q], li[q])) {
+            const float tv = lv[q];
+            const int ti = li[q];
+            lv[q] = cv;
+            li[q] = ci;
+            cv = tv;
+            ci = ti;
+          }
+        }
       }
-      sv[q][lane] = v;
-      si[q][lane] = c;
-      thr_v = sv[P - 1][lane];
-      thr_i = si[P - 1][lane];
     }
   }
-  // P rounds: the best head of the 32 lists; its lane (index mod 32) pops it
+  // the warp's top P: the winner pops its head
+  for (int r = 0; r < P; ++r) {
+    const unsigned key = li[0] == INT_MAX ? 0u : order_key(lv[0]);
+    unsigned m;
+    if (warp_best(key, li[0], m)) {
+      s_val[warp][r] = lv[0];
+      s_idx[warp][r] = li[0];
+#pragma unroll
+      for (int q = 0; q + 1 < PMAX; ++q) {
+        lv[q] = lv[q + 1];
+        li[q] = li[q + 1];
+      }
+      lv[PMAX - 1] = -INFINITY;
+      li[PMAX - 1] = INT_MAX;
+    } else if (m == 0u && lane == 0) {
+      s_val[warp][r] = -INFINITY;
+      s_idx[warp][r] = INT_MAX;
+    }
+  }
+  __syncthreads();
+  if (warp != 0) return;
+  // the four warp lists, lane w < 4 holding warp w's head
   int head = 0;
   for (int r = 0; r < P; ++r) {
-    float bv = head < P ? sv[head][lane] : -INFINITY;
-    int bi = head < P ? si[head][lane] : INT_MAX;
-#pragma unroll
-    for (int off = 16; off > 0; off >>= 1) {
-      const float ov = __shfl_xor_sync(FULL, bv, off);
-      const int oi = __shfl_xor_sync(FULL, bi, off);
-      if (before(ov, oi, bv, bi)) {
-        bv = ov;
-        bi = oi;
-      }
-    }
-    if (bi != INT_MAX && bi % 32 == lane) ++head;
-    if (lane == 0) {
-      top_val[(int64_t)row * P + r] = bv;
-      top_idx[(int64_t)row * P + r] = bi;
+    const bool has = lane < ROW_WARPS && head < P && s_idx[lane][head] != INT_MAX;
+    const float hv = has ? s_val[lane][head] : 0.0f;
+    const int hi = has ? s_idx[lane][head] : INT_MAX;
+    unsigned m;
+    if (warp_best(has ? order_key(hv) : 0u, hi, m)) {
+      top_val[(int64_t)row * P + r] = hv;
+      top_idx[(int64_t)row * P + r] = hi;
+      ++head;
+    } else if (m == 0u && lane == 0) {
+      top_val[(int64_t)row * P + r] = -INFINITY;
+      top_idx[(int64_t)row * P + r] = INT_MAX;
     }
   }
 }
 
-// Shared-memory layout of the recursion, in 4-byte words.
-struct Layout {
-  int K, P, L, N;
-  int pref, plen, last, pb, pnb;  // [2] buffers each
-  int rel, mpb, mpnb, pany, plast, staypb, live, tv, ti, cscore, cpnb, sel;
-  int words;
-  __host__ __device__ Layout(int k, int p, int l) : K(k), P(p), L(l), N(k * (p + 1)) {
-    int o = 0;
-    pref = o; o += 2 * K * L;
-    plen = o; o += 2 * K;
-    last = o; o += 2 * K;
-    pb = o; o += 2 * K;
-    pnb = o; o += 2 * K;
-    rel = o; o += K * K;
-    mpb = o; o += K;
-    mpnb = o; o += K;
-    pany = o; o += K;
-    plast = o; o += K;
-    staypb = o; o += K;
-    live = o; o += K;
-    tv = o; o += P;
-    ti = o; o += P;
-    cscore = o; o += N;
-    cpnb = o; o += N;
-    sel = o; o += K;
-    words = o;
-  }
-};
-
-constexpr int REL_EQUAL = 1;   // same length, same stored tokens
-constexpr int REL_PARENT = 2;  // row i is column j plus one token
-
-__global__ void __launch_bounds__(THREADS)
-prefix_beam_recursion_kernel(const float* __restrict__ lp,
-                             const int64_t* __restrict__ lengths,
-                             const float* __restrict__ top_val,
-                             const int* __restrict__ top_idx,
-                             int64_t* __restrict__ out_prefixes,
-                             int64_t* __restrict__ out_plen,
-                             float* __restrict__ out_scores, int T, int C, int K,
-                             int P, int L, int blank) {
-  extern __shared__ int smem[];
-  const Layout lay(K, P, L);
-  const int b = blockIdx.x, tid = threadIdx.x, N = lay.N, P1 = P + 1;
-  // the two state buffers, w = 0 or 1
-  auto pref = [&](int w) { return smem + lay.pref + w * K * L; };
-  auto plen = [&](int w) { return smem + lay.plen + w * K; };
-  auto last = [&](int w) { return smem + lay.last + w * K; };
-  auto pb = [&](int w) { return (float*)smem + lay.pb + w * K; };
-  auto pnb = [&](int w) { return (float*)smem + lay.pnb + w * K; };
-  int* rel = smem + lay.rel;  // (i, j): REL_* bits
-  float* mpb = (float*)smem + lay.mpb;    // merged masses
-  float* mpnb = (float*)smem + lay.mpnb;
-  float* pany = (float*)smem + lay.pany;  // logaddexp(merged pb, pnb)
-  float* plast = (float*)smem + lay.plast;
-  float* staypb = (float*)smem + lay.staypb;
-  int* live = smem + lay.live;
-  float* tv = (float*)smem + lay.tv;
-  int* ti = smem + lay.ti;
-  float* cscore = (float*)smem + lay.cscore;  // candidate j * (P + 1) + slot
-  float* cpnb = (float*)smem + lay.cpnb;
-  int* sel = smem + lay.sel;
-
-  for (int q = tid; q < 2 * K * L; q += THREADS) smem[lay.pref + q] = 0;
-  for (int i = tid; i < K; i += THREADS) {
-    plen(0)[i] = 0;
-    last(0)[i] = -1;  // empty
-    pb(0)[i] = i == 0 ? 0.0f : BIG_NEG;  // only beam 0 live
-    pnb(0)[i] = BIG_NEG;
-  }
-  __syncthreads();
+// UMAX: the most candidates a lane holds, ceil(K (P + 1) / 32) or more
+template <int UMAX>
+__global__ void __launch_bounds__(32)
+prefix_beam_recursion_kernel(const float* __restrict__ lp, const int64_t* __restrict__ lengths,
+                             const float* __restrict__ top_val, const int* __restrict__ top_idx,
+                             int64_t* __restrict__ out_prefixes, int64_t* __restrict__ out_plen,
+                             float* __restrict__ out_scores, int T, int C, int K, int P, int L,
+                             int blank) {
+  __shared__ __align__(16) int s_tok[MAX_K * (MAX_L + 4)];  // K token rows, stride LS
+  __shared__ float s_tv[MAX_P];         // the frame's top P, the blank's as BIG_NEG
+  __shared__ int s_ti[MAX_P];
+  __shared__ unsigned s_kill[MAX_K];    // beam j's killed extensions, bits over q
+  __shared__ int s_stay[MAX_K];         // old beam a -> the new lane of its stay
+  __shared__ int s_free[MAX_K];         // the rows of the beams with no child
+  __shared__ int s_nrow[MAX_K];         // the new beams' token rows
+  __shared__ int s_sel[MAX_K];          // round r's winner, a candidate index
+  // every beam's numbers its candidates need
+  __shared__ float s_score[MAX_K], s_mpb[MAX_K], s_pany[MAX_K];
+  __shared__ int s_last[MAX_K], s_full[MAX_K];
+  const int b = blockIdx.x, lane = threadIdx.x;
+  const bool beam = lane < K;
+  const unsigned below = (1u << lane) - 1u;  // the lanes before this one
   const int64_t len = lengths[b];
-  int cur = 0;
+  const int nfr = len < T ? (int)len : T;
+  const float* rows = lp + (int64_t)b * T * C;
+  const int64_t top0 = (int64_t)b * T * P;
+  // a token row's stride: 16-byte rows a bank group apart
+  const int LS = ((L + 3) & ~3) + 4;
+  // the K (P + 1) candidates c = j (P + 1) + slot, U a lane in order:
+  // lane l holds c0 = l U to c0 + U - 1
+  const int P1 = P + 1, N = K * P1, U = (N + 31) / 32, c0 = lane * U;
 
-  // One merge of buffer `cur` into mpb / mpnb (three barriers), as
-  // decode/ctc_prefix_device.py::_merge_duplicates: the masked log-sum-exp
-  // counts the unmasked entries as BIG_NEG, and a sum that is not finite
-  // gives BIG_NEG. Leaves the pairs' REL_* bits in `rel` for the frame.
-  auto merge = [&](int* rep) {
-    for (int q = tid; q < K * K; q += THREADS) {
-      const int i = q / K, j = q % K;
-      const int li = plen(cur)[i], lj = plen(cur)[j];
-      const int n = li == lj ? li : (li == lj + 1 ? lj : -1);
-      int bits = 0;
-      if (n >= 0) {
-        const int* pi = pref(cur) + i * L;
-        const int* pj = pref(cur) + j * L;
-        int l = min(n, L) - 1;  // from the end: prefixes part there
-        while (l >= 0 && pi[l] == pj[l]) --l;
-        if (l < 0) bits = li == lj ? REL_EQUAL : (li > 0 ? REL_PARENT : 0);
-      }
-      rel[q] = bits;
-    }
-    if (tid < K) live[tid] = lae(pb(cur)[tid], pnb(cur)[tid]) > BIG_NEG / 2;
-    __syncthreads();
-    if (tid < K) {  // column j: the first row equal to it
-      const int j = tid;
-      int r = j;
-      if (live[j]) {
-        for (int i = 0; i < j; ++i) {
-          if ((rel[i * K + j] & REL_EQUAL) && live[i]) {
-            r = i;
-            break;
-          }
-        }
-      }
-      rep[j] = r;
-    }
-    __syncthreads();
-    if (tid < 2 * K) {  // row i's fold of pb (tid < K) or pnb
-      const int i = tid % K;
-      const float* x = tid < K ? pb(cur) : pnb(cur);
-      float m = -INFINITY;
-      for (int j = 0; j < K; ++j) m = fmaxf(m, rep[j] == i ? x[j] : BIG_NEG);
-      float s = 0.0f;
-      for (int j = 0; j < K; ++j) s += expf((rep[j] == i ? x[j] : BIG_NEG) - m);
-      float v = m + logf(s);
-      if (!isfinite(v)) v = BIG_NEG;
-      (tid < K ? mpb : mpnb)[i] = rep[i] == i ? v : BIG_NEG;
-    }
-    __syncthreads();
-  };
-
-  int* rep = sel;  // the merge's column representatives reuse sel's words
-  for (int t = 0; t < T; ++t) {
-    const bool active = t < len;
-    const int64_t frame = (int64_t)b * T + t;
-    // this frame's loads, ahead of the merge that does not need them
-    float my_plast = 0.0f, my_blank = 0.0f, my_tv = 0.0f;
-    int my_ti = 0;
-    if (active) {
-      if (tid < K) {
-        const int lt = last(cur)[tid];
-        my_plast = lt < 0 ? BIG_NEG : lp[frame * C + lt];
-        my_blank = lp[frame * C + blank];
-      } else if (tid >= 32 && tid < 32 + P) {
-        my_tv = top_val[frame * P + tid - 32];
-        my_ti = top_idx[frame * P + tid - 32];
-      }
-    }
-    merge(rep);
-    if (!active) {  // frozen: the carry is the merged carry
-      if (tid < K) {
-        pb(cur)[tid] = mpb[tid];
-        pnb(cur)[tid] = mpnb[tid];
-      }
-      __syncthreads();
-      continue;
-    }
-    if (tid < K) {
-      const float pa = lae(mpb[tid], mpnb[tid]);
-      pany[tid] = pa;
-      live[tid] = pa > BIG_NEG / 2;
-      plast[tid] = my_plast;
-      staypb[tid] = pa + my_blank;
-    } else if (tid >= 32 && tid < 32 + P) {
-      tv[tid - 32] = my_ti == blank ? BIG_NEG : my_tv;  // the blank is no extension
-      ti[tid - 32] = my_ti;
-    }
-    __syncthreads();
-
-    // stay candidates, with the extensions that recreate a beam folded in
-    if (tid < K) {
-      const int i = tid;
-      const int li = last(cur)[i];
-      const bool live_i = live[i];
-      float m = -INFINITY;
-      for (int j = 0; j < K; ++j) {
-        const bool par = (rel[i * K + j] & REL_PARENT) && live_i && live[j];
-        const float base = last(cur)[j] == li ? mpb[j] : pany[j];
-        m = fmaxf(m, par ? base + plast[i] : BIG_NEG);
-      }
-      float s = 0.0f;
-      for (int j = 0; j < K; ++j) {
-        const bool par = (rel[i * K + j] & REL_PARENT) && live_i && live[j];
-        const float base = last(cur)[j] == li ? mpb[j] : pany[j];
-        s += expf((par ? base + plast[i] : BIG_NEG) - m);
-      }
-      float csum = m + logf(s);
-      if (!isfinite(csum)) csum = BIG_NEG;
-      const float stay_pnb = lae(mpnb[i] + plast[i], csum);
-      cscore[i * P1] = lae(staypb[i], stay_pnb);
-      cpnb[i * P1] = stay_pnb;
-    }
-    // extensions of beam j by the frame's p-th class
-    for (int q = tid; q < K * P; q += THREADS) {
-      const int j = q / P, p = q % P;
-      const int tok = ti[p];
-      const int lj = last(cur)[j];
-      float ext = tok == lj ? mpb[j] + tv[p] : pany[j] + tv[p];
-      if (plen(cur)[j] >= L) ext = BIG_NEG;  // a full prefix
-      if (live[j]) {
-        for (int i = 0; i < K; ++i) {
-          if ((rel[i * K + j] & REL_PARENT) && live[i] && last(cur)[i] == tok) {
-            ext = BIG_NEG;
-            break;
-          }
-        }
-      }
-      cscore[j * P1 + 1 + p] = ext;
-      cpnb[j * P1 + 1 + p] = ext;
-    }
-    __syncthreads();
-
-    // the stable top K: rank = candidates before this one
-    for (int c = tid; c < N; c += THREADS) {
-      const float v = cscore[c];
-      int rank = 0;
-      for (int o = 0; o < N && rank < K; ++o) rank += before(cscore[o], o, v, c);
-      if (rank < K) sel[rank] = c;
-    }
-    __syncthreads();
-
-    // reorder into the other buffer
-    const int nxt = cur ^ 1;
-    for (int q = tid; q < K * L; q += THREADS) {
-      const int r = q / L, l = q % L;
-      const int c = sel[r], par = c / P1, slot = c % P1;
-      int v = pref(cur)[par * L + l];
-      if (slot > 0 && l == min(plen(cur)[par], L - 1)) v = ti[slot - 1];
-      pref(nxt)[q] = v;
-    }
-    if (tid < K) {
-      const int r = tid, c = sel[r], par = c / P1, slot = c % P1;
-      if (slot > 0) {
-        plen(nxt)[r] = plen(cur)[par] + 1;
-        last(nxt)[r] = ti[slot - 1];
-        pb(nxt)[r] = BIG_NEG;
-        pnb(nxt)[r] = cpnb[c];
-      } else {
-        plen(nxt)[r] = plen(cur)[par];
-        last(nxt)[r] = last(cur)[par];
-        pb(nxt)[r] = staypb[par];
-        pnb(nxt)[r] = cpnb[par * P1];
-      }
-    }
-    __syncthreads();
-    cur = nxt;
+  // lane state: beam `lane` (inert on lanes >= K)
+  int plen = 0, last = -1, par = -1, row = lane;
+  float mpb = fold1(lane == 0 ? 0.0f : BIG_NEG, K), mpnb = fold1(BIG_NEG, K);
+  float pany = lae(mpb, mpnb);
+  bool live = beam && pany > BIG_NEG / 2;
+  // frame 0's inputs; every beam is empty, so p(last) is BIG_NEG
+  float tv = 0.0f, pbl = 0.0f, pl = BIG_NEG;
+  int ti = 0;
+  if (nfr > 0) {
+    tv = top_val[top0 + min(lane, P - 1)];
+    ti = top_idx[top0 + min(lane, P - 1)];
+    pbl = rows[blank];
   }
 
-  // the last merge, then a stable sort by score
-  merge(rep);
-  if (tid < K) pany[tid] = lae(mpb[tid], mpnb[tid]);
-  __syncthreads();
-  if (tid < K) {
-    const int i = tid;
-    const float v = pany[i];
-    int rank = 0;
-    for (int o = 0; o < K; ++o) rank += before(pany[o], o, v, i);
-    const int64_t row = (int64_t)b * K + rank;
-    out_plen[row] = plen(cur)[i];
-    out_scores[row] = v;
-    for (int l = 0; l < L; ++l) out_prefixes[row * L + l] = pref(cur)[i * L + l];
+  for (int t = 0; t < nfr; ++t) {
+    // the next frame's loads, a frame ahead of their use (the last frame
+    // reads its own row again, unused)
+    const int tn = t + 1 < nfr ? t + 1 : t;
+    const float* nrow = rows + (int64_t)tn * C;
+    const int64_t ntop0 = top0 + (int64_t)tn * P + min(lane, P - 1);
+    const float ntv = load_now(top_val + ntop0);
+    const int nti = load_now(top_idx + ntop0);
+    const float ntop = load_now(nrow + ti);  // p(this frame's class q) at the next frame
+    const float nlast_v = load_now(nrow + (last >= 0 ? last : blank));
+    const float npbl = load_now(nrow + blank);
+    __syncwarp();  // the last frame's readers of the shared arrays are done
+    if (lane < P) {
+      s_tv[lane] = ti == blank ? BIG_NEG : tv;
+      s_ti[lane] = ti;
+    }
+    if (beam) {
+      s_kill[lane] = 0u;
+      s_stay[lane] = -1;
+    }
+    __syncwarp();
+
+    // where my last token stands in the top P
+    int pos = -1;
+#pragma unroll 4
+    for (int q = 0; q < P; ++q) pos = s_ti[q] == last ? q : pos;
+    // the stay, with the one extension that recreates it folded in (step 4)
+    const int src = par >= 0 ? par : lane;
+    const float par_mpb = __shfl_sync(FULL, mpb, src);
+    const float par_pany = __shfl_sync(FULL, pany, src);
+    const int par_last = __shfl_sync(FULL, last, src);
+    const bool par_live = __shfl_sync(FULL, (int)live, src);
+    const bool member = beam && par >= 0 && live && par_live;
+    const float csum =
+        fold1(member ? (par_last == last ? par_mpb : par_pany) + pl : BIG_NEG, K);
+    const float staypb = pany + pbl;
+    const float stay_pnb = lae(mpnb + pl, csum);
+    const float stay_score = lae(staypb, stay_pnb);
+    if (member && pos >= 0) atomicOr(&s_kill[par], 1u << pos);
+
+    if (beam) {
+      s_score[lane] = stay_score;
+      s_mpb[lane] = mpb;
+      s_pany[lane] = pany;
+      s_last[lane] = last;
+      s_full[lane] = plen >= L;
+    }
+    __syncwarp();
+
+    // my candidates' values, packed with their place in my block
+    unsigned long long cand[UMAX];
+    {
+      int j = c0 / P1, slot = c0 - j * P1;
+#pragma unroll
+      for (int u = 0; u < UMAX; ++u) {
+        cand[u] = 0ull;
+        if (u < U && c0 + u < N) {  // the stay's value and slot q + 1's, then a select
+          const int q = slot > 0 ? slot - 1 : 0;
+          const float ext = s_full[j] || (s_kill[j] >> q & 1u)
+                                ? BIG_NEG
+                                : (s_ti[q] == s_last[j] ? s_mpb[j] : s_pany[j]) + s_tv[q];
+          cand[u] = pack(slot > 0 ? ext : s_score[j], u);
+        }
+        if (++slot == P1) {
+          slot = 0;
+          ++j;
+        }
+      }
+    }
+    // sorted, best first: a pop is a shift
+#pragma unroll
+    for (int i = 1; i < UMAX; ++i) {
+#pragma unroll
+      for (int u = i; u > 0; --u) {
+        const unsigned long long hi = cand[u] > cand[u - 1] ? cand[u] : cand[u - 1];
+        cand[u] = cand[u] > cand[u - 1] ? cand[u - 1] : cand[u];
+        cand[u - 1] = hi;
+      }
+    }
+
+    // the stable top K: K rounds over the lanes' heads; the lowest lane
+    // that holds the largest order key (the lowest index among equals)
+    // wins, records its candidate and pops it, with no branch
+    for (int r = 0; r < K; ++r) {
+      const unsigned key = (unsigned)(cand[0] >> 32);
+      const unsigned m = __reduce_max_sync(FULL, key);
+      const bool win = lane == __ffs(__ballot_sync(FULL, key == m)) - 1;
+      if (win) s_sel[r] = c0 + (int)~(unsigned)cand[0];
+#pragma unroll
+      for (int u = 0; u + 1 < UMAX; ++u) cand[u] = win ? cand[u + 1] : cand[u];
+      cand[UMAX - 1] = win ? 0ull : cand[UMAX - 1];
+    }
+    __syncwarp();
+
+    // the new beam `lane`: parent a, stay (slot 0) or extension by class slot - 1
+    const int sel = beam ? s_sel[lane] : lane * P1;
+    const int a = sel / P1, my_slot = sel - a * P1;
+    const bool is_ext = beam && my_slot > 0;
+    const int a_plen = __shfl_sync(FULL, plen, a);
+    const int a_last = __shfl_sync(FULL, last, a);
+    const int a_row = __shfl_sync(FULL, row, a);
+    const int a_par = __shfl_sync(FULL, par, a);
+    const float a_staypb = __shfl_sync(FULL, staypb, a);
+    const float a_stay_pnb = __shfl_sync(FULL, stay_pnb, a);
+    const float a_mpb = __shfl_sync(FULL, mpb, a);
+    const float a_pany = __shfl_sync(FULL, pany, a);
+    const unsigned a_kill = beam ? s_kill[a] : 0u;
+    const bool a_par_live = __shfl_sync(FULL, (int)live, a_par >= 0 ? a_par : 0) && a_par >= 0;
+    const float next_top = __shfl_sync(FULL, ntop, is_ext ? my_slot - 1 : 0);
+    const float next_last = __shfl_sync(FULL, last >= 0 ? nlast_v : BIG_NEG, a);
+    const int tok = is_ext ? s_ti[my_slot - 1] : a_last;
+    // the selected candidate's pnb: the extension's score, or the stay's pnb
+    float my_pnb = a_stay_pnb;
+    if (is_ext) {
+      const int q = my_slot - 1;
+      my_pnb = a_plen >= L || (a_kill >> q & 1u) ? BIG_NEG
+                                                 : (tok == a_last ? a_mpb : a_pany) + s_tv[q];
+    }
+
+    // token rows: a parent's first child keeps its row, the others take the
+    // rows of the beams with no child, in order
+    const unsigned has_child = __reduce_or_sync(FULL, beam ? 1u << a : 0u);
+    const unsigned same = __match_any_sync(FULL, beam ? a : MAX_K + lane);
+    const bool first = __ffs(same) - 1 == lane;
+    const unsigned copiers = __ballot_sync(FULL, beam && !first);
+    const unsigned childless = (K == 32 ? FULL : (1u << K) - 1u) & ~has_child;
+    if (beam && (childless >> lane & 1u)) s_free[__popc(childless & below)] = row;
+    if (beam && !is_ext) s_stay[a] = lane;
+    __syncwarp();
+    const int new_row = !beam ? lane : first ? a_row : s_free[__popc(copiers & below)];
+    if (beam && !first) {  // 16 bytes at a time, the copiers at once
+      const int4* from = (const int4*)(s_tok + a_row * LS);
+      int4* to = (int4*)(s_tok + new_row * LS);
+      for (int q = 0; q < (min(a_plen, L) + 3) / 4; ++q) to[q] = from[q];
+    }
+    __syncwarp();
+    if (is_ext) s_tok[new_row * LS + min(a_plen, L - 1)] = tok;
+
+    // the new state, folded (the next frame's merge: each row into itself)
+    if (beam) {
+      plen = is_ext ? a_plen + 1 : a_plen;
+      last = tok;
+      row = new_row;
+      mpb = fold1(is_ext ? BIG_NEG : a_staypb, K);
+      mpnb = fold1(my_pnb, K);
+      pany = lae(mpb, mpnb);
+      live = pany > BIG_NEG / 2;
+      pl = is_ext ? next_top : next_last;
+      s_nrow[lane] = row;
+    }
+    __syncwarp();
+    // the parent relation, carried
+    int npar = -1;
+    if (is_ext)
+      npar = s_stay[a];
+    else if (beam && a_par_live)
+      npar = s_stay[a_par];
+    // a stay whose parent string was in no beam: a live extension of this
+    // frame one token shorter that spells it. A match on (length, last
+    // token) against mine (length - 1, second to last) names the few
+    // candidates; their stored tokens are compared from the end.
+    const bool seek = beam && !is_ext && !a_par_live && live && plen >= 2;
+    const bool target = is_ext && live;
+    const int* mine = s_tok + row * LS;
+    unsigned long long want = 1ull << 63 | lane;  // matches nothing
+    if (seek) want = (unsigned long long)(plen - 1) << 32 | (unsigned)mine[plen - 2];
+    if (target) want = (unsigned long long)plen << 32 | (unsigned)last;
+    unsigned cands = __match_any_sync(FULL, want) & __ballot_sync(FULL, target);
+    for (; seek && cands && npar < 0; cands &= cands - 1u) {
+      const int r = __ffs(cands) - 1;
+      const int* other = s_tok + s_nrow[r] * LS;
+      int q = plen - 3;
+      while (q >= 0 && mine[q] == other[q]) --q;
+      if (q < 0) npar = r;
+    }
+    par = npar;
+    tv = ntv;
+    ti = nti;
+    pbl = npbl;
   }
+
+  // the last merge is the identity on folded rows; a stable sort by score
+  __syncwarp();
+  if (beam) s_tv[lane] = pany;
+  __syncwarp();
+  int rank = 0;
+  for (int o = 0; o < K; ++o) rank += before(s_tv[o], o, pany, lane);
+  if (beam) {
+    s_free[rank] = lane;
+    out_plen[(int64_t)b * K + rank] = plen;
+    out_scores[(int64_t)b * K + rank] = pany;
+  }
+  __syncwarp();
+  for (int r = 0; r < K; ++r) {  // the warp writes one prefix at a time
+    const int i = s_free[r];
+    const int from = __shfl_sync(FULL, row, i), n = __shfl_sync(FULL, min(plen, L), i);
+    int64_t* out = out_prefixes + ((int64_t)b * K + r) * L;
+    for (int q = lane; q < L; q += 32) out[q] = q < n ? s_tok[from * LS + q] : 0;
+  }
+}
+
+template <int PMAX>
+cudaError_t launch_rows(const float* lp, const int64_t* lengths, int rows, int T, int C, int P,
+                        float* top_val, int* top_idx, cudaStream_t s) {
+  prefix_beam_rows_kernel<PMAX><<<rows, ROW_THREADS, 0, s>>>(lp, lengths, T, C, P, top_val,
+                                                             top_idx);
+  return cudaGetLastError();
+}
+
+template <int UMAX>
+void launch_search(const float* lp, const int64_t* lengths, const float* top_val,
+                   const int* top_idx, int64_t* out_prefixes, int64_t* out_plen,
+                   float* out_scores, int B, int T, int C, int K, int P, int L, int blank,
+                   cudaStream_t s) {
+  prefix_beam_recursion_kernel<UMAX><<<B, 32, 0, s>>>(lp, lengths, top_val, top_idx,
+                                                      out_prefixes, out_plen, out_scores, T, C,
+                                                      K, P, L, blank);
 }
 
 }  // namespace
@@ -405,18 +527,29 @@ extern "C" int asr_ctc_prefix_beam(const float* lp, const int64_t* lengths, floa
   cudaStream_t s = (cudaStream_t)stream;
   const int rows = B * T;
   if (rows > 0) {
-    prefix_beam_rows_kernel<<<(rows + ROW_WARPS - 1) / ROW_WARPS, ROW_WARPS * 32, 0, s>>>(
-        lp, lengths, rows, T, C, P, top_val, top_idx);
-    const cudaError_t err = cudaGetLastError();
+    cudaError_t err;
+    if (P <= 4)
+      err = launch_rows<4>(lp, lengths, rows, T, C, P, top_val, top_idx, s);
+    else if (P <= 8)
+      err = launch_rows<8>(lp, lengths, rows, T, C, P, top_val, top_idx, s);
+    else if (P <= 16)
+      err = launch_rows<16>(lp, lengths, rows, T, C, P, top_val, top_idx, s);
+    else
+      err = launch_rows<32>(lp, lengths, rows, T, C, P, top_val, top_idx, s);
     if (err != cudaSuccess) return (int)err;
   }
-  const size_t bytes = (size_t)Layout(K, P, L).words * 4;
-  cudaError_t err = cudaFuncSetAttribute(prefix_beam_recursion_kernel,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         (int)bytes);
-  if (err != cudaSuccess) return (int)err;
-  prefix_beam_recursion_kernel<<<B, THREADS, bytes, s>>>(
-      lp, lengths, top_val, top_idx, out_prefixes, out_plen, out_scores, T, C, K, P, L,
-      blank);
+  const int per_lane = (K * (P + 1) + 31) / 32;
+  if (per_lane <= 4)
+    launch_search<4>(lp, lengths, top_val, top_idx, out_prefixes, out_plen, out_scores, B, T, C,
+                     K, P, L, blank, s);
+  else if (per_lane <= 8)
+    launch_search<8>(lp, lengths, top_val, top_idx, out_prefixes, out_plen, out_scores, B, T, C,
+                     K, P, L, blank, s);
+  else if (per_lane <= 16)
+    launch_search<16>(lp, lengths, top_val, top_idx, out_prefixes, out_plen, out_scores, B, T,
+                      C, K, P, L, blank, s);
+  else
+    launch_search<33>(lp, lengths, top_val, top_idx, out_prefixes, out_plen, out_scores, B, T,
+                      C, K, P, L, blank, s);
   return (int)cudaGetLastError();
 }

@@ -9,8 +9,9 @@ top P classes, scores K·(P+1) candidates (the +1 is the "stay" candidate:
 blank or repeat of the last token), folds an extension that recreates a
 beam into that beam's stay candidate, and keeps the stable top K. Past each
 utterance's length the carry is frozen. The kernel runs the whole loop in
-one call (a row pass over every frame an utterance has, then one block per
-utterance).
+one call: a row pass, four warps a frame row for every frame an utterance
+has, then one warp per utterance, a beam a lane, carrying the beams' parent
+relation from frame to frame (the design is in the source's note).
 
 ``decode/ctc_prefix_device.py::ctc_prefix_beam_device`` launches it on CUDA
 tensors; its plain version there, ``ctc_prefix_beam_reference`` (a host loop

@@ -122,11 +122,14 @@ after 9, 14b after 14, 15b and 15c after 15):
    ``ctc_prefix_beam_reference`` at beam 10, prune 8, L 64 on the
    flagship's CTC log-probs of phase 8's first serving batch, on peaky
    rows and on rows with planted ties at (8, 288, 4233) and at 15 s (8,
-   512), ragged lengths (prefixes and lengths identical, scores within
-   1e-5 of max(1, |plain|); ``ms``, ``plain_ms``, ``device_ms``, the row
-   pass and the recursion apart under the profiler, ``bound_ms`` over the
-   frames t < len at the serving batch and at 15 s; the wall time of one
-   call, its one wrapper launch by the counter and its two kernels);
+   512), and at its limits, beam 32, prune 32, L 128 at (4, 288, 4233)
+   and peaky rows at L 8 (8, 288, 4233), whose prefixes reach L, ragged
+   lengths (prefixes and lengths identical, scores within 1e-5 of max(1,
+   |plain|), one wrapper launch a call; ``ms``, ``plain_ms``,
+   ``device_ms``, the row pass and the recursion apart under the
+   profiler, ``bound_ms`` over the frames t < len at the serving batch
+   and at 15 s; the wall time of one call, its one wrapper launch by the
+   counter and its two kernels);
    then phase 8's experiment and 16 utterances through ``recognize`` in
    every mode (``ctc_greedy``, ``attention_greedy``, ``beam``, ``rescore``
    with the device and the host prefix beam, ``joint`` at ctc_weight 0.3
@@ -1928,26 +1931,30 @@ def _peaky_rows(dev, b, t, seed, ties=False) -> tuple:
     return torch.log_softmax(logits, dim=-1).to(dev), lens.to(dev)
 
 
-def _check_prefix_beam(what, lp, lens) -> float:
+def _check_prefix_beam(what, lp, lens, args=K9_ARGS) -> float:
     """K9 against its plain version on the same inputs: identical prefixes
-    and lengths, scores within ``K9_REL`` of max(1, |plain|). Returns the
-    largest abs score difference."""
-    got = ctc_prefix_beam_device(lp, lens, **K9_ARGS)
-    want = ctc_prefix_beam_reference(lp, lens, **K9_ARGS)
+    and lengths, scores within ``K9_REL`` of max(1, |plain|), one wrapper
+    launch. Returns the largest abs score difference."""
+    before = k9.ctc_prefix_beam_kernel.launches
+    got = ctc_prefix_beam_device(lp, lens, **args)
+    calls = k9.ctc_prefix_beam_kernel.launches - before
+    want = ctc_prefix_beam_reference(lp, lens, **args)
     torch.cuda.synchronize()
     same_pref = bool(torch.equal(got[0], want[0]))
     same_len = bool(torch.equal(got[1], want[1]))
     err = (got[2] - want[2]).abs()
     rel = (err / want[2].abs().clamp(min=1.0)).max().item()
-    print(f"K9 {what} {tuple(lp.shape)} lengths {lens.tolist()}: prefixes equal {same_pref}, "
-          f"lengths equal {same_len}, scores max_abs={err.max().item():.3e} max_rel={rel:.3e}; "
-          f"best {got[1][:, 0].tolist()} tokens long")
+    print(f"K9 {what} {tuple(lp.shape)} beam {args['beam_size']} prune {args['prune']} L "
+          f"{args['max_prefix_len']} lengths {lens.tolist()}: prefixes equal {same_pref}, "
+          f"lengths equal {same_len}, scores max_abs={err.max().item():.3e} max_rel={rel:.3e}, "
+          f"{calls} wrapper launch; best {got[1][:, 0].tolist()} tokens long")
     if not (same_pref and same_len):
         rows = (got[0] != want[0]).flatten(1).any(1) | (got[1] != want[1]).any(1)
         for b in rows.nonzero().flatten().tolist():
             print(f"K9 {what} utterance {b}: kernel lengths {got[1][b].tolist()} scores "
                   f"{got[2][b].tolist()}; plain {want[1][b].tolist()} {want[2][b].tolist()}")
     require(same_pref and same_len and rel <= K9_REL, f"K9 {what}: disagrees with plain")
+    require(calls == 1, f"K9 {what}: {calls} wrapper launches in one call")
     return err.max().item()
 
 
@@ -1955,9 +1962,10 @@ def check_ctc_prefix_beam_kernel(exp, corpus, dev) -> dict:
     """K9 vs ``ctc_prefix_beam_reference`` at beam 10, prune 8, L 64: on the
     flagship's CTC log-probs of phase 8's first serving batch (its ragged
     lengths), on synthetic peaky rows and on rows with planted ties at (8,
-    288), and at 15 s (8, 512); times at the serving batch and at 15 s, the
-    wall time of one call, its launches by the counter and its kernels under
-    the profiler."""
+    288), and at 15 s (8, 512); at its limits, beam 32, prune 32, L 128 at
+    (4, 288), and peaky rows at L 8 (8, 288), whose prefixes reach L; times
+    at the serving batch and at 15 s, the wall time of one call, its
+    launches by the counter and its kernels under the profiler."""
     model, _, feat_cfg, _ = load_experiment(exp, corpus["vocab"], "best", device=dev)
     enc, lens = _first_batch(model, feat_cfg, corpus["test"], dev)
     with torch.inference_mode():
@@ -1966,7 +1974,11 @@ def check_ctc_prefix_beam_kernel(exp, corpus, dev) -> dict:
     inputs = {"flagship": (lp, lens), "peaky": _peaky_rows(dev, 8, 288, seed=1),
               "ties": _peaky_rows(dev, 8, 288, seed=2, ties=True),
               "15 s": _peaky_rows(dev, 8, 512, seed=3)}
-    worst = max(_check_prefix_beam(what, *args) for what, args in inputs.items())
+    at_limits = {"beam 32": (*_peaky_rows(dev, 4, 288, seed=4),
+                             dict(beam_size=32, prune=32, max_prefix_len=128)),
+                 "L 8": (*_peaky_rows(dev, 8, 288, seed=5), {**K9_ARGS, "max_prefix_len": 8})}
+    worst = max(_check_prefix_beam(what, *args)
+                for what, args in {**inputs, **at_limits}.items())
     timed = []
     for what in ("flagship", "15 s"):
         x, n = inputs[what]

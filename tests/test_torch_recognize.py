@@ -322,6 +322,7 @@ CARD_SCRIPTS = [
     REPO / "scripts" / "profile_torch_attention.py",
     REPO / "scripts" / "profile_torch_kernels.py",
     REPO / "scripts" / "profile_k8_torch.py",
+    REPO / "scripts" / "profile_k9_torch.py",
     REPO / "scripts" / "soak_flagship_torch.py",
     REPO / "scripts" / "soak_streaming_torch.py",
     REPO / "scripts" / "soak_ab_torch.py",
