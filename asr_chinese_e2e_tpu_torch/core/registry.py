@@ -23,6 +23,10 @@ def get_model(name: str) -> Tuple[type, Callable[[], Config]]:
     return _REGISTRY[name]
 
 
+def available_models() -> list[str]:
+    return sorted(_REGISTRY)
+
+
 def _populate() -> None:
     from ..models import example, rnn, transformer
 

@@ -608,6 +608,12 @@ def fused_attention_general(
     )
 
 
+def fused_attention(q, k, v, lengths, seed, scale: float, dropout_rate: float):
+    """Square self-attention (Tq == Tk, one length mask for queries and
+    keys), the encoder's entry point of ``fused_attention_general``."""
+    return fused_attention_general(q, k, v, lengths, lengths, seed, scale, dropout_rate, False)
+
+
 # the keep hash's seed and cell terms, seed * A + cell * K (mod 2**32,
 # csrc/common.cuh::keep_hash): a cell offset c moves the seed by c K / A
 _SEED_MUL, _CELL_MUL = 0xC2B2AE35, 0x27D4EB2F
@@ -648,6 +654,15 @@ def fused_attention_sharded_general(
             seed = seed_at_cell(seed, d * q.shape[0] * q.shape[1])
     return fused_attention_general(
         q, k, v, q_lengths, k_lengths, int(seed) & _M32, scale, dropout_rate, causal, band)
+
+
+def fused_attention_sharded(
+    mesh, q, k, v, lengths, seed, scale: float, dropout_rate: float, heads_split: bool = True,
+):
+    """Square (encoder) entry point of ``fused_attention_sharded_general``."""
+    return fused_attention_sharded_general(
+        mesh, q, k, v, lengths, lengths, seed, scale, dropout_rate, False,
+        heads_split=heads_split)
 
 
 # kernel launches so far (the CPU path does not count)

@@ -144,6 +144,19 @@ class CheckpointManager:
             self._index["all"].remove(victims[-1])
         return victims
 
+    @property
+    def latest_name(self) -> Optional[str]:
+        return self._index["latest"]
+
+    @property
+    def best_name(self) -> Optional[str]:
+        return self._index["best"]
+
+    def wait(self) -> None:
+        """Returns at once: ``save`` writes and publishes before it returns,
+        so no save is ever in flight (the JAX package's manager commits
+        asynchronously and blocks here)."""
+
     def restore(self, which: str, state, cut=None) -> dict:
         """Load 'latest' | 'best' | an explicit 'e{E}_s{S}' into ``state``
         (model, optimizer, step, metric sums, in place); returns the meta

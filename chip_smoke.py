@@ -109,7 +109,16 @@ after 9, 14b after 14, 15b and 15c after 15):
    the fbank kernel must run once and the attention kernel 6 times per
    batch, and the kernel path's f32 encoder output must agree with the
    CPU run of the plain path (which the CPU tests hold to the JAX
-   package);
+   package); then the bf16 serving chain on the 16 utterances in batches
+   of 8 (K5 1 and K1 6 a batch, counted; the encoder, the first decode
+   step from BOS, a beam 10 search of 12 steps) on the card against the
+   plain path on the CPU in bf16: each distance (max and mean abs; for
+   the n-best scores over the rows whose tokens agree) at most
+   ``SERVE_BF16_C`` (2, max) and
+   ``SERVE_BF16_C_MEAN`` (1.5, mean) times the CPU's own bf16-vs-f32
+   distance, the yardstick with which ``tests/test_torch_bf16_parity.py``
+   holds the CPU's bf16 to the JAX package's; the shares of equal best
+   hypotheses and n-best rows printed, not gated;
 8b. decoding modes, K8 and K9: the joint search's CTC prefix registers
    kernel (K8, a warp scan) vs ``ctc_selected_registers_reference`` at the
    serving shape (8, 10, 288) with ragged frame masks, at 15 s (8, 10,
@@ -358,7 +367,7 @@ from asr_chinese_e2e_tpu_torch.data.features import (  # noqa: E402
 )
 from asr_chinese_e2e_tpu_torch.data.io import load_wav  # noqa: E402
 from asr_chinese_e2e_tpu_torch.data.manifest import read_manifest  # noqa: E402
-from asr_chinese_e2e_tpu_torch.data.vocab import Vocab  # noqa: E402
+from asr_chinese_e2e_tpu_torch.data.vocab import BOS_ID, Vocab  # noqa: E402
 from asr_chinese_e2e_tpu_torch.decode import joint as joint_mod  # noqa: E402
 from asr_chinese_e2e_tpu_torch.decode.beam import beam_search  # noqa: E402
 from asr_chinese_e2e_tpu_torch.decode.ctc_prefix_device import (  # noqa: E402
@@ -1628,27 +1637,129 @@ def flagship_config(dtype: str) -> Config:
     return Config(**cfg.to_dict())
 
 
+def _test_batches(corpus, n: int, batch: int = 8) -> list:
+    """The first ``n`` test utterances of ``corpus`` in manifest order, in
+    batches of ``batch``, each as (int16 PCM (B, S), lengths (B,))."""
+    recs = read_manifest(corpus["test"])[:n]
+    out = []
+    for start in range(0, len(recs), batch):
+        waves = [load_wav(r["wave"], dtype=np.int16) for r in recs[start:start + batch]]
+        pcm = np.zeros((len(waves), max(len(w) for w in waves)), np.int16)
+        for i, w in enumerate(waves):
+            pcm[i, : len(w)] = w
+        out.append((torch.from_numpy(pcm),
+                    torch.tensor([len(w) for w in waves], dtype=torch.int32)))
+    return out
+
+
 def check_encoder_against_cpu(corpus, vocab_size, dev) -> float:
     """f32 encoder through the kernels on the card vs the plain path on the
     CPU, two utterances of the corpus."""
     cfg = flagship_config("float32")
     model = SpeechTransformer(cfg, vocab_size, torch.Generator().manual_seed(0)).eval()
-    recs = read_manifest(corpus["test"])[:2]
-    waves = [load_wav(r["wave"], dtype=np.int16) for r in recs]
-    s = max(len(w) for w in waves)
-    pcm = np.zeros((2, s), np.int16)
-    for i, w in enumerate(waves):
-        pcm[i, : len(w)] = w
-    lens = torch.tensor([len(w) for w in waves], dtype=torch.int32)
+    (pcm, lens), = _test_batches(corpus, 2)
     feat_cfg = FeatureConfig(fbank_impl="pallas")
     with torch.inference_mode():
-        f_cpu, fl_cpu = parse_batch(torch.from_numpy(pcm), lens, feat_cfg)
+        f_cpu, fl_cpu = parse_batch(pcm, lens, feat_cfg)
         want, _ = model.encode(f_cpu, fl_cpu)
         model_d = model.to(dev)
-        f_d, fl_d = parse_batch(torch.from_numpy(pcm).to(dev), lens.to(dev), feat_cfg)
+        f_d, fl_d = parse_batch(pcm.to(dev), lens.to(dev), feat_cfg)
         got, _ = model_d.encode(f_d, fl_d)
     torch.cuda.synchronize()
     return (got.cpu() - want).abs().max().item()
+
+
+# phase 8's bf16 gate: the card's bf16 serving chain may be at most C times
+# as far from the plain CPU port's bf16 as that is from its own f32 (max
+# abs; C_MEAN for the mean abs), the yardstick with which
+# tests/test_torch_bf16_parity.py holds the CPU port's bf16 to the JAX
+# package's. The chain runs on the corpus' 16 test utterances: an
+# utterance's n-best scores shift together with its encoder output's
+# rounding, so they are about one draw an utterance (on two utterances the
+# n-best ratios read 2.73 / 2.23 on an H100, PERF.md section 6)
+SERVE_BF16_C = 2.0
+SERVE_BF16_C_MEAN = 1.5
+SERVE_BF16_BEAM, SERVE_BF16_MAX_LEN, SERVE_BF16_UTTS = 10, 12, 16
+
+
+def _serve_chain(model, batches, dev) -> dict:
+    """Per batch: features (K5 on the card), the encoder, the first decode
+    step from BOS and a beam search; as float32 on the CPU, the batches
+    joined (the encoder output's valid rows)."""
+    feat_cfg = FeatureConfig(fbank_impl="pallas")
+    parts = []
+    with torch.inference_mode():
+        for pcm, lens in batches:
+            feats, feat_lens = parse_batch(pcm.to(dev), lens.to(dev), feat_cfg)
+            enc, enc_lens = model.encode(feats, feat_lens)
+            state = model.init_decode_state(enc, enc_lens, SERVE_BF16_MAX_LEN + 1, 1)
+            bos = torch.full((enc.shape[0],), BOS_ID, dtype=torch.int64, device=dev)
+            first, _ = model.decode_step(bos, state, 0)
+            res = beam_search(model, enc, enc_lens, SERVE_BF16_BEAM, SERVE_BF16_MAX_LEN)
+            res.materialize()
+            valid = torch.arange(enc.shape[1])[None] < enc_lens.cpu()[:, None]
+            parts.append({"encode": enc.float().cpu()[valid], "first_step": first.float().cpu(),
+                          "tokens": res.tokens, "scores": res.scores})
+    return {"encode": torch.cat([p["encode"] for p in parts]),
+            "first_step": torch.cat([p["first_step"] for p in parts]),
+            "tokens": np.concatenate([p["tokens"] for p in parts]),
+            "scores": np.concatenate([p["scores"] for p in parts])}
+
+
+def _serve_distance(name: str, a: dict, b: dict) -> tuple:
+    """(max, mean) abs difference of ``name`` between two chains; for the
+    n-best scores over the rows whose tokens agree (None when none do)."""
+    if name == "nbest":
+        agree = (a["tokens"] == b["tokens"]).all(-1)
+        if not agree.any():
+            return None
+        d = np.abs(a["scores"][agree] - b["scores"][agree])
+    else:
+        d = (a[name] - b[name]).abs().numpy()
+    return float(d.max()), float(d.mean())
+
+
+def check_serving_bf16_against_cpu(corpus, vocab_size, dev) -> dict:
+    """The flagship's bf16 serving chain (K5, the encoder through K1, the
+    first decode step, a beam 10 search) on the card against the plain
+    CPU port in bf16 on the corpus' 16 test utterances in batches of 8,
+    each distance held to ``SERVE_BF16_C`` (max) and ``SERVE_BF16_C_MEAN``
+    (mean) times the plain CPU port's bf16-vs-f32 distance; the shares of
+    equal best hypotheses and n-best rows printed, not gated."""
+    weights = SpeechTransformer(flagship_config("bfloat16"), vocab_size,
+                                torch.Generator().manual_seed(0)).state_dict()
+    batches = _test_batches(corpus, SERVE_BF16_UTTS)
+    runs = {}
+    for run, dtype, device in (("cpu_f32", "float32", "cpu"), ("cpu_bf16", "bfloat16", "cpu"),
+                               ("card_bf16", "bfloat16", dev)):
+        model = SpeechTransformer(flagship_config(dtype), vocab_size)
+        model.load_state_dict(weights)
+        if device != "cpu":
+            reset_counters()
+        runs[run] = _serve_chain(model.eval().to(device), batches, device)
+    counts, n = read_counters(), len(batches)
+    require(counts["fbank"] == n and counts["fused_attention_fwd"] == 6 * n,
+            f"bf16 chain on the card: launches {counts}, want K5 1 and K1 6 a batch")
+    out = {}
+    for name in ("encode", "first_step", "nbest"):
+        card = _serve_distance(name, runs["card_bf16"], runs["cpu_bf16"])
+        noise = _serve_distance(name, runs["cpu_bf16"], runs["cpu_f32"])
+        require(card is not None and noise is not None,
+                f"bf16 {name}: no n-best row with equal tokens to compare")
+        ratios = [c / z for c, z in zip(card, noise)]
+        print(f"bf16 {name} card vs cpu: max {card[0]:.6g} mean {card[1]:.6g}; cpu bf16 vs "
+              f"f32: max {noise[0]:.6g} mean {noise[1]:.6g}; ratios max {ratios[0]:.4f} "
+              f"(<= {SERVE_BF16_C}) mean {ratios[1]:.4f} (<= {SERVE_BF16_C_MEAN})")
+        require(min(noise) > 0.0, f"bf16 {name}: the CPU's bf16 equals its f32")
+        require(ratios[0] <= SERVE_BF16_C and ratios[1] <= SERVE_BF16_C_MEAN,
+                f"bf16 {name}: the card is farther from the CPU than the yardstick allows")
+        out[name] = {"card_vs_cpu": card, "cpu_bf16_vs_f32": noise, "ratios": ratios}
+    card, cpu = runs["card_bf16"]["tokens"], runs["cpu_bf16"]["tokens"]
+    out["best_equal"] = float((card[:, 0] == cpu[:, 0]).all(-1).mean())
+    out["nbest_rows_equal"] = float((card == cpu).all(-1).mean())
+    print(f"bf16 card vs cpu: best hypotheses equal {out['best_equal']:.3f}, n-best rows "
+          f"equal {out['nbest_rows_equal']:.3f} (printed, not gated)")
+    return out
 
 
 def run_serving_path(dev) -> dict:
@@ -1672,6 +1783,9 @@ def run_serving_path(dev) -> dict:
     enc_err = check_encoder_against_cpu(corpus, vocab.vocab_size, dev)
     print(f"encoder f32 kernels-on-card vs plain-on-cpu: max_abs={enc_err:.3e}")
     require(enc_err <= 1e-3, "encoder output disagrees with the CPU run")
+    t0 = time.perf_counter()
+    check_serving_bf16_against_cpu(corpus, vocab.vocab_size, dev)
+    print(f"bf16 serving chain card vs cpu: {time.perf_counter() - t0:.1f} s")
 
     reset_counters()
     t0 = time.perf_counter()

@@ -8,7 +8,9 @@ rules, then real gloo process groups (spawned once per group of cases,
 - tensor parallelism (model 2): three train steps against JAX's
   replicated run, the split parameters and their Adam moments;
 - the sharded attention with its seed fold against JAX's
-  ``fused_attention_sharded``, and its unsharded fallback;
+  ``fused_attention_sharded_general``, and its unsharded fallback; the
+  square entry point ``fused_attention_sharded`` against JAX's and against
+  the general call with both lengths;
 - ``dryrun_multichip(4)`` and ``(8)``.
 
 Tolerances: 1e-5 in f32 (losses relative, weights and outputs absolute,
@@ -31,6 +33,7 @@ from asr_chinese_e2e_tpu.data.features import FeatureConfig as JaxFeatureConfig
 from asr_chinese_e2e_tpu.models.transformer import SpeechTransformer as JaxModel
 from asr_chinese_e2e_tpu.ops.fused_attention import (
     fused_attention_general as jax_fused_attention_general,
+    fused_attention_sharded as jax_fused_attention_sharded,
     fused_attention_sharded_general as jax_fused_attention_sharded_general,
 )
 from asr_chinese_e2e_tpu.parallel.context import active_mesh as jax_active_mesh
@@ -326,15 +329,19 @@ def port_attention():
 
 
 @functools.lru_cache(maxsize=None)
-def _jax_attention(name):
+def _jax_attention(name, square=False):
     case = ATTENTION_CASES[name]
     mesh = jax_make_mesh(data=2, model=2, devices=jax.devices()[:4])
     lens = jnp.asarray(case["lengths"])
     seed = jnp.asarray(case["seed"], jnp.int32)
 
     def loss(q, k, v):
-        out = jax_fused_attention_sharded_general(
-            mesh, q, k, v, lens, lens, seed, case["scale"], case["rate"], False)
+        if square:
+            out = jax_fused_attention_sharded(
+                mesh, q, k, v, lens, seed, case["scale"], case["rate"])
+        else:
+            out = jax_fused_attention_sharded_general(
+                mesh, q, k, v, lens, lens, seed, case["scale"], case["rate"], False)
         return (out * case["g"]).sum(), out
 
     (_, out), grads = jax.jit(jax.value_and_grad(loss, argnums=(0, 1, 2), has_aux=True))(
@@ -356,6 +363,24 @@ def test_sharded_attention_matches_jax(port_attention, name):
         np.testing.assert_allclose(got["out"].numpy(), want_out[sl], atol=1e-5)
         for g, w in zip(got["grads"], want_grads):
             np.testing.assert_allclose(g.numpy(), w[sl], atol=1e-5)
+
+
+@pytest.mark.parametrize("name", list(ATTENTION_CASES))
+def test_square_sharded_attention_is_the_general_call(port_attention, name):
+    """``fused_attention_sharded`` is ``fused_attention_sharded_general``
+    with the lengths as both masks, non-causal: the same outputs and
+    gradients bit for bit on every rank, and JAX's square call's within
+    1e-5."""
+    want_out, want_grads = _jax_attention(name, square=True)
+    for rank in port_attention:
+        got, square = rank[name], rank[name]["square"]
+        sl = (got["rows"], got["cols"])
+        assert torch.equal(square["out"], got["out"])
+        for g, s in zip(got["grads"], square["grads"]):
+            assert torch.equal(s, g)
+        np.testing.assert_allclose(square["out"].numpy(), want_out[sl], atol=1e-5)
+        for s, w in zip(square["grads"], want_grads):
+            np.testing.assert_allclose(s.numpy(), w[sl], atol=1e-5)
 
 
 def test_unsharded_fallback_is_the_plain_call():

@@ -327,6 +327,7 @@ CARD_SCRIPTS = [
     REPO / "scripts" / "soak_streaming_torch.py",
     REPO / "scripts" / "soak_ab_torch.py",
     REPO / "scripts" / "conformer_grad_gap_torch.py",
+    REPO / "scripts" / "bf16_serving_gap_torch.py",
     REPO / "scripts" / "bench_decode_torch.py",
     REPO / "scripts" / "bench_stream_torch.py",
     REPO / "scripts" / "profile_torch_decode.py",

@@ -25,9 +25,11 @@ from asr_chinese_e2e_tpu.models.rnn import LAS as JaxLAS
 from asr_chinese_e2e_tpu.models.rnn import BiLSTMCTC as JaxBiLSTMCTC
 from asr_chinese_e2e_tpu.models.rnn import BiLSTMEncoder as JaxEncoder
 from asr_chinese_e2e_tpu.models.rnn import default_ctc_config, default_las_config
+from asr_chinese_e2e_tpu.core.registry import available_models as jax_available_models
+from asr_chinese_e2e_tpu.core.registry import get_model as jax_get_model
 from asr_chinese_e2e_tpu.models.transformer import preprocess_targets as jax_preprocess
 from asr_chinese_e2e_tpu_torch.core.config import Config
-from asr_chinese_e2e_tpu_torch.core.registry import get_model
+from asr_chinese_e2e_tpu_torch.core.registry import available_models, get_model
 from asr_chinese_e2e_tpu_torch.decode.beam import beam_search, make_gather_carry
 from asr_chinese_e2e_tpu_torch.decode.greedy import attention_greedy_decode, tokens_to_ids
 from asr_chinese_e2e_tpu_torch.decode.joint import joint_beam_search
@@ -105,6 +107,29 @@ def test_registry_returns_port_modules():
                               ("LAS", default_las_config),
                               ("ExampleModel", jax_example_config)):
         assert get_model(name)[1]().to_dict() == jax_default().to_dict()
+
+
+def test_registry_contract():
+    """The counterpart of ``tests/test_rnn_models.py::test_registry_contract``:
+    the JAX registry's names, sorted, with the reference alias among them."""
+    names = available_models()
+    assert names == jax_available_models() == sorted(names)
+    for required in ["SpeechTransformer", "TransformerOffical", "BiLSTMCTC", "LAS",
+                     "ExampleModel"]:
+        assert required in names
+    cls, cfg_fn = get_model("BiLSTMCTC")
+    assert cls is BiLSTMCTC and "hidden_size" in cfg_fn()
+    with pytest.raises(KeyError, match="available"):
+        get_model("NoSuchModel")
+
+
+@pytest.mark.parametrize("name", jax_available_models())
+def test_every_registry_name_has_the_jax_class_and_defaults(name):
+    cls, cfg_fn = get_model(name)
+    jax_cls, jax_cfg_fn = jax_get_model(name)
+    assert cls.__name__ == jax_cls.__name__
+    assert cls.__module__.startswith("asr_chinese_e2e_tpu_torch.")
+    assert cfg_fn().to_dict() == jax_cfg_fn().to_dict()
 
 
 def test_flip_index_is_flax_flip_sequences():

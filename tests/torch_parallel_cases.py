@@ -90,8 +90,12 @@ def train_cases(payload: dict) -> dict:
 def sharded_attention_cases(payload: dict) -> dict:
     """``fused_attention_sharded_general`` on a (data 2, model 2) mesh: this
     rank's rows and heads of each case's inputs; returns its outputs and
-    the gradients of sum(out * g), per case."""
-    from asr_chinese_e2e_tpu_torch.ops.fused_attention import fused_attention_sharded_general
+    the gradients of sum(out * g), per case, and under "square" the same
+    of the square entry point ``fused_attention_sharded``."""
+    from asr_chinese_e2e_tpu_torch.ops.fused_attention import (
+        fused_attention_sharded,
+        fused_attention_sharded_general,
+    )
 
     mesh = sharding.make_mesh(data=2, model=2)
     d, m = mesh.index("data"), mesh.index("model")
@@ -101,14 +105,22 @@ def sharded_attention_cases(payload: dict) -> dict:
         rows = slice(d * bsz // 2, (d + 1) * bsz // 2)
         split = case["heads_split"]
         cols = slice(m * heads // 2, (m + 1) * heads // 2) if split else slice(0, heads)
-        qkv = [torch.from_numpy(case[k][rows, cols]).requires_grad_(True) for k in "qkv"]
         lens = torch.from_numpy(case["lengths"][rows])
-        o = fused_attention_sharded_general(
-            mesh, *qkv, lens, lens, case["seed"], case["scale"], case["rate"], False,
-            heads_split=split)
-        (o * torch.from_numpy(case["g"][rows, cols])).sum().backward()
-        out[name] = {"out": o.detach(), "grads": [t.grad for t in qkv], "rows": rows,
-                     "cols": cols}
+        args = (case["seed"], case["scale"], case["rate"])
+
+        def run(call):
+            qkv = [torch.from_numpy(case[k][rows, cols]).requires_grad_(True) for k in "qkv"]
+            o = call(*qkv)
+            (o * torch.from_numpy(case["g"][rows, cols])).sum().backward()
+            return {"out": o.detach(), "grads": [t.grad for t in qkv]}
+
+        out[name] = {
+            **run(lambda *qkv: fused_attention_sharded_general(
+                mesh, *qkv, lens, lens, *args, False, heads_split=split)),
+            "square": run(lambda *qkv: fused_attention_sharded(
+                mesh, *qkv, lens, *args, heads_split=split)),
+            "rows": rows, "cols": cols,
+        }
     return out
 
 
