@@ -1,0 +1,9 @@
+"""Of the cells that train in batches of 64 clips (``train_audio_s_per_s.b64``):
+k3 + K4 (ops/ctc_kernel.py) in the traced train steps: their least time by
+the frozen CTC bounds over their device time in the profiler, %."""
+
+from portbench import readers
+
+
+def value(record):
+    return readers.ctc_roofline(record)
