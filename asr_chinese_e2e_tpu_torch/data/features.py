@@ -22,6 +22,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from ..utils.debug import annotate
 from .timewarp import time_warp
 
 LOG_EPS = 1e-20  # processor.py:38
@@ -244,7 +245,11 @@ def _spec_mask(generator, b: int, dim: int, param: int, lengths=None):
     ``lengths`` when given), width ~ U[0, width_cap). (B, dim) bool, on
     the CPU."""
     cap = _uniform_int(generator, torch.full((b,), param, dtype=torch.int64))
-    max_dim = lengths.cpu().long() if lengths is not None else torch.full((b,), dim)
+    if lengths is not None:
+        with annotate("sync.features.spec_lengths"):
+            max_dim = lengths.cpu().long()
+    else:
+        max_dim = torch.full((b,), dim)
     start = _uniform_int(generator, (max_dim - cap).clamp(min=1))
     width = _uniform_int(generator, cap.clamp(min=1))
     width = torch.where(cap == 0, torch.zeros_like(width), width)
@@ -262,9 +267,13 @@ def apply_spec_masks(feats, feat_lengths, freq_masks, time_masks):
     fill = fill[:, None, None].to(feats.dtype)
     masked = feats
     for fm in freq_masks:
-        masked = torch.where(fm.to(feats.device)[:, None, :], fill, masked)
+        with annotate("sync.features.spec_mask_to_device"):  # a pageable copy
+            fm = fm.to(feats.device)
+        masked = torch.where(fm[:, None, :], fill, masked)
     for tm in time_masks:
-        masked = torch.where(tm.to(feats.device)[:, :, None], fill, masked)
+        with annotate("sync.features.spec_mask_to_device"):
+            tm = tm.to(feats.device)
+        masked = torch.where(tm[:, :, None], fill, masked)
     return masked * valid
 
 

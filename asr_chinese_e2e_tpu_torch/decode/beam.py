@@ -6,7 +6,8 @@ decoder step per position over the flattened (B*K) rows; expansion and
 pruning over (B, K*V); finished hypotheses may only emit EOS, at zero
 cost; non-lexical ids are suppressed; GNMT length normalisation at the
 final sort. The loop runs on the host and stops early once every
-hypothesis has finished (one host sync per step).
+hypothesis has finished (a host sync a step, and another for the EOS
+row's scalar write); each step is a ``beam.step`` span.
 
 Ties break as in JAX (``lax.top_k`` and ``jnp.argsort`` take the lower
 index first): selection uses a stable descending sort, because
@@ -24,6 +25,7 @@ import torch
 
 from ..data.vocab import BOS_ID, EOS_ID
 from ..ops.masks import NEG_INF
+from ..utils.debug import annotate
 
 # ids [0, BOS_ID] (PAD/blank, UNK, BOS) are never valid emissions
 _SPECIAL_SUPPRESS = BOS_ID + 1
@@ -42,9 +44,10 @@ class BeamResult:
 
     def materialize(self) -> "BeamResult":
         if isinstance(self.tokens, torch.Tensor):
-            self.tokens = self.tokens.cpu().numpy()
-            self.scores = self.scores.cpu().numpy()
-            self.finished = self.finished.cpu().numpy()
+            with annotate("sync.beam.materialize"):
+                self.tokens = self.tokens.cpu().numpy()
+                self.scores = self.scores.cpu().numpy()
+                self.finished = self.finished.cpu().numpy()
         return self
 
     def nbest_ids(self, nbest: int = 1) -> List[List[List[int]]]:
@@ -149,38 +152,44 @@ def beam_search(
     slots = torch.arange(k, device=dev)
 
     i = 0
-    while i < max_len and not bool(finished.all()):
-        last = tokens[:, :, i].reshape(bsz * k)
-        st = {"carry": carry_state, "static": static}
-        if lazy:
-            anc[:, :, i] = slots[None]  # position i's KV is each slot's own
-            logp, st = model.decode_step_lazy(last, st, i, anc)
-        else:
-            logp, st = model.decode_step(last, st, i)
-        carry_state = st["carry"]
-        v = logp.shape[-1]
-        logp = logp.reshape(bsz, k, v).clone()
-        logp[:, :, :_SPECIAL_SUPPRESS] = NEG_INF
-        # finished hyps: only EOS allowed, at zero cost (score frozen)
-        eos_row = torch.full((v,), NEG_INF, dtype=torch.float32, device=dev)
-        eos_row[EOS_ID] = 0.0
-        logp = torch.where(finished[:, :, None], eos_row, logp)
+    while i < max_len:
+        with annotate("beam.step"):
+            with annotate("sync.beam.finished"):
+                done = bool(finished.all())
+            if done:
+                break
+            last = tokens[:, :, i].reshape(bsz * k)
+            st = {"carry": carry_state, "static": static}
+            if lazy:
+                anc[:, :, i] = slots[None]  # position i's KV is each slot's own
+                logp, st = model.decode_step_lazy(last, st, i, anc)
+            else:
+                logp, st = model.decode_step(last, st, i)
+            carry_state = st["carry"]
+            v = logp.shape[-1]
+            logp = logp.reshape(bsz, k, v).clone()
+            logp[:, :, :_SPECIAL_SUPPRESS] = NEG_INF
+            # finished hyps: only EOS allowed, at zero cost (score frozen)
+            eos_row = torch.full((v,), NEG_INF, dtype=torch.float32, device=dev)
+            with annotate("sync.beam.eos_row"):  # a host scalar's copy
+                eos_row[EOS_ID] = 0.0
+            logp = torch.where(finished[:, :, None], eos_row, logp)
 
-        cand = scores[:, :, None] + logp  # (B, K, V)
-        scores, top_idx = _top_k_stable(cand.reshape(bsz, k * v), k)
-        parent = top_idx // v  # (B, K)
-        token = top_idx % v
+            cand = scores[:, :, None] + logp  # (B, K, V)
+            scores, top_idx = _top_k_stable(cand.reshape(bsz, k * v), k)
+            parent = top_idx // v  # (B, K)
+            token = top_idx % v
 
-        if lazy:
-            anc = anc.gather(1, parent[:, :, None].expand(-1, -1, anc.shape[2]))
-        else:
-            carry_state = gather_carry(carry_state, parent)
-        tokens = tokens.gather(1, parent[:, :, None].expand(-1, -1, tokens.shape[2]))
-        tokens[:, :, i + 1] = token
-        was_finished = finished.gather(1, parent)
-        lengths = lengths.gather(1, parent)
-        lengths = torch.where(was_finished, lengths, lengths + 1)
-        finished = was_finished | (token == EOS_ID)
+            if lazy:
+                anc = anc.gather(1, parent[:, :, None].expand(-1, -1, anc.shape[2]))
+            else:
+                carry_state = gather_carry(carry_state, parent)
+            tokens = tokens.gather(1, parent[:, :, None].expand(-1, -1, tokens.shape[2]))
+            tokens[:, :, i + 1] = token
+            was_finished = finished.gather(1, parent)
+            lengths = lengths.gather(1, parent)
+            lengths = torch.where(was_finished, lengths, lengths + 1)
+            finished = was_finished | (token == EOS_ID)
         i += 1
 
     if length_penalty > 0.0:

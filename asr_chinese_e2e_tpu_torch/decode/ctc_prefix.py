@@ -19,6 +19,7 @@ import torch
 
 from ..data.vocab import BLANK_ID
 from ..models.transformer import preprocess_targets
+from ..utils.debug import annotate
 
 LOG_ZERO = -1e30
 
@@ -125,11 +126,15 @@ def attention_rescore(
         labels[i, : len(prefix)] = prefix
         label_lengths[i] = len(prefix)
     dev = enc_out.device
-    batch_idx = torch.as_tensor([b for b, _, _ in pairs], device=dev)
+    with annotate("sync.rescore.hyps_to_device"):  # pageable copies
+        batch_idx = torch.as_tensor([b for b, _, _ in pairs], device=dev)
+        labels_d = torch.from_numpy(labels).to(dev)
+        label_lengths_d = torch.from_numpy(label_lengths).to(dev)
     att_scores = _rescore_scores(
-        model, torch.from_numpy(labels).to(dev), torch.from_numpy(label_lengths).to(dev),
-        enc_out[batch_idx], enc_lengths.to(dev)[batch_idx],
-    ).cpu().numpy()
+        model, labels_d, label_lengths_d, enc_out[batch_idx], enc_lengths.to(dev)[batch_idx],
+    )
+    with annotate("sync.rescore.scores"):
+        att_scores = att_scores.cpu().numpy()
 
     best: List[List[int]] = [[] for _ in range(enc_out.shape[0])]
     best_score = [-np.inf] * enc_out.shape[0]

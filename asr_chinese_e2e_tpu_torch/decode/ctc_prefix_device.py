@@ -31,6 +31,7 @@ import torch
 from ..data.vocab import BLANK_ID
 from ..ops.ctc import BIG_NEG
 from ..ops.ctc_prefix_beam_kernel import ctc_prefix_beam_kernel
+from ..utils.debug import annotate
 from .beam import _top_k_stable
 
 
@@ -206,10 +207,11 @@ def ctc_prefix_beam_device(
 def device_nbest_to_lists(prefixes, plen, scores) -> List[List[Tuple[Tuple[int, ...], float]]]:
     """Convert the device beam's output to the host n-best format of
     ``attention_rescore``."""
-    prefixes, plen, scores = (
-        torch.as_tensor(x).cpu().numpy() if isinstance(x, torch.Tensor) else np.asarray(x)
-        for x in (prefixes, plen, scores)
-    )
+    with annotate("sync.rescore.nbest"):
+        prefixes, plen, scores = (
+            torch.as_tensor(x).cpu().numpy() if isinstance(x, torch.Tensor) else np.asarray(x)
+            for x in (prefixes, plen, scores)
+        )
     out = []
     for b in range(prefixes.shape[0]):
         hyps = []

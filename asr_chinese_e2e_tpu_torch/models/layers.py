@@ -56,6 +56,7 @@ from ..ops.ring_attention import ring_attention
 from ..ops.masks import padding_bias
 from ..parallel.collectives import copy_to, gather_from, reduce_from, split_to
 from ..parallel.context import get_active_mesh
+from ..utils.debug import annotate
 
 LN_EPS = 1e-6  # flax nn.LayerNorm's epsilon (torch's default is 1e-5)
 PE_MAX_LEN = 5000
@@ -76,18 +77,21 @@ def hash_keep_mask(seed: int, shape, rate: float, dtype, device, offset: int = 0
     n = int(np.prod(shape))
     idx = _index_term(n, torch.device(device))
     if offset:
-        idx = (idx + _mul32(torch.tensor(offset & 0xFFFFFFFF, device=device), 0x9E3779B9)) & 0xFFFFFFFF
-    h = idx ^ _mul32(
-        torch.tensor(int(seed) & 0xFFFFFFFF, dtype=torch.int64, device=device),
-        0xC2B2AE35,
-    )
+        with annotate("sync.dropout.offset_to_device"):  # a pageable copy
+            offset_t = torch.tensor(offset & 0xFFFFFFFF, device=device)
+        idx = (idx + _mul32(offset_t, 0x9E3779B9)) & 0xFFFFFFFF
+    with annotate("sync.dropout.seed_to_device"):
+        seed_t = torch.tensor(int(seed) & 0xFFFFFFFF, dtype=torch.int64, device=device)
+    h = idx ^ _mul32(seed_t, 0xC2B2AE35)
     h = h ^ (h >> 16)
     h = _mul32(h, 0x85EBCA6B)
     h = h ^ (h >> 13)
     h = _mul32(h, 0xC2B2AE35)
     h = h ^ (h >> 16)
     keep = (h >= _keep_threshold(rate)).to(dtype).reshape(shape)
-    return keep / torch.tensor(1.0 - rate, dtype=dtype, device=device)
+    with annotate("sync.dropout.scale_to_device"):
+        scale = torch.tensor(1.0 - rate, dtype=dtype, device=device)
+    return keep / scale
 
 
 @functools.lru_cache(maxsize=8)
@@ -135,8 +139,9 @@ class ConfigurableDropout(nn.Module):
             return x * keep.chunk(tp, 1)[m]
         gen = torch.Generator(device=x.device).manual_seed(seed + (d << 32))
         keep = torch.rand(x.shape, generator=gen, device=x.device) >= self.rate
-        return x * keep.to(x.dtype) / torch.tensor(1.0 - self.rate, dtype=x.dtype,
-                                                   device=x.device)
+        with annotate("sync.dropout.scale_to_device"):
+            scale = torch.tensor(1.0 - self.rate, dtype=x.dtype, device=x.device)
+        return x * keep.to(x.dtype) / scale
 
 
 class Dense(nn.Linear):

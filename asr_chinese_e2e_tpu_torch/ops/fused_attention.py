@@ -28,6 +28,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from ..utils.debug import annotate
 from ._build import check, load_library
 from .masks import NEG_INF
 
@@ -307,7 +308,9 @@ def _check_kernel_inputs(q, k, v, q_lengths, k_lengths):
     if q_len.shape != (bsz,) or k_len.shape != (bsz,):
         raise ValueError("attention kernel: lengths must be (B,)")
     # host sync: an empty key row has no defined output
-    if int(k_len.min()) < 1:
+    with annotate("sync.attention.k_lengths"):
+        shortest = int(k_len.min())
+    if shortest < 1:
         raise ValueError("attention kernel: every k_length must be >= 1")
     return q_len, k_len
 

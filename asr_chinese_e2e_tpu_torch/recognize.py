@@ -30,6 +30,7 @@ every batch whole on each rank. Rank 0 alone prints and writes ``out``.
 from __future__ import annotations
 
 import collections
+import itertools
 import json
 import os
 import sys
@@ -52,6 +53,7 @@ from .decode.distributed import distributed_beam_search
 from .decode.joint import joint_beam_search
 from .parallel.sharding import batch_rows, initialize_distributed, local_rank, make_mesh
 from .utils.cli import parse_kwargs
+from .utils.debug import annotate
 from .utils.experiment import CKPT_DIR, load_experiment
 
 
@@ -105,6 +107,7 @@ def batched(
 
 MODES = ("ctc_greedy", "attention_greedy", "beam", "rescore", "joint")
 _EXP_CACHE: dict = {}
+_CALLS = itertools.count()  # the request id of each call's spans
 
 
 def _mtime(path: str) -> float:
@@ -156,160 +159,183 @@ def recognize(
     """Decode and return ``{"utts": ..., "cer"?: ..., "timing": ...}``;
     ``timing`` (wall seconds of the encode and search phases, batch count
     and audio seconds) is returned but not written to ``out``."""
-    if mode not in MODES:
-        raise SystemExit(f"unknown mode {mode}")
-    dev = torch.device(device)
-    mesh, writer = None, True
-    if mesh_data:
-        world, rank = initialize_distributed(backend="gloo" if dev.type == "cpu" else None)
-        if mesh_data not in (-1, world):
-            raise SystemExit(f"mesh_data {mesh_data} needs as many processes (torchrun); "
-                             f"this run has {world}")
-        mesh = make_mesh(data=mesh_data)
-        if batch_size % mesh.shape["data"]:
-            raise SystemExit(f"batch_size {batch_size} not divisible by mesh_data "
-                             f"{mesh.shape['data']}")
-        writer = rank == 0
-        if dev.type == "cuda" and world > 1:
-            dev = torch.device("cuda", local_rank() % torch.cuda.device_count())
-    sharded = mesh is not None and mesh.shape["data"] > 1 and mode == "beam"
-    model, _, feat_cfg, voc = _load_experiment_cached(exp, vocab, which, dev)
-    if manifest:
-        records = read_manifest(manifest)
-    elif wav:
-        records = [{"wave": w} for w in wav.split(",")]
-    else:
-        raise SystemExit("need --manifest or --wav")
-
-    results = {"utts": {}}
-    hyps_all, refs_all = [], []
-    timing = {"batches": 0, "encode_s": 0.0, "search_s": 0.0, "audio_s": 0.0}
-    max_samples = int(max_seconds * feat_cfg.sample_rate)
-
-    def search(enc_out, enc_lens):
-        """The mode's search on one batch; returns what ``drain`` reads."""
-        if mode == "ctc_greedy":
-            return model.ctc_log_probs(enc_out), enc_lens
-        if mode == "attention_greedy":
-            return attention_greedy_decode(model, enc_out, enc_lens, max_decode_len)
-        if mode == "beam":
-            if sharded:
-                return distributed_beam_search(
-                    model, enc_out, enc_lens, beam_size, max_decode_len, mesh,
-                    length_penalty, local_rows=True,
-                )
-            return beam_search(
-                model, enc_out, enc_lens, beam_size, max_decode_len, length_penalty
-            )
-        if mode == "joint":
-            return joint_beam_search(
-                model, enc_out, enc_lens, beam_size, max_decode_len,
-                ctc_weight=ctc_weight, ctc_prune=ctc_prune,
-            )
-        # rescore: the host n-best feeds the rescoring forward, so this
-        # mode drains here
-        lp = model.ctc_log_probs(enc_out)
-        if ctc_beam_impl == "device":
-            ctc_nbest = device_nbest_to_lists(
-                *ctc_prefix_beam_device(lp, enc_lens, beam_size=beam_size)
-            )
+    with annotate("recognize", request=next(_CALLS)):
+        if mode not in MODES:
+            raise SystemExit(f"unknown mode {mode}")
+        dev = torch.device(device)
+        mesh, writer = None, True
+        if mesh_data:
+            world, rank = initialize_distributed(backend="gloo" if dev.type == "cpu" else None)
+            if mesh_data not in (-1, world):
+                raise SystemExit(f"mesh_data {mesh_data} needs as many processes (torchrun); "
+                                 f"this run has {world}")
+            mesh = make_mesh(data=mesh_data)
+            if batch_size % mesh.shape["data"]:
+                raise SystemExit(f"batch_size {batch_size} not divisible by mesh_data "
+                                 f"{mesh.shape['data']}")
+            writer = rank == 0
+            if dev.type == "cuda" and world > 1:
+                dev = torch.device("cuda", local_rank() % torch.cuda.device_count())
+        sharded = mesh is not None and mesh.shape["data"] > 1 and mode == "beam"
+        model, _, feat_cfg, voc = _load_experiment_cached(exp, vocab, which, dev)
+        if manifest:
+            records = read_manifest(manifest)
+        elif wav:
+            records = [{"wave": w} for w in wav.split(",")]
         else:
-            ctc_nbest = ctc_prefix_beam_batch(
-                lp.cpu().numpy(), enc_lens.cpu().numpy(), beam_size
-            )
-        best = attention_rescore(model, enc_out, enc_lens, ctc_nbest, ctc_weight)
-        return [[(ids, 0.0)] for ids in best]
+            raise SystemExit("need --manifest or --wav")
 
-    def dispatch(chunk, wave, lengths):
-        """Features, encoder and the mode's search for one batch; reads
-        nothing back but what the search itself syncs on."""
-        t0 = time.perf_counter()
-        audio_s = float(lengths[: len(chunk)].sum()) / feat_cfg.sample_rate
-        if sharded:  # this rank's rows of the batch
-            rows = batch_rows(mesh, len(wave))
-            wave, lengths = wave[rows], lengths[rows]
-        with torch.inference_mode():
-            wave_d = torch.from_numpy(wave).to(dev)
-            lengths_d = torch.from_numpy(lengths).to(dev)
-            feats, feat_lens = parse_batch(wave_d, lengths_d, feat_cfg)
-            enc_out, enc_lens = model.encode(feats, feat_lens)
-            _sync(dev)
-            t1 = time.perf_counter()
-            pending = search(enc_out, enc_lens)
-        timing["batches"] += 1
-        timing["encode_s"] += t1 - t0
-        timing["search_s"] += time.perf_counter() - t1
-        timing["audio_s"] += audio_s
-        return chunk, pending
+        results = {"utts": {}}
+        hyps_all, refs_all = [], []
+        timing = {"batches": 0, "encode_s": 0.0, "search_s": 0.0, "audio_s": 0.0}
+        max_samples = int(max_seconds * feat_cfg.sample_rate)
 
-    def drain(chunk, pending):
-        """Read one batch's results back: per utterance [(ids, score)]."""
-        t0 = time.perf_counter()
-        if mode == "ctc_greedy":
-            nbest_out = [[(ids, 0.0)] for ids in ctc_greedy_decode(*pending)]
-        elif mode == "attention_greedy":
-            tokens, scores = pending
-            nbest_out = [
-                [(ids, float(s))]
-                for ids, s in zip(tokens_to_ids(tokens), scores.cpu().numpy())
-            ]
-        elif mode in ("beam", "joint"):
-            ids_nb = pending.nbest_ids(nbest)
-            nbest_out = [
-                [(ids, float(pending.scores[b, k])) for k, ids in enumerate(ids_nb[b])]
-                for b in range(len(chunk))
-            ]
-        else:  # rescore drained in dispatch
-            nbest_out = pending
-        timing["search_s"] += time.perf_counter() - t0
-        return nbest_out
+        def search(enc_out, enc_lens):
+            """The mode's search on one batch; returns what ``drain`` reads."""
+            if mode == "ctc_greedy":
+                return model.ctc_log_probs(enc_out), enc_lens
+            if mode == "attention_greedy":
+                return attention_greedy_decode(model, enc_out, enc_lens, max_decode_len)
+            if mode == "beam":
+                if sharded:
+                    return distributed_beam_search(
+                        model, enc_out, enc_lens, beam_size, max_decode_len, mesh,
+                        length_penalty, local_rows=True,
+                    )
+                return beam_search(
+                    model, enc_out, enc_lens, beam_size, max_decode_len, length_penalty
+                )
+            if mode == "joint":
+                return joint_beam_search(
+                    model, enc_out, enc_lens, beam_size, max_decode_len,
+                    ctc_weight=ctc_weight, ctc_prune=ctc_prune,
+                )
+            # rescore: the host n-best feeds the rescoring forward, so this
+            # mode drains here
+            with annotate("rescore.ctc_log_probs"):
+                lp = model.ctc_log_probs(enc_out)
+            if ctc_beam_impl == "device":
+                with annotate("rescore.prefix_beam"):
+                    beam = ctc_prefix_beam_device(lp, enc_lens, beam_size=beam_size)
+                with annotate("rescore.nbest_to_host"):
+                    ctc_nbest = device_nbest_to_lists(*beam)
+            else:
+                with annotate("sync.rescore.log_probs"):
+                    lp_host, lens_host = lp.cpu().numpy(), enc_lens.cpu().numpy()
+                with annotate("rescore.prefix_beam"):
+                    ctc_nbest = ctc_prefix_beam_batch(lp_host, lens_host, beam_size)
+            with annotate("rescore.forward"):
+                best = attention_rescore(model, enc_out, enc_lens, ctc_nbest, ctc_weight)
+            return [[(ids, 0.0)] for ids in best]
 
-    def consume(chunk, nbest_out):
-        for record, hyps in zip(chunk, nbest_out):
-            utt_id = record["wave"].rsplit("/", 1)[-1].rsplit(".", 1)[0]
-            outputs = []
-            for ids, score in hyps:
-                toks = voc.ids_to_tokens(ids)
-                entry = {
-                    "rec_text": "".join(toks),
-                    "rec_token": " ".join(toks),
-                    "score": score,
-                }
+        def dispatch(chunk, wave, lengths):
+            """Features, encoder and the mode's search for one batch; reads
+            nothing back but what the search itself syncs on."""
+            # the spans recognize.encode and recognize.search sit at the
+            # bounds of timing's encode_s and (less the drain) search_s
+            with annotate("recognize.encode"):
+                t0 = time.perf_counter()
+                audio_s = float(lengths[: len(chunk)].sum()) / feat_cfg.sample_rate
+                if sharded:  # this rank's rows of the batch
+                    rows = batch_rows(mesh, len(wave))
+                    wave, lengths = wave[rows], lengths[rows]
+                with torch.inference_mode():
+                    with annotate("sync.recognize.batch_to_device"):  # pageable copies
+                        wave_d = torch.from_numpy(wave).to(dev)
+                        lengths_d = torch.from_numpy(lengths).to(dev)
+                    feats, feat_lens = parse_batch(wave_d, lengths_d, feat_cfg)
+                    enc_out, enc_lens = model.encode(feats, feat_lens)
+                    with annotate("sync.recognize.encode"):
+                        _sync(dev)
+                t1 = time.perf_counter()
+            with annotate("recognize.search"), torch.inference_mode():
+                pending = search(enc_out, enc_lens)
+            timing["batches"] += 1
+            timing["encode_s"] += t1 - t0
+            timing["search_s"] += time.perf_counter() - t1
+            timing["audio_s"] += audio_s
+            return chunk, pending
+
+        def drain(chunk, pending):
+            """Read one batch's results back: per utterance [(ids, score)]."""
+            t0 = time.perf_counter()
+            if mode == "ctc_greedy":
+                nbest_out = [[(ids, 0.0)] for ids in ctc_greedy_decode(*pending)]
+            elif mode == "attention_greedy":
+                tokens, scores = pending
+                nbest_out = [
+                    [(ids, float(s))]
+                    for ids, s in zip(tokens_to_ids(tokens), scores.cpu().numpy())
+                ]
+            elif mode in ("beam", "joint"):
+                ids_nb = pending.nbest_ids(nbest)
+                nbest_out = [
+                    [(ids, float(pending.scores[b, k])) for k, ids in enumerate(ids_nb[b])]
+                    for b in range(len(chunk))
+                ]
+            else:  # rescore drained in dispatch
+                nbest_out = pending
+            timing["search_s"] += time.perf_counter() - t0
+            return nbest_out
+
+        def consume(chunk, nbest_out):
+            for record, hyps in zip(chunk, nbest_out):
+                utt_id = record["wave"].rsplit("/", 1)[-1].rsplit(".", 1)[0]
+                outputs = []
+                for ids, score in hyps:
+                    toks = voc.ids_to_tokens(ids)
+                    entry = {
+                        "rec_text": "".join(toks),
+                        "rec_token": " ".join(toks),
+                        "score": score,
+                    }
+                    if "tgt" in record:
+                        entry["text"] = record["tgt"]
+                    outputs.append(entry)
+                results["utts"][utt_id] = {"output": outputs}
+                best_text = outputs[0]["rec_text"]
+                if writer:
+                    print(f"{utt_id}\t{best_text}")
                 if "tgt" in record:
-                    entry["text"] = record["tgt"]
-                outputs.append(entry)
-            results["utts"][utt_id] = {"output": outputs}
-            best_text = outputs[0]["rec_text"]
-            if writer:
-                print(f"{utt_id}\t{best_text}")
-            if "tgt" in record:
-                hyps_all.append(best_text)
-                refs_all.append(record["tgt"])
+                    hyps_all.append(best_text)
+                    refs_all.append(record["tgt"])
 
-    chunks = batched(records, batch_size, max_samples, feat_cfg.sample_rate)
-    if pipeline_depth > 0:
-        chunks = _prefetched(chunks, depth=max(2, pipeline_depth + 1))
-    pending_q: collections.deque = collections.deque()
-    for item in chunks:
-        pending_q.append(dispatch(*item))
-        while len(pending_q) > pipeline_depth:
+        chunks = batched(records, batch_size, max_samples, feat_cfg.sample_rate)
+        if pipeline_depth > 0:
+            chunks = _prefetched(chunks, depth=max(2, pipeline_depth + 1))
+        pending_q: collections.deque = collections.deque()
+
+        def drain_oldest():
             c, p = pending_q.popleft()
-            consume(c, drain(c, p))
-    while pending_q:
-        c, p = pending_q.popleft()
-        consume(c, drain(c, p))
+            with annotate("recognize.drain"):
+                nbest_out = drain(c, p)
+            with annotate("recognize.consume"):
+                consume(c, nbest_out)
 
-    if refs_all:
-        cer = corpus_cer(hyps_all, refs_all)
-        if writer:
-            print(f"# CER: {cer:.2f}% over {len(refs_all)} utts", file=sys.stderr)
-        results["cer"] = cer
-    if out and writer:
-        with open(out, "w", encoding="utf-8") as f:
-            json.dump(results, f, ensure_ascii=False, indent=2)
-        print(f"# wrote {out}", file=sys.stderr)
-    results["timing"] = timing
-    return results
+        chunks = iter(chunks)
+        while True:
+            with annotate("recognize.next_batch"):  # wav reads and row padding
+                item = next(chunks, None)
+            if item is None:
+                break
+            with annotate("recognize.dispatch"):
+                pending_q.append(dispatch(*item))
+            while len(pending_q) > pipeline_depth:
+                drain_oldest()
+        while pending_q:
+            drain_oldest()
+
+        if refs_all:
+            cer = corpus_cer(hyps_all, refs_all)
+            if writer:
+                print(f"# CER: {cer:.2f}% over {len(refs_all)} utts", file=sys.stderr)
+            results["cer"] = cer
+        if out and writer:
+            with open(out, "w", encoding="utf-8") as f:
+                json.dump(results, f, ensure_ascii=False, indent=2)
+            print(f"# wrote {out}", file=sys.stderr)
+        results["timing"] = timing
+        return results
 
 
 def main():

@@ -15,6 +15,10 @@ there is no compiled step: the functions run the same sequence of
   microbatches (losses averaged, counts summed), as the JAX package does.
 - Metric sums stay on the device (weighted by batch size, with the sample
   count under ``"_n"``); the trainer reads them at log cadence.
+- Spans (``utils/debug.py``, recorded under a profiler): ``train_step``
+  a call, with the step's number as its request, and under it
+  ``train.features``, ``train.forward``, ``train.loss``,
+  ``train.backward``, ``train.optimizer`` and ``train.metric_sums``.
 
 Under an active mesh (``parallel/context.py``) with a ``data`` axis the
 batch is this rank's rows of the global batch: the counts the losses
@@ -39,6 +43,7 @@ from ..data.vocab import IGNORE_ID
 from ..losses import model_loss
 from ..parallel.collectives import all_reduce_sum
 from ..parallel.context import get_active_mesh
+from ..utils.debug import annotate
 from .optimizer import Optimizer
 
 
@@ -123,12 +128,16 @@ def make_step_fns(model, optimizer: Optimizer, feat_cfg: FeatureConfig, cfg: Con
         """Forward with dropout, loss, backward (gradients accumulate in
         ``.grad`` scaled by ``weight``); returns detached metrics."""
         aug_gen, drop_gen = gens
-        feats, feat_lens = featurize(wave, wave_lengths, aug_gen if use_specaug else None)
-        out = model(feats, feat_lens, labels, label_lengths, rng=drop_gen)
-        totals = global_totals(out, wave, data_group())
-        loss, metrics = model_loss(out, labels, label_lengths, ctc_weight, smoothing, ctc_impl,
-                                   totals)
-        (loss * weight if weight != 1.0 else loss).backward()
+        with annotate("train.features"):
+            feats, feat_lens = featurize(wave, wave_lengths, aug_gen if use_specaug else None)
+        with annotate("train.forward"):
+            out = model(feats, feat_lens, labels, label_lengths, rng=drop_gen)
+        with annotate("train.loss"):
+            totals = global_totals(out, wave, data_group())
+            loss, metrics = model_loss(out, labels, label_lengths, ctc_weight, smoothing,
+                                       ctc_impl, totals)
+        with annotate("train.backward"):
+            (loss * weight if weight != 1.0 else loss).backward()
         return {k: v.detach() for k, v in metrics.items()}
 
     def reduce_metrics(metrics: dict, group) -> dict:
@@ -141,44 +150,48 @@ def make_step_fns(model, optimizer: Optimizer, feat_cfg: FeatureConfig, cfg: Con
         return dict(zip(names, vec.unbind(0)))
 
     def train_step(state: TrainState, wave, wave_lengths, labels, label_lengths, seed):
-        model.train()
-        optimizer.zero_grad()
-        group = data_group()
-        rank = get_active_mesh().index("data") if group is not None else 0
-        if grad_accum == 1:
-            metrics = _backward(
-                wave, wave_lengths, labels, label_lengths,
-                step_generators(seed, state.step, rank=rank), 1.0,
-            )
-        else:
-            bsz = wave.shape[0]
-            if bsz % grad_accum:
-                raise ValueError(
-                    f"batch size {bsz} is not divisible by grad_accum={grad_accum}"
+        with annotate("train_step", request=state.step):
+            model.train()
+            optimizer.zero_grad()
+            group = data_group()
+            rank = get_active_mesh().index("data") if group is not None else 0
+            if grad_accum == 1:
+                metrics = _backward(
+                    wave, wave_lengths, labels, label_lengths,
+                    step_generators(seed, state.step, rank=rank), 1.0,
                 )
-            mb = bsz // grad_accum
-            per_micro = []
-            for i in range(grad_accum):
-                sl = slice(i * mb, (i + 1) * mb)
-                per_micro.append(_backward(
-                    wave[sl], wave_lengths[sl], labels[sl], label_lengths[sl],
-                    step_generators(seed, state.step, i + 1, rank), 1.0 / grad_accum,
-                ))
-            metrics = {
-                k: (torch.stack([m[k] for m in per_micro]).sum(0)
-                    if k in ("n_correct", "n_word")
-                    else torch.stack([m[k] for m in per_micro]).mean(0))
-                for k in per_micro[0]
-            }
-        metrics = reduce_metrics(metrics, group)
-        metrics["grad_norm"] = optimizer.step(group)
-        n = float(wave.shape[0]) * (1 if group is None else get_active_mesh().shape["data"])
-        sums = state.metric_sums
-        sums["_n"] += n
-        for k in keys:
-            sums[k] += metrics[k].float() * n
-        state.step += 1
-        return state, metrics
+            else:
+                bsz = wave.shape[0]
+                if bsz % grad_accum:
+                    raise ValueError(
+                        f"batch size {bsz} is not divisible by grad_accum={grad_accum}"
+                    )
+                mb = bsz // grad_accum
+                per_micro = []
+                for i in range(grad_accum):
+                    sl = slice(i * mb, (i + 1) * mb)
+                    per_micro.append(_backward(
+                        wave[sl], wave_lengths[sl], labels[sl], label_lengths[sl],
+                        step_generators(seed, state.step, i + 1, rank), 1.0 / grad_accum,
+                    ))
+                metrics = {
+                    k: (torch.stack([m[k] for m in per_micro]).sum(0)
+                        if k in ("n_correct", "n_word")
+                        else torch.stack([m[k] for m in per_micro]).mean(0))
+                    for k in per_micro[0]
+                }
+            metrics = reduce_metrics(metrics, group)
+            with annotate("train.optimizer"):
+                metrics["grad_norm"] = optimizer.step(group)
+            with annotate("train.metric_sums"):
+                n = float(wave.shape[0]) * (
+                    1 if group is None else get_active_mesh().shape["data"])
+                sums = state.metric_sums
+                sums["_n"] += n
+                for k in keys:
+                    sums[k] += metrics[k].float() * n
+            state.step += 1
+            return state, metrics
 
     @torch.no_grad()
     def eval_step(wave, wave_lengths, labels, label_lengths):

@@ -21,9 +21,9 @@ BiLSTMCTC, does not record).
 ``feat_cfg``): no fbank, no SpecAugment, and ``eval_decode`` encodes the
 batch as it comes. ``profile_from_step`` / ``profile_steps`` open one
 ``utils/debug.py::profile_trace`` over the train steps in ``[from, from +
-steps)``, written to ``exp_dir/trace/``, each step in an
-``annotate("train_step")`` range; the trace closes at the epoch's end if
-still open.
+steps)``, written to ``exp_dir/trace/``, where each step shows as its own
+``train_step`` span (``utils/debug.py``); the trace closes at the epoch's
+end if still open.
 
 ``mesh`` (``parallel/sharding.py::make_mesh``) trains across processes,
 one per device, as the JAX package's trainer does across devices:
@@ -69,7 +69,7 @@ from ..decode.distributed import distributed_beam_search
 from ..decode.joint import joint_beam_search
 from ..parallel import sharding
 from ..parallel.context import active_mesh
-from ..utils.debug import annotate, profile_trace
+from ..utils.debug import profile_trace
 from .checkpoint import CheckpointManager
 from .metrics import MetricsAccumulator, NullScalarWriter, ScalarWriter, ThroughputMeter
 from .optimizer import Optimizer, current_lr, model_width
@@ -239,9 +239,8 @@ class Trainer:
                     trace.enter_context(profile_trace(os.path.join(self.exp_dir, "trace")))
                     tracing = True
                 arrays, mesh = self._view(batch, self.train_loader)
-                with annotate("train_step") if tracing else contextlib.nullcontext():
-                    with active_mesh(mesh):
-                        self.train_step(state, *arrays, self.seed)
+                with active_mesh(mesh):
+                    self.train_step(state, *arrays, self.seed)
                 if tracing and state.step >= prof_from + prof_steps:
                     trace.close()
                     tracing = False

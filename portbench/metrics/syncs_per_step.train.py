@@ -1,0 +1,8 @@
+"""Host syncs (sync.* spans) a traced train step: a count, the same every
+step and every seed."""
+
+from portbench import spans
+
+
+def value(record):
+    return spans.syncs_per(record, "train_step")

@@ -333,6 +333,7 @@ CARD_SCRIPTS = [
     REPO / "scripts" / "profile_torch_decode.py",
     REPO / "scripts" / "sweep_postln_torch.py",
     REPO / "scripts" / "lr_ab_torch.py",
+    REPO / "scripts" / "sync_sites_torch.py",
 ]
 
 
