@@ -2,7 +2,8 @@
 cell's own sizes (not part of a benchmark run):
 
     python3 portbench/calibrate.py --workload <cell> --seeds 11,12,... \\
-        [--control 21,22,23] [--fault 31,32,33] [--seconds 12]
+        [--control 21,22,23] [--fault 31,32,33] [--loss-fault 41,42,43] \\
+        [--seconds 12]
 
 - ``--seeds``: sound runs of the program. A training cell's readings need
   no window: set-up's checked steps against the reference. A decode cell
@@ -13,6 +14,9 @@ cell's own sizes (not part of a benchmark run):
   judged as the program is.
 - ``--fault`` (training cells): the program's checked steps on half of
   each batch, the mean taken over that half.
+- ``--loss-fault`` (training cells): the same fault taken after the
+  forward: the forward over the whole batch, the train step's loss over
+  the first half of its utterances alone.
 
 Prints one JSON line per reading, then the largest program reading and the
 smallest control and fault readings of each number."""
@@ -20,6 +24,7 @@ smallest control and fault readings of each number."""
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import os
 import shutil
@@ -38,6 +43,28 @@ def _ctx(args, seed, workdir):
 
     return Context(load_json(ROOT, "BENCHMARK.json"), args.workload, seed, args.seconds,
                    False, torch.device("cuda", 0), workdir)
+
+
+@contextlib.contextmanager
+def loss_over_half(on: bool):
+    """While ``on``: the port's train step takes its loss over the first
+    half of the forward's utterances alone."""
+    from asr_chinese_e2e_tpu_torch.train import train_step as step_mod
+
+    whole = step_mod.model_loss
+
+    def half(out, labels, label_lengths, *a, **kw):
+        n = labels.shape[0] // 2
+        part = {k: v[:n] if k in ("logits", "gold", "ctc_logits", "enc_lengths") else v
+                for k, v in out.items()}
+        return whole(part, labels[:n], label_lengths[:n], *a, **kw)
+
+    if on:
+        step_mod.model_loss = half
+    try:
+        yield
+    finally:
+        step_mod.model_loss = whole
 
 
 def train_readings(ctx, kind: str) -> dict:
@@ -64,7 +91,8 @@ def train_readings(ctx, kind: str) -> dict:
             rows = batch["wave"].shape[0] // 2 if half else None
             return [torch.from_numpy(batch[k][:rows]).to(ctx.device) for k in ts.KEYS]
 
-        got = ts.program_readings(ctx, state, step, pool, feed)
+        with loss_over_half(kind == "loss_fault"):
+            got = ts.program_readings(ctx, state, step, pool, feed)
         del state, step
         free_cuda(ctx.device)
     no_tf32()
@@ -101,6 +129,7 @@ def main() -> int:
     ap.add_argument("--seeds", default="")
     ap.add_argument("--control", default="")
     ap.add_argument("--fault", default="")
+    ap.add_argument("--loss-fault", default="")
     ap.add_argument("--seconds", type=float, default=12.0)
     args = ap.parse_args()
     if ROOT not in sys.path:
@@ -112,7 +141,7 @@ def main() -> int:
         return 2
     seeds = {kind: [int(s) for s in getattr(args, name).split(",") if s]
              for kind, name in (("program", "seeds"), ("control", "control"),
-                                ("fault", "fault"))}
+                                ("fault", "fault"), ("loss_fault", "loss_fault"))}
     summary = {}
     for kind, group in seeds.items():
         for seed in group:

@@ -30,12 +30,15 @@ def relative_gap(a: float, b: float) -> float:
 def leaf_gap(program: dict, reference: dict, counted=None) -> tuple:
     """(worst leaf, its gap) of two {leaf: norm} maps: |program - reference|
     over the larger of the reference's norm of that leaf and of the median
-    leaf, over the ``counted`` leaves (all by default)."""
+    leaf, over the ``counted`` leaves (all by default). A leaf whose norm is
+    not finite on either side gives an infinite gap."""
     names = sorted(reference if counted is None else counted)
     ref = sorted(reference[n] for n in names)
     median = ref[len(ref) // 2]
     worst, gap = None, -1.0
     for n in names:
+        if not (math.isfinite(program[n]) and math.isfinite(reference[n])):
+            return n, math.inf
         g = abs(program[n] - reference[n]) / max(reference[n], median, 1e-30)
         if g > gap:
             worst, gap = n, g

@@ -4,26 +4,31 @@ Set-up makes the weights and the mix's pool of batches from the seed,
 builds the port's model, optimizer and ``train_step``
 (``train/train_step.py::make_step_fns``), and drives that one state through
 its first ``checked_steps`` steps on pool batches whose rows all differ,
-through the window's own call and feed, keeping each step's loss, the first
-step's clipped gradient per leaf (read back from Adam's first moment) and
-each leaf's change after the last checked step. It then takes one step of
-every other batch shape of the pool, so that the window meets no new shape.
+through the window's own call and feed, keeping each step's loss, each
+utterance's loss in the first step (its forward's output, as the step made
+it, through the port's losses), the first step's clipped gradient per leaf
+(read back from Adam's first moment) and each leaf's change after the last
+checked step. It then takes one step of every other batch shape of the
+pool, so that the window meets no new shape.
 
 The window hands each pool batch to the card as ``Trainer.train_epoch``
 does (host int16 waves, ``.to(device, non_blocking=True)``) and calls
 ``train_step`` until ``--seconds`` have passed, then waits for the card.
 ``train_audio_s_per_s`` is the unpadded audio of every step issued over the
 window's wall time. With ``--trace 1`` the next ``trace_steps`` steps run
-under the profiler.
+under the profiler. A mix's ``host_threads`` sets the process's intra-op
+threads for a run on the card.
 
 After the window the program's state is freed and the plain reference
 (``reference/train.py``) follows the checked steps from the same weights
-and batches: each step's loss, each leaf's first gradient and each leaf's
-change are compared (``checks.leaf_gap``)."""
+and batches: each step's loss, each utterance's first-step loss, each
+leaf's first gradient and each leaf's change are compared
+(``checks.leaf_gap``)."""
 
 from __future__ import annotations
 
 import math
+import statistics
 import time
 
 import torch
@@ -49,17 +54,23 @@ def step_record(batch) -> dict:
 
 
 def program_readings(ctx, state, train_step, pool, feed) -> dict:
-    """The checked steps through the program: losses, first gradient and
-    change per leaf."""
+    """The checked steps through the program: losses, each utterance's loss
+    from the first step's forward, first gradient and change per leaf."""
     names = port.parameter_names(state)
     b1 = float(ctx.config["train"]["adam_b1"])
     out = {"loss": []}
     for i in range(int(ctx.mix["checked_steps"])):
-        state, metrics = train_step(state, *feed(pool[i]), ctx.seed)
-        out["loss"].append(float(metrics["loss"]))
+        args = feed(pool[i])
         if i == 0:
+            with port.forward_outputs(state.model) as seen:
+                state, metrics = train_step(state, *args, ctx.seed)
+            out["rows"] = port.utterance_losses(ctx.config, seen[0], args[2], args[3])
+            del seen
             out["grad"] = {n: float(m.norm()) / (1.0 - b1)
                            for n, m in port.first_moments(state, names).items()}
+        else:
+            state, metrics = train_step(state, *args, ctx.seed)
+        out["loss"].append(float(metrics["loss"]))
     w0 = make_weights(ctx.config["model"], ctx.config["vocab_size"], ctx.seed, ctx.device)
     out["change"] = {n: float((p.detach() - w0[n]).norm())
                      for n, p in state.model.named_parameters()}
@@ -80,17 +91,33 @@ def reference_readings(ctx, pool, prec: Precision) -> dict:
         step = ref.step(batch, ctx.seed)
         out["loss"].append(step["loss"])
         if i == 0:
+            out["rows"] = step["rows"]
             out["grad"] = {n: float(g.norm()) for n, g in step["grads"].items()}
     out["change"] = {n: float((p.detach() - w0[n]).norm()) for n, p in ref.params.items()}
     return out
 
 
+def utterance_gaps(prog_rows: list, ref_rows: list) -> tuple:
+    """(level, spread) of the first checked batch's utterances' relative
+    loss gaps: the median over the utterances of each one's |gap|, and of
+    each one's distance from the median gap. Both infinite where the
+    program gave a loss for fewer utterances than the batch holds, or any
+    loss on either side is not finite."""
+    if len(prog_rows) != len(ref_rows) or not all(map(math.isfinite, prog_rows + ref_rows)):
+        return math.inf, math.inf
+    gaps = [(p - r) / max(abs(r), 1e-30) for p, r in zip(prog_rows, ref_rows)]
+    shared = statistics.median(gaps)
+    return (statistics.median(abs(g) for g in gaps),
+            statistics.median(abs(g - shared) for g in gaps))
+
+
 def compare(prog: dict, ref: dict, min_grad_share: float) -> tuple:
     """(numbers, details): the worst step's relative loss gap, the first
-    step's, the worst leaf's first-gradient gap and the worst counted
-    leaf's change gap. Leaves whose reference gradient is under
-    ``min_grad_share`` of the median leaf's move by round-off alone and are
-    not counted in the change."""
+    step's, the first step's utterances' median gap and their scatter
+    around it (``utterance_gaps``), the worst leaf's first-gradient gap and
+    the worst counted leaf's change gap. Leaves whose reference gradient is under ``min_grad_share`` of the
+    median leaf's move by round-off alone and are not counted in the
+    change."""
     gaps = [checks.relative_gap(p, r) for p, r in zip(prog["loss"], ref["loss"])]
     loss_gap = max(gaps)
     g_leaf, g_gap = checks.leaf_gap(prog["grad"], ref["grad"])
@@ -98,8 +125,9 @@ def compare(prog: dict, ref: dict, min_grad_share: float) -> tuple:
     floor = min_grad_share * grads[len(grads) // 2]
     counted = [n for n, g in ref["grad"].items() if g >= floor]
     c_leaf, c_gap = checks.leaf_gap(prog["change"], ref["change"], counted)
-    numbers = {"loss_gap": loss_gap, "first_loss_gap": gaps[0], "grad_gap": g_gap,
-               "change_gap": c_gap}
+    utt_gap, utt_spread = utterance_gaps(prog["rows"], ref["rows"])
+    numbers = {"loss_gap": loss_gap, "first_loss_gap": gaps[0], "utt_loss_gap": utt_gap,
+               "utt_loss_spread": utt_spread, "grad_gap": g_gap, "change_gap": c_gap}
     details = {"grad_leaf": g_leaf, "change_leaf": c_leaf,
                "left_out": sorted(set(ref["grad"]) - set(counted)),
                "program_loss": prog["loss"], "reference_loss": ref["loss"]}
@@ -109,6 +137,9 @@ def compare(prog: dict, ref: dict, min_grad_share: float) -> tuple:
 def run(ctx) -> dict:
     dev = ctx.device
     config, mix = ctx.config, ctx.mix
+    if "host_threads" in mix and dev.type == "cuda":
+        # the mix's intra-op threads, as torchrun sets them for a worker
+        torch.set_num_threads(int(mix["host_threads"]))
     weights = make_weights(config["model"], config["vocab_size"], ctx.seed, dev)
     state, train_step = port.build_train_step(config, weights, dev)
     del weights

@@ -1,11 +1,12 @@
 """The system under test, built from a configuration file through the
 port's own entry points (``asr_chinese_e2e_tpu_torch``): its model, its
-train step, an experiment directory that its ``recognize`` loads, and its
-launch counters. The drivers take the program from here and from nothing
-else."""
+train step, each utterance's loss as its own losses give it, an experiment
+directory that its ``recognize`` loads, and its launch counters. The
+drivers take the program from here and from nothing else."""
 
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 
@@ -14,6 +15,7 @@ import torch
 from asr_chinese_e2e_tpu_torch.core.config import Config
 from asr_chinese_e2e_tpu_torch.data.features import FeatureConfig
 from asr_chinese_e2e_tpu_torch.data.vocab import Vocab
+from asr_chinese_e2e_tpu_torch.losses import model_loss
 from asr_chinese_e2e_tpu_torch.models.transformer import SpeechTransformer, default_config
 from asr_chinese_e2e_tpu_torch.ops import ctc_kernel, fbank, fused_attention
 from asr_chinese_e2e_tpu_torch.ops import ctc_prefix_beam_kernel
@@ -62,6 +64,38 @@ def build_train_step(config: dict, weights: dict, device):
     optimizer = make_optimizer(model.parameters(), tcfg, model_width(cfg))
     init_fn, train_step, _ = make_step_fns(model, optimizer, feature_config(config), tcfg)
     return init_fn(), train_step
+
+
+@contextlib.contextmanager
+def forward_outputs(model):
+    """Collects, detached, the output of every call of ``model`` inside the
+    block (the train step's forward, as the step made it)."""
+    seen = []
+
+    def keep(module, args, out):
+        seen.append({k: v.detach() for k, v in out.items() if torch.is_tensor(v)})
+
+    handle = model.register_forward_hook(keep)
+    try:
+        yield seen
+    finally:
+        handle.remove()
+
+
+@torch.no_grad()
+def utterance_losses(config: dict, out: dict, labels, label_lengths) -> list:
+    """Each utterance's loss from a forward's output ``out``: the port's
+    ``model_loss`` over that utterance's rows alone (ctc_weight x its CTC
+    NLL + (1 - ctc_weight) x its mean smoothed CE over its targets)."""
+    tcfg = train_config(config)
+    args = (float(tcfg.get("ctc_weight", 0.0)), float(tcfg.get("label_smoothing", 0.0)),
+            tcfg.get("ctc_impl", "pallas"))
+    keys = [k for k in ("logits", "gold", "ctc_logits", "enc_lengths") if k in out]
+    # each row copied: the CTC kernel wants its logits on a 16-byte boundary
+    rows = [model_loss({k: out[k][i : i + 1].clone() for k in keys}, labels[i : i + 1],
+                       label_lengths[i : i + 1], *args)[0]
+            for i in range(out["gold"].shape[0])]
+    return torch.stack(rows).double().cpu().tolist()
 
 
 def first_moments(state, name_of) -> dict:

@@ -31,6 +31,8 @@ def noam(d_model: int, warmup: int, factor: float, count: int) -> float:
 
 
 def smoothed_ce(logits, gold, eps: float):
+    """(the mean over the batch's non-PAD targets, each row's mean over its
+    own)."""
     v = logits.shape[-1]
     logp = torch.log_softmax(logits.float(), dim=-1)
     mask = (gold != 0).float()
@@ -39,11 +41,14 @@ def smoothed_ce(logits, gold, eps: float):
         q.scatter_(-1, gold[..., None], 1.0 - eps)
     else:
         q = F.one_hot(gold, v).float()
-    per_pos = -(q * logp).sum(-1)
-    return (per_pos * mask).sum() / mask.sum().clamp(min=1.0)
+    per_pos = -(q * logp).sum(-1) * mask
+    rows = per_pos.sum(1) / mask.sum(1).clamp(min=1.0)
+    return per_pos.sum() / mask.sum().clamp(min=1.0), rows
 
 
 def loss_of(model: Model, batch: dict, feat: dict, train: dict, seed: int, step: int):
+    """(the step's loss, each utterance's: ctc_weight x its CTC NLL +
+    (1 - ctc_weight) x its mean CE over its targets)."""
     aug, drop_gen = step_generators(seed, step)
     feats, lengths = features(batch["wave"], batch["wave_lengths"], feat,
                               aug if train.get("spec_augment") else None)
@@ -51,13 +56,14 @@ def loss_of(model: Model, batch: dict, feat: dict, train: dict, seed: int, step:
     _, enc_len, ctc, logits, gold = model.forward(
         feats, lengths, batch["labels"], batch["label_lengths"], drop)
     w_ctc = float(model.cfg.get("ctc_weight", 0.0))
-    ce = smoothed_ce(logits, gold, float(model.cfg.get("label_smoothing", 0.0)))
+    ce, ce_rows = smoothed_ce(logits, gold, float(model.cfg.get("label_smoothing", 0.0)))
     if ctc is None or w_ctc == 0.0:
-        return ce
+        return ce, ce_rows.detach()
     logp = torch.log_softmax(ctc.float(), dim=-1).transpose(0, 1)
     nll = F.ctc_loss(logp, batch["labels"].long(), enc_len.long(),
                      batch["label_lengths"].long(), blank=0, reduction="none")
-    return w_ctc * nll.mean() + (1.0 - w_ctc) * ce
+    rows = w_ctc * nll + (1.0 - w_ctc) * ce_rows
+    return w_ctc * nll.mean() + (1.0 - w_ctc) * ce, rows.detach()
 
 
 class Trainer:
@@ -73,11 +79,12 @@ class Trainer:
         self.train, self.feat, self.count = train, feat, 0
 
     def step(self, batch: dict, seed: int) -> dict:
-        """One update; returns its loss, the gradient's global norm before
-        the clip and the clipped gradient of each leaf."""
+        """One update; returns its loss, each utterance's loss, the
+        gradient's global norm before the clip and the clipped gradient of
+        each leaf."""
         for p in self.params.values():
             p.grad = None
-        loss = loss_of(self.model, batch, self.feat, self.train, seed, self.count)
+        loss, rows = loss_of(self.model, batch, self.feat, self.train, seed, self.count)
         loss.backward()
         grads = {k: p.grad.detach() for k, p in self.params.items()}
         norm = torch.sqrt(sum(g.double().square().sum() for g in grads.values())).float()
@@ -95,4 +102,5 @@ class Trainer:
                 denom = (self.v[k] / (1.0 - b2 ** t)).sqrt() + eps
                 p.sub_(lr / (1.0 - b1 ** t) * self.m[k] / denom)
         self.count += 1
-        return {"loss": float(loss.detach()), "grad_norm": float(norm), "grads": grads}
+        return {"loss": float(loss.detach()), "rows": rows.double().cpu().tolist(),
+                "grad_norm": float(norm), "grads": grads}

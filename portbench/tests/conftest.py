@@ -77,6 +77,75 @@ def cell_limits(cell: str) -> dict:
     return load("limits", cell + ".json")["limits"] if os.path.exists(path) else {}
 
 
+SPAN_SEED = 2**31 + 11
+
+
+def _traced(fn):
+    """The program's spans of ``fn()`` under a CPU profiler."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from asr_chinese_e2e_tpu_torch.utils import debug
+
+    debug.clear_spans()
+    with profile(activities=[ProfilerActivity.CPU]):
+        fn()
+    return debug.spans()
+
+
+def _train_spans(cell, tmp):
+    from portbench import generate, port
+    from portbench.drivers.train_steps import KEYS
+    from portbench.weights import make_weights
+
+    config, mix = tiny_config(cell["config"]), tiny_mix(cell["traffic"])
+    dev = torch.device("cpu")
+    weights = make_weights(config["model"], config["vocab_size"], SPAN_SEED, dev)
+    state, train_step = port.build_train_step(config, weights, dev)
+    pool = generate.train_pool(mix, SPAN_SEED, dev)
+    feed = lambda b: [torch.from_numpy(b[k]) for k in KEYS]
+    train_step(state, *feed(pool[0]), SPAN_SEED)
+    return _traced(lambda: [train_step(state, *feed(b), SPAN_SEED) for b in pool[1:3]])
+
+
+def _decode_spans(cell, tmp):
+    from portbench import generate, port
+    from portbench.drivers import recognize_calls
+    from portbench.weights import make_weights
+
+    config, mix = tiny_config(cell["config"]), tiny_mix(cell["traffic"])
+    dev = torch.device("cpu")
+    weights = make_weights(config["model"], config["vocab_size"], SPAN_SEED, dev)
+    exp, vocab = port.write_experiment(config, weights, str(tmp))
+    clips = generate.clips(mix, SPAN_SEED, dev)
+    paths = recognize_calls.write_clips(str(tmp), clips)
+    client = recognize_calls.Client(exp, vocab, mix["recognize"], dev)
+    if mix["request"] == "corpus":
+        what = [{"manifest": recognize_calls.write_manifest(str(tmp / "m.jsonl"), paths, clips)}]
+    else:
+        what = [{"wav": p} for p in paths[:3]]
+    client.call(keep=False, **what[0])
+    try:
+        return _traced(lambda: [client.call(keep=False, **w) for w in what])
+    finally:
+        recognize_calls._drop_program_model()
+
+
+@pytest.fixture(scope="session")
+def recorded_spans(tmp_path_factory):
+    """{cell: the program's spans of its traced units}: a profiled train
+    step of each training cell's configuration and profiled ``recognize``
+    calls of each decode cell's, at tiny widths on the CPU."""
+    from asr_chinese_e2e_tpu_torch.utils import debug
+
+    out = {}
+    for cell in load("..", "BENCHMARK.json")["workloads"]:
+        tmp = tmp_path_factory.mktemp(cell["name"].replace(".", "_"))
+        train = tiny_mix(cell["traffic"])["driver"] == "train_steps"
+        out[cell["name"]] = (_train_spans if train else _decode_spans)(cell, tmp)
+    debug.clear_spans()
+    return out
+
+
 @pytest.fixture(autouse=True)
 def _threads():
     n = torch.get_num_threads()

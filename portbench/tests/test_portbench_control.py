@@ -19,13 +19,23 @@ from portbench.reference.precision import Precision
     ("train.ref-transformer.aishell-fill", "ref-transformer", "aishell-train-fill"),
     ("train.large-transformer.aishell", "large-transformer", "aishell-train")])
 def test_train_control_is_not_correct(make_ctx, cell, config, mix):
-    ctx = make_ctx(tiny_config(config), tiny_mix(mix), cell_limits(cell))
+    """At tiny widths, on batches of 16 utterances: the utterances' scatter
+    is a median over the batch, which four rows make a coin toss."""
+    m = tiny_mix(mix)
+    m["batch"] = 16
+    ctx = make_ctx(tiny_config(config), m, cell_limits(cell))
     pool = generate.train_pool(ctx.mix, ctx.seed, ctx.device)
     ref = train_steps.reference_readings(ctx, pool, Precision("f32"))
     ctrl = train_steps.reference_readings(ctx, pool, Precision("fp8"))
     numbers, _ = train_steps.compare(ctrl, ref, float(ctx.mix["min_grad_share"]))
-    correct, _ = checks.judge(numbers, ctx.limits)
+    correct, got = checks.judge(numbers, ctx.limits)
     assert not correct, numbers
+    # the number the cell names as the control's (the utterances' scatter)
+    # catches it here too, and so does each utterance number the cell compares
+    names = {load("limits", cell + ".json")["catches_control"]}
+    names |= {n for n in got if n.startswith("utt_")}
+    for name in names:
+        assert got[name]["value"] > got[name]["limit"], got
 
 
 @pytest.mark.parametrize("cell,config,mix", [

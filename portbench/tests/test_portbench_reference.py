@@ -17,6 +17,8 @@ def test_train_step_follows_the_program(make_ctx, name):
     rec = train_steps.run(ctx)
     got = {k: v["value"] for k, v in rec["checks"].items()}
     assert got["loss_gap"] < 1e-5, got
+    # each utterance's loss, through the port's losses and the reference's
+    assert got["utt_loss_gap"] < 1e-5 and got["utt_loss_spread"] < 1e-5, got
     assert got["grad_gap"] < 5e-3, got
     assert got["change_gap"] < 5e-3, got
     assert rec["attempted"] > 0 and rec["failed"] == 0

@@ -54,8 +54,13 @@ def test_drivers_report_their_end_to_end_metrics(records):
         assert rec["correct"] is False  # no limits given here
 
 
-def test_every_reader_reads_its_cells(records):
+def test_every_reader_reads_its_cells(records, recorded_spans, monkeypatch):
+    """Each cell's readers over its record, a trace and the program's spans
+    of a CPU profiler run of the cell's configuration."""
+    from asr_chinese_e2e_tpu_torch.utils import debug
+
     for name, rec in records.items():
+        monkeypatch.setattr(debug, "spans", lambda name=name: list(recorded_spans[name]))
         rec = dict(rec)
         layers = int(rec["config"]["model"]["num_encoder_layers"])
         if rec["kind"] == "train":

@@ -12,77 +12,18 @@ import math
 import os
 
 import pytest
-import torch
-from torch.profiler import ProfilerActivity, profile
 
-from conftest import ROOT, load, tiny_config, tiny_mix
-from portbench import generate, port, run, spans
-from portbench.drivers import recognize_calls
-from portbench.weights import make_weights
+from conftest import ROOT, load
+from portbench import run, spans
 
 from asr_chinese_e2e_tpu_torch.utils import debug
 
 BENCH = load("..", "BENCHMARK.json")
-CELLS = {w["name"]: w for w in BENCH["workloads"]}
 # the metrics that read the program's own spans
 NEW = [m for m in BENCH["per_layer"] if m["name"].split(".")[0] in (
     "step_dispatch_ms", "sync_wait_ms", "syncs_per_step", "beam_step_ms", "syncs_per_batch",
     "batch_wait_ms", "prefix_beam_ms", "nbest_to_host_ms", "rescore_forward_ms",
     "syncs_per_request")]
-KEYS = ("wave", "wave_lengths", "labels", "label_lengths")
-SEED = 2**31 + 11
-
-
-def _traced(fn):
-    """The spans of ``fn()`` under a CPU profiler."""
-    debug.clear_spans()
-    with profile(activities=[ProfilerActivity.CPU]):
-        fn()
-    return debug.spans()
-
-
-def _train_spans(cell, tmp):
-    config, mix = tiny_config(cell["config"]), tiny_mix(cell["traffic"])
-    dev = torch.device("cpu")
-    weights = make_weights(config["model"], config["vocab_size"], SEED, dev)
-    state, train_step = port.build_train_step(config, weights, dev)
-    pool = generate.train_pool(mix, SEED, dev)
-    feed = lambda b: [torch.from_numpy(b[k]) for k in KEYS]
-    train_step(state, *feed(pool[0]), SEED)
-    return _traced(lambda: [train_step(state, *feed(b), SEED) for b in pool[1:3]])
-
-
-def _decode_spans(cell, tmp):
-    config, mix = tiny_config(cell["config"]), tiny_mix(cell["traffic"])
-    dev = torch.device("cpu")
-    weights = make_weights(config["model"], config["vocab_size"], SEED, dev)
-    exp, vocab = port.write_experiment(config, weights, str(tmp))
-    clips = generate.clips(mix, SEED, dev)
-    paths = recognize_calls.write_clips(str(tmp), clips)
-    client = recognize_calls.Client(exp, vocab, mix["recognize"], dev)
-    if mix["request"] == "corpus":
-        what = [{"manifest": recognize_calls.write_manifest(str(tmp / "m.jsonl"), paths, clips)}]
-    else:
-        what = [{"wav": p} for p in paths[:3]]
-    client.call(keep=False, **what[0])
-    try:
-        return _traced(lambda: [client.call(keep=False, **w) for w in what])
-    finally:
-        recognize_calls._drop_program_model()
-
-
-@pytest.fixture(scope="module")
-def recorded(tmp_path_factory):
-    """{cell: the spans of its traced units}."""
-    out = {}
-    for name, cell in CELLS.items():
-        tmp = tmp_path_factory.mktemp(name.replace(".", "_"))
-        train = tiny_mix(cell["traffic"])["driver"] == "train_steps"
-        out[name] = (_train_spans if train else _decode_spans)(cell, tmp)
-    debug.clear_spans()
-    return out
-
-
 def _read(metric, spans_of_cell, monkeypatch):
     monkeypatch.setattr(debug, "spans", lambda: list(spans_of_cell))
     record = {"trace": object()}
@@ -98,9 +39,9 @@ def test_the_thirteen_metrics_are_there():
 
 
 @pytest.mark.parametrize("metric", [m["name"] for m in NEW])
-def test_each_reader_reads_its_cell(metric, recorded, monkeypatch):
+def test_each_reader_reads_its_cell(metric, recorded_spans, monkeypatch):
     m = next(x for x in NEW if x["name"] == metric)
-    value = _read(metric, recorded[m["workloads"][0]], monkeypatch)
+    value = _read(metric, recorded_spans[m["workloads"][0]], monkeypatch)
     assert value is not None and math.isfinite(value) and value >= 0, value
     if metric.startswith("syncs_per_"):
         assert value == int(value) and value > 0
@@ -108,18 +49,18 @@ def test_each_reader_reads_its_cell(metric, recorded, monkeypatch):
         assert value > 0
 
 
-def test_a_steps_host_work_and_its_syncs_make_the_step(recorded, monkeypatch):
+def test_a_steps_host_work_and_its_syncs_make_the_step(recorded_spans, monkeypatch):
     for cell, suffix in (("train.ref-transformer.aishell-fill", "train"),
                          ("train.large-transformer.aishell", "train_b64")):
-        got = {k: _read(f"{k}.{suffix}", recorded[cell], monkeypatch)
+        got = {k: _read(f"{k}.{suffix}", recorded_spans[cell], monkeypatch)
                for k in ("step_dispatch_ms", "sync_wait_ms")}
-        steps = [s for s in recorded[cell] if s.name == "train_step"]
+        steps = [s for s in recorded_spans[cell] if s.name == "train_step"]
         mean = sum(s.end_ns - s.start_ns for s in steps) / len(steps) / 1e6
         assert got["step_dispatch_ms"] + got["sync_wait_ms"] == pytest.approx(mean, rel=1e-9)
 
 
-def test_the_rescore_split_lies_inside_the_search(recorded, monkeypatch):
-    cell = recorded["online.large-transformer.rescore"]
+def test_the_rescore_split_lies_inside_the_search(recorded_spans, monkeypatch):
+    cell = recorded_spans["online.large-transformer.rescore"]
     parts = sum(_read(f"{k}.online", cell, monkeypatch)
                 for k in ("prefix_beam_ms", "nbest_to_host_ms", "rescore_forward_ms"))
     search = [s for s in cell if s.name == "recognize.search"]
@@ -127,8 +68,8 @@ def test_the_rescore_split_lies_inside_the_search(recorded, monkeypatch):
     assert parts <= sum(s.end_ns - s.start_ns for s in search) / len(search) / 1e6
 
 
-def test_nothing_to_read_gives_nothing(recorded, monkeypatch):
-    train = recorded["train.large-transformer.aishell"]
+def test_nothing_to_read_gives_nothing(recorded_spans, monkeypatch):
+    train = recorded_spans["train.large-transformer.aishell"]
     assert spans.step_dispatch_ms({"trace": None}) is None
     monkeypatch.setattr(debug, "spans", lambda: [])
     assert spans.step_dispatch_ms({"trace": object()}) is None
