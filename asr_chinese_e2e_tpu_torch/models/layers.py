@@ -52,6 +52,7 @@ from ..ops.fused_attention import (
     fused_attention_general,
     fused_attention_sharded_general,
 )
+from ..ops.hash_dropout import hash_dropout
 from ..ops.ring_attention import ring_attention
 from ..ops.masks import padding_bias
 from ..parallel.collectives import copy_to, gather_from, reduce_from, split_to
@@ -110,7 +111,9 @@ class ConfigurableDropout(nn.Module):
     """Dropout with a selectable mask generator (``impl``): ``"rng"``
     draws a Bernoulli mask from a generator seeded per call, ``"hash"``
     hashes the flat element index with a per-call seed exactly as the JAX
-    package does. Identity when ``rng`` is None or the rate is 0.
+    package does: on CUDA tensors in one kernel, K10
+    (``ops/hash_dropout.py``), on the CPU by ``hash_keep_mask``, its plain
+    version. Identity when ``rng`` is None or the rate is 0.
 
     Under a data mesh ``x`` is this rank's rows of a global batch of equal
     shares: the hash index starts at the rank's first global element, and
@@ -130,6 +133,9 @@ class ConfigurableDropout(nn.Module):
         seed = draw_seed(rng)
         d = data_index()
         if self.impl == "hash":
+            if x.is_cuda:  # K10: no mask, and nothing copied to the card
+                tp = 1 if heads is None else heads[1]
+                return hash_dropout(x, seed, self.rate, d * x.numel() * tp, heads)
             if heads is None or heads[1] == 1:
                 return x * hash_keep_mask(seed, x.shape, self.rate, x.dtype, x.device,
                                           d * x.numel())

@@ -33,6 +33,7 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
 _U = ctypes.c_uint
+_L = ctypes.c_int64
 # C entry points: name -> argtypes (every one returns a cudaError_t as int)
 SIGNATURES = {
     "asr_fbank": [_P, _I, _I, _I, _I, _P, _I, _P, _P, _I, _P, _I, _I, _I, _I, _P],
@@ -57,6 +58,7 @@ SIGNATURES = {
     ],
     "asr_ctc_prefix_registers": [_P, _P, _P, _P, _P, _P, _I, _P, _P, _I, _I, _I, _I, _I, _P],
     "asr_ctc_prefix_beam": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
+    "asr_hash_dropout": [_P, _P, _L, _I, _L, _U, _U, _U, _U, _F, _P],
 }
 
 

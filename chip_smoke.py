@@ -18,9 +18,9 @@ Run from the repository root:
 
     python3 chip_smoke.py
 
-Phases (any failure raises, so the exit code is non-zero; phases 3-17, 8b,
-9b, 14b, 15b and 15c each print the seconds they took; 8b runs after 8, 9b
-after 9, 14b after 14, 15b and 15c after 15):
+Phases (any failure raises, so the exit code is non-zero; phases 3-17, 7b,
+8b, 9b, 14b, 15b and 15c each print the seconds they took; 7b runs after
+7, 8b after 8, 9b after 9, 14b after 14, 15b and 15c after 15):
 
 1. require CUDA; print the card (``nvidia-smi``); TF32 off for matmuls
    (cuDNN's stays at PyTorch's default: the port's cuDNN layers turn it off);
@@ -103,6 +103,16 @@ after 9, 14b after 14, 15b and 15c after 15):
    rows, loss ~1700 a row) against a float64 evaluation and the plain f32
    recursion (``F32_BOUNDS``, which the design before the accurate expf /
    log1pf and the rows of z normalised by their sum missed);
+7b. K10 hash dropout vs ``x * hash_keep_mask(...)`` (forward) and
+   ``grad * hash_keep_mask(...)`` (backward), bit for bit (signed zeros
+   apart, any NaN equal), one launch each: the fill cell's encoder
+   activation (1024, 133, 512) bf16, the decoder's cross-attention weights
+   (1024, 8, 15, 133) bf16, also as heads chunk (1, 2), the decoder input
+   (1024, 15, 512) f32, odd counts at offsets (one with heads (2, 4)) and
+   misaligned views; ``ConfigurableDropout(impl="hash")`` on the card
+   through K10 and equal to its CPU route; at the encoder shape the times
+   in turns with the plain chain and the device time under the profiler,
+   which must reach ``K10_MIN_SHARE`` (60 %) of the byte bound;
 8. the serving path: a 512-wide, 6+6-layer, bf16 SpeechTransformer with a
    4233-token vocabulary decodes 16 synthetic utterances of 2-8 s (beam
    10, batches of 8); every utterance needs a finite-scored hypothesis,
@@ -159,8 +169,9 @@ after 9, 14b after 14, 15b and 15c after 15):
    CTC 0.3 through K3/K4, fused attention with hash dropout 0.1,
    SpecAugment, Noam + Adam, clip 5) on 128 synthetic 8 s utterances (2
    batches of 64) and 16 dev utterances, 2 epochs; every logged loss
-   finite; per train step K5 1, K1 6, K2 6, K3 1, K4 1 launches (plus
-   K5 1, K1 6, K3 1 per dev batch); ``scalars.jsonl`` and ``index.json``
+   finite; per train step K5 1, K1 6, K2 6, K3 1, K4 1 and K10 88 (44
+   masks, forward and backward) launches (plus K5 1, K1 6, K3 1 per dev
+   batch); ``scalars.jsonl`` and ``index.json``
    written; a second ``train(from_ckpt="latest", num_epoch=3)`` resumes
    at the saved step and epoch; the best checkpoint decodes the dev set
    through ``recognize`` on the card;
@@ -193,7 +204,7 @@ after 9, 14b after 14, 15b and 15c after 15):
 13. throughput: ``asr_chinese_e2e_tpu_torch.bench.main`` (the JAX bench's
     recipe and fixed batch of 64 x 8 s: a first step, 2 warm-up steps, 20
     timed), its JSON line; per step (all 23 counted) K5 1, K1 6, K2 6, K3
-    1, K4 1 and nothing else; ms per step, steps/s, audio-s/s and MFU
+    1, K4 1, K10 88 and nothing else; ms per step, steps/s, audio-s/s and MFU
     against the H100 SXM dense bf16 peak;
 14. streaming throughput: the streaming recipe on one fixed batch of
     64 x 8 s, one model, 3 warm-up steps on each route, then 5 pairs of
@@ -204,15 +215,15 @@ after 9, 14b after 14, 15b and 15c after 15):
 14b. the conformer family (the registry's ``Conformer``: conformer blocks
     with depthwise conv 15, pre-LN, flagship widths): ``main.train
     --model_name Conformer`` with the flagship recipe on phase 9's corpus,
-    1 epoch, losses finite, per step K5 1, K1 6, K2 6, K3 1, K4 1 (per dev
-    batch K5 1, K1 6, K3 1); the best checkpoint through ``recognize`` in
+    1 epoch, losses finite, per step K5 1, K1 6, K2 6, K3 1, K4 1, K10 112
+    (per dev batch K5 1, K1 6, K3 1); the best checkpoint through ``recognize`` in
     ``beam`` and ``joint`` on the 16 dev utterances (per batch K5 1, K1 6;
     K8 once per joint decode step; a finite hypothesis for every
     utterance); a conv2d-frontend conformer: one train step and one beam
     decode of 8 x 8 s, K1 on ceil(ceil(T/2)/2) query rows; one step
     with ``remat`` off and on from the same weights (hash dropout 0.1: loss
     and gradient norm within 1e-5 relative, K1 12 launches with remat: the
-    forward and the recompute); one f32
+    forward and the recompute; K10 112, and 160 with remat); one f32
     conformer step on the card vs the CPU's plain path (loss and gradient
     norm within 1e-3 relative, as phase 10, the six parameters with
     the largest share of the gradient difference, card against CPU, and
@@ -256,7 +267,7 @@ after 9, 14b after 14, 15b and 15c after 15):
     flagship steps with ``attn_impl="flash"`` and with ``"fused"`` from the
     same weights and draws, at dropout 0 and at hash dropout 0.1 (there
     ``"fused"`` without the attention-weight dropout): bit-identical loss
-    and gradient norm, K1 6 and K2 6 each;
+    and gradient norm, K1 6 and K2 6 each (and K10 26 at 0.1);
 15c. the feature cache, the trace window and the soak driver on phase 9's
     corpus: ``preprocess features`` on the card over the train and dev
     manifests (K5 once per chunk of 32 and nothing else; each cached
@@ -264,14 +275,14 @@ after 9, 14b after 14, 15b and 15c after 15):
     chunk's width, the distance unpadded printed); ``Trainer(raw_features=
     True)`` over cached-feature loaders, the flagship recipe 1 epoch with
     ``eval_decode=joint`` (losses finite; per train step K5 0, K1 6, K2 6,
-    K3 1, K4 1; per dev batch K5 0, K1 12 (the eval step and the decode's
+    K3 1, K4 1, K10 88; per dev batch K5 0, K1 12 (the eval step and the decode's
     encode), K3 1; K8 once per joint decode step); one f32 step from the
     cache and one from the waves of one 16-utterance chunk, same weights,
     no SpecAugment, dropout 0 (loss and gradient norm within 1e-5
     relative); ``main.train`` with ``profile_from_step=2 profile_steps=2``
     (one trace under ``exp_dir/trace/`` with two ``train_step`` ranges and
-    inside the card's ranges each kernel of a train step, K1-K5, by name,
-    exactly as often as two steps launch it, none outside);
+    each kernel of a train step, K1-K5 and K10, by name, exactly as often as
+    two steps launch it, each launched inside those ranges);
     ``scripts/soak_flagship_torch.py``'s phase functions at flagship width,
     3 epochs of 2 batches, ``save_every_iter=1``, killed at the first
     checkpoint at step >= 2, resumed at the saved step, then ``joint`` and
@@ -286,7 +297,7 @@ after 9, 14b after 14, 15b and 15c after 15):
     per parameter the first step's gradient and the move over the steps
     within ``PARALLEL_GRAD_REL`` / ``PARALLEL_MOVE_REL`` (|diff| / |ref|);
     per rank and step K5 1, K1 6, K2 6, K3 1,
-    K4 1; ms per step on a rank beside one process's;
+    K4 1, K10 64; ms per step on a rank beside one process's;
     ``distributed_beam_search`` of phase 8's first serving batch (an f32
     seed-0 flagship, beam 10) over the two ranks: tokens and finished
     flags equal to one process's ``beam_search``, scores within 1e-5 of
@@ -295,8 +306,9 @@ after 9, 14b after 14, 15b and 15c after 15):
     bit;
 17. the benches, each at flagship width but short:
     ``bench.via_trainer_main`` on 4 batches of 64 x 8 s (per step the
-    flagship step's launches), ``scripts/bench_decode_torch.py`` in
-    ``lazy``, ``gather`` and ``joint`` with one timed search each (per
+    flagship step's launches but K10's: its dropout takes the rng route),
+    ``scripts/bench_decode_torch.py`` in ``lazy``, ``gather`` and ``joint``
+    with one timed search each (per
     batch of 64 K5 1 and K1 6 for the encode, K8 once per decode step of
     ``joint`` and never in the others; ``lazy`` against ``gather``: in
     bf16 the shares of equal best hypotheses and n-best printed, in f32
@@ -318,9 +330,10 @@ after 9, 14b after 14, 15b and 15c after 15):
     training shape ``shape``, ``max_abs_err``, ``ms``, ``plain_ms``,
     ``bound_ms``, ``bound_by``, ``library_ms``, ``device_ms`` (20 launches
     back to back: of the C entry point for the attention kernels, of the
-    wrapper for K3-K5, K8 and K9), for K2 and K7 ``checked_ms``, for K8
-    and K9 ``profiler_ms`` (the kernels alone: K8 at the serving shape,
-    K9 at the serving batch, its row pass and recursion apart);
+    wrapper for K3-K5, K8 and K9; for K10 a launch under the profiler),
+    for K2 and K7 ``checked_ms``, for K8 and K9 ``profiler_ms`` (the
+    kernels alone: K8 at the serving shape, K9 at the serving batch, its
+    row pass and recursion apart);
     ``other_shapes`` holds the same for the serving shapes, for K3/K4
     for f32 logits at the training shape, for K8 at 15 s and the bench
     decode's shape, for K9 at 15 s), the card line, and last
@@ -388,6 +401,7 @@ from asr_chinese_e2e_tpu_torch.ops import ctc_kernel as ctc  # noqa: E402
 from asr_chinese_e2e_tpu_torch.ops import ctc_prefix_beam_kernel as k9  # noqa: E402
 from asr_chinese_e2e_tpu_torch.ops import ctc_prefix_kernel as k8  # noqa: E402
 from asr_chinese_e2e_tpu_torch.ops import fused_attention as fa  # noqa: E402
+from asr_chinese_e2e_tpu_torch.ops import hash_dropout as hd  # noqa: E402
 from asr_chinese_e2e_tpu_torch.ops.fbank import log_mel_spectrogram_kernel  # noqa: E402
 from asr_chinese_e2e_tpu_torch.parallel.context import active_mesh  # noqa: E402
 from asr_chinese_e2e_tpu_torch.parallel.dryrun import run_ranks  # noqa: E402
@@ -443,6 +457,7 @@ COUNTERS = {
     "ctc_beta": ctc.ctc_beta_kernel,
     "ctc_prefix": k8.ctc_selected_registers_kernel,
     "ctc_prefix_beam": k9.ctc_prefix_beam_kernel,
+    "hash_dropout": hd.hash_dropout_kernel,
 }
 
 
@@ -1625,6 +1640,131 @@ def _time_ctc(logits, ext, lens, labels, lab_lens, g, lse, alpha, want_loss, sha
             for p in ("alpha", "beta")}
 
 
+# -- phase 7b: K10, the hash dropout --------------------------------------------
+
+# (what, shape, dtype, heads, offset) of K10's checks: the fill cell's
+# encoder activation, the decoder's cross-attention weights (and those
+# weights as chunk 1 of 2 along the heads), the decoder's input (f32: the
+# scaled embedding), odd counts that leave a vector tail at an offset, and
+# a misaligned view (the kernel's one-element loop)
+K10_CASES = (
+    ("encoder activation", (1024, 133, 512), torch.bfloat16, None, 0),
+    ("cross-attention weights", (1024, 8, 15, 133), torch.bfloat16, None, 0),
+    ("cross-attention weights, heads (1, 2)", (1024, 8, 15, 133), torch.bfloat16, (1, 2), 0),
+    ("decoder input", (1024, 15, 512), torch.float32, None, 0),
+    ("odd count", (3, 1001, 7), torch.bfloat16, None, 123456789),
+    ("odd count, heads (2, 4)", (3, 5, 111), torch.float32, (2, 4), 2**32 + 17),
+    ("misaligned view", (7, 1003), torch.bfloat16, None, 5),
+    ("misaligned view", (7, 1003), torch.float32, None, 0),
+)
+K10_RATE, K10_SEED = 0.1, 1_987_654_321
+K10_MIN_SHARE = 0.6  # device time at the encoder shape: at least this share of the bound
+
+
+def _same_bits(a, b) -> bool:
+    """Equal bit for bit (signed zeros told apart), any NaN equal to any
+    NaN."""
+    view = torch.int16 if a.dtype == torch.bfloat16 else torch.int32
+    nan = torch.isnan(a)
+    return (a.dtype == b.dtype and a.shape == b.shape and torch.equal(nan, torch.isnan(b))
+            and torch.equal(a.masked_fill(nan, 0).view(view), b.masked_fill(nan, 0).view(view)))
+
+
+def _k10_inputs(shape, dtype, dev, seed, misaligned=False):
+    """Normal values with signed zeros, infinities and NaN planted; with
+    ``misaligned``, a view one element into its storage."""
+    n = math.prod(shape)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    flat = torch.randn(n + misaligned, generator=gen, device=dev)
+    flat[::7] = 0.0
+    flat[3::7] = -0.0
+    flat[6::13] = float("inf")
+    flat[2::17] = -float("inf")
+    flat[5::101] = float("nan")
+    return flat.to(dtype)[int(misaligned):].view(shape)
+
+
+def _k10_mask(shape, dtype, dev, heads, offset):
+    """``hash_keep_mask`` of the global shape, chunked as the heads say."""
+    tp = 1 if heads is None else heads[1]
+    full = (shape[0], shape[1] * tp, *shape[2:])
+    mask = layers_mod.hash_keep_mask(K10_SEED, full, K10_RATE, dtype, dev, offset)
+    return mask if tp == 1 else mask.chunk(tp, 1)[heads[0]]
+
+
+def _check_k10_case(what, shape, dtype, heads, offset, dev) -> None:
+    """K10 forward and backward against the mask's products, bit for bit,
+    one launch each."""
+    misaligned = what.startswith("misaligned")
+    x = _k10_inputs(shape, dtype, dev, 1, misaligned)
+    g = _k10_inputs(shape, dtype, dev, 2, misaligned)
+    require(not misaligned or x.data_ptr() % 16 != 0, f"K10 {what}: the view is aligned")
+    mask = _k10_mask(shape, dtype, dev, heads, offset)
+    want_y, want_g = x * mask, g * mask
+    del mask
+    leaf = x.detach().requires_grad_(True)
+    start = COUNTERS["hash_dropout"].launches
+    y = hd.hash_dropout(leaf, K10_SEED, K10_RATE, offset, heads)
+    fwd = COUNTERS["hash_dropout"].launches - start
+    y.backward(g)
+    bwd = COUNTERS["hash_dropout"].launches - start - fwd
+    torch.cuda.synchronize()
+    same = (_same_bits(y.detach(), want_y), _same_bits(leaf.grad, want_g))
+    dropped = (want_y == 0).float().mean().item()
+    print(f"K10 {what} {shape} {str(dtype).replace('torch.', '')}, heads {heads}, offset "
+          f"{offset}: forward / backward bit-identical to x * mask / grad * mask {same}; "
+          f"launches {fwd} / {bwd}; zeros {dropped:.4f}")
+    require(all(same), f"K10 {what}: differs from the mask's product")
+    require(fwd == 1 and bwd == 1, f"K10 {what}: launches {fwd} / {bwd}, want 1 / 1")
+
+
+def _check_k10_route(dev) -> None:
+    """``ConfigurableDropout(impl="hash")`` on the card goes through K10
+    (one launch) and gives the CPU route's output bit for bit, with and
+    without the heads chunked."""
+    for heads in (None, (1, 2)):
+        x = _k10_inputs((64, 8, 15, 133), torch.bfloat16, dev, 3)
+        drop = layers_mod.ConfigurableDropout(K10_RATE, "hash")
+        start = COUNTERS["hash_dropout"].launches
+        got = drop(x, torch.Generator().manual_seed(11), heads=heads)
+        launched = COUNTERS["hash_dropout"].launches - start
+        want = drop(x.cpu(), torch.Generator().manual_seed(11), heads=heads)
+        same = _same_bits(got.cpu(), want)
+        print(f"K10 through ConfigurableDropout, heads {heads}: {launched} launch, equal to the "
+              f"CPU route {same}")
+        require(same and launched == 1, f"ConfigurableDropout on the card, heads {heads}")
+
+
+def check_hash_dropout(dev) -> dict:
+    """Phase 7b: K10 at the training shapes against ``hash_keep_mask``'s
+    products; its time at the encoder shape beside the plain chain's and
+    the bound (each element read and written once)."""
+    for case in K10_CASES:
+        _check_k10_case(*case, dev)
+    _check_k10_route(dev)
+    what, shape, dtype, heads, offset = K10_CASES[0]
+    x = _k10_inputs(shape, dtype, dev, 4)
+    limits = bound(2.0 * x.numel() * x.element_size(), 0.0, H100_SXM_BF16_PEAK)
+
+    def kernel():
+        return hd.hash_dropout_kernel(x, K10_SEED, K10_RATE)
+
+    def plain():
+        return x * layers_mod.hash_keep_mask(K10_SEED, shape, K10_RATE, dtype, dev)
+
+    times = turns_ms({"kernel": kernel, "plain": plain})
+    _print_times(f"K10 {what} (plain: the int64 mask chain and the multiply)", shape, times,
+                 limits)
+    device_ms = _launch_device_ms(kernel, {"kernel": "hash_dropout_kernel"})["kernel"]
+    share = limits["bound_ms"] / device_ms
+    print(f"K10 {what} {shape}, device ms per launch under the profiler ({DEVICE_REPS} calls): "
+          f"{device_ms:.4f} ({share * 100:.1f} % of the bound {limits['bound_ms']:.4f})")
+    require(share >= K10_MIN_SHARE, f"K10 at {share * 100:.1f} % of its bound, want at least "
+            f"{K10_MIN_SHARE * 100:.0f} %")
+    return {**_measured(shape, 0.0, times, limits), "device_ms": device_ms,
+            "dtype": str(dtype).replace("torch.", "")}
+
+
 # -- phase 8: the serving path -------------------------------------------------
 
 
@@ -2236,16 +2376,26 @@ def training_kwargs(corpus, exp_root, **extra) -> dict:
     return kw
 
 
-def train_launches(steps: int, n_eval: int, window: bool = False) -> dict:
+# hash dropout masks a train step (each K10 once forward and once backward):
+# the flagship's 13 encoder masks (input, and each layer's attention output
+# and FFN) and 31 decoder masks (input, and each layer's self- and
+# cross-attention weights and outputs and FFN); the conformer's 4 a layer
+# (two FFNs, attention output, conv module); phase 16's recipe keeps no
+# attention-weight dropout (32)
+FLAGSHIP_MASKS, CONFORMER_MASKS, PARALLEL_MASKS = 44, 56, 32
+
+
+def train_launches(steps: int, n_eval: int, window: bool = False, masks: int = 0) -> dict:
     """The launches a ``main.train`` run must make: per train step K5 1,
     six attention forwards and backwards (K1/K2, or K6/K7 on the window),
-    K3 1, K4 1; per dev batch K5 1, six forwards and K3 1."""
+    K3 1, K4 1, K10 twice per hash dropout mask; per dev batch K5 1, six
+    forwards and K3 1."""
     fwd, bwd = (("banded_attention_fwd", "banded_attention_bwd") if window
                 else ("fused_attention_fwd", "fused_attention_bwd"))
     want = {k: 0 for k in COUNTERS}
     want.update({
         "fbank": steps + n_eval, fwd: 6 * (steps + n_eval), bwd: 6 * steps,
-        "ctc_alpha": steps + n_eval, "ctc_beta": steps,
+        "ctc_alpha": steps + n_eval, "ctc_beta": steps, "hash_dropout": 2 * masks * steps,
     })
     return want
 
@@ -2274,7 +2424,7 @@ def run_training_path(dev):
     print(f"train: {steps} steps in 2 epochs, {n_eval} dev batches, wall {wall:.3f} s "
           f"(incl. model build, evals, checkpoints); launches {counts}")
     require(steps == 4, f"train ran {steps} steps, want 4 (2 epochs x 2 batches)")
-    want = train_launches(steps, n_eval)
+    want = train_launches(steps, n_eval, masks=FLAGSHIP_MASKS)
     require(counts == want, f"training launches {counts} != {want}")
     rows = _logged_losses(trainer.exp_dir)
     require(len(rows) == steps, f"{len(rows)} logged train rows")
@@ -2715,12 +2865,12 @@ def measure_training_throughput(dev, n_warmup=3, n_timed=20, label="flagship",
     return out
 
 
-def flagship_step_launches() -> dict:
+def flagship_step_launches(masks: int = FLAGSHIP_MASKS) -> dict:
     """The launches of one flagship train step (and of one step of each
-    recipe that shares its kernels)."""
+    recipe that shares its kernels), with ``masks`` hash dropout masks."""
     want = {k: 0.0 for k in COUNTERS}
     want.update(fbank=1.0, fused_attention_fwd=6.0, fused_attention_bwd=6.0, ctc_alpha=1.0,
-                ctc_beta=1.0)
+                ctc_beta=1.0, hash_dropout=2.0 * masks)
     return want
 
 
@@ -2873,7 +3023,7 @@ def _train_conformer(corpus) -> tuple:
           f"decoder layers, {n_params} parameters; {steps} steps in 1 epoch, {n_eval} dev "
           f"batches, wall {wall:.3f} s; launches {counts}")
     require(steps == 2, f"conformer train ran {steps} steps, want 2")
-    want = train_launches(steps, n_eval)
+    want = train_launches(steps, n_eval, masks=CONFORMER_MASKS)
     require(counts == want, f"conformer training launches {counts} != {want}")
     rows = _logged_losses(trainer.exp_dir)
     require(len(rows) == steps and all(np.isfinite(r["train/loss"]) for r in rows),
@@ -2936,7 +3086,8 @@ def _conv2d_conformer(dev) -> None:
         torch.cuda.synchronize()
         counts = read_counters()
     require(np.isfinite(float(m["loss"])), "conv2d conformer: loss not finite")
-    require(counts == train_launches(1, 0), f"conv2d conformer step launches {counts}")
+    require(counts == train_launches(1, 0, masks=CONFORMER_MASKS),
+            f"conv2d conformer step launches {counts}")
     require(rows == [t_enc] * 6, f"conv2d conformer: K1 saw {rows} rows, want 6 x {t_enc}")
     model.eval()
     with torch.inference_mode(), attention_query_rows() as rows:
@@ -2957,7 +3108,9 @@ def _check_remat(dev) -> None:
     """One conformer step of the flagship recipe (hash dropout 0.1) on 8 x
     8 s with ``remat`` off and on, from the same weights: the same loss and
     gradient norm (the recompute replays the dropout draws), and with remat
-    K1 launched twice per layer (forward and recompute)."""
+    K1 launched twice per layer (forward and recompute) and K10 48 times
+    more: the recompute's masks, each layer's but a decoder layer's last
+    (no saved tensor follows it, so the recompute stops before it)."""
     out = {}
     for remat in (False, True):
         cfg, tcfg, feat = _recipe("bfloat16", remat=remat, **CONFORMER)
@@ -2976,8 +3129,9 @@ def _check_remat(dev) -> None:
           f"{g0:.6f} / {g1:.6f} (off / on, max rel {rel:.2e}); K1 launches "
           f"{c0['fused_attention_fwd']} / {c1['fused_attention_fwd']}")
     require(rel <= 1e-5, "remat changes the conformer step")
-    want = train_launches(1, 0)
-    require(c0 == want and c1 == {**want, "fused_attention_fwd": 12},
+    want = train_launches(1, 0, masks=CONFORMER_MASKS)
+    require(c0 == want and c1 == {**want, "fused_attention_fwd": 12,
+                                  "hash_dropout": want["hash_dropout"] + 48},
             f"remat launches {c0} / {c1}")
 
 
@@ -3206,7 +3360,8 @@ def check_time_warp(dev) -> None:
     torch.cuda.synchronize()
     counts = read_counters()
     require(np.isfinite(float(m["loss"])), "time-warped flagship step: loss not finite")
-    require(counts == train_launches(1, 0), f"time-warped step launches {counts}")
+    require(counts == train_launches(1, 0, masks=FLAGSHIP_MASKS),
+            f"time-warped step launches {counts}")
     print(f"time-warped flagship step (bf16, SpecAugment with 1 warp of <= "
           f"{feat.time_warp_param} frames): loss {float(m['loss']):.4f}, grad_norm "
           f"{float(m['grad_norm']):.4f}; launches {counts}")
@@ -3254,7 +3409,8 @@ def check_flash(dev) -> dict:
         del model
     (e0, d0, k0), (e1, d1, k1) = enc_out["flash"], enc_out["fused"]
     want = {k: 0 for k in COUNTERS}
-    want.update(fused_attention_fwd=6, fused_attention_bwd=6)
+    # K10 for the encoder's 13 masks, forward and backward
+    want.update(fused_attention_fwd=6, fused_attention_bwd=6, hash_dropout=26)
     same = torch.equal(e0, e1) and len(d0) == len(d1) and all(
         torch.equal(a, b) for a, b in zip(d0, d1))
     print(f"flash vs fused without weight dropout, encoder at hash dropout 0.1, "
@@ -3366,7 +3522,8 @@ def _train_from_cache(corpus, manifests) -> tuple:
     steps, n_eval = trainer.state.step, len(trainer.dev_loader)
     want = {**{k: 0 for k in COUNTERS}, "fused_attention_fwd": 6 * steps + 12 * n_eval,
             "fused_attention_bwd": 6 * steps, "ctc_alpha": steps + n_eval,
-            "ctc_beta": steps, "ctc_prefix": n_steps[0]}
+            "ctc_beta": steps, "ctc_prefix": n_steps[0],
+            "hash_dropout": 2 * FLAGSHIP_MASKS * steps}
     rows = _logged_losses(trainer.exp_dir)
     with open(os.path.join(trainer.exp_dir, "scalars.jsonl")) as f:
         dev_rows = [r for r in map(json.loads, f) if "dev/decoded_cer" in r]
@@ -3384,7 +3541,7 @@ def _train_from_cache(corpus, manifests) -> tuple:
     trainer.train_step(trainer.state, *trainer._put_batch(batch), trainer.seed)
     torch.cuda.synchronize()
     per_step = read_counters()
-    want_step = {**train_launches(1, 0), "fbank": 0}
+    want_step = {**train_launches(1, 0, masks=FLAGSHIP_MASKS), "fbank": 0}
     print(f"one cached train step: launches {per_step}")
     require(per_step == want_step, f"a cached train step launches {per_step} != {want_step}")
     return counts, per_step
@@ -3439,15 +3596,17 @@ TRACE_KERNELS = {  # the kernels' names in a trace, and launches per train step
     "K2 attention_bwd_dkdv_mma_kernel": 6, "K3 ctc_emission_rows_kernel": 1,
     "K3 ctc_alpha_recursion_kernel": 1, "K4 ctc_beta_recursion_kernel": 1,
     "K4 ctc_grad_rows_kernel": 1, "K5 fbank_mma_kernel": 1,
+    "K10 hash_dropout_kernel": 2 * FLAGSHIP_MASKS,
 }
 
 
 def _check_trace_window(corpus) -> dict:
     """(d) ``main.train`` with ``profile_from_step=2 profile_steps=2``: one
-    trace under ``exp_dir/trace/`` with two ``train_step`` ranges, host and
-    card, and inside the card's ranges each kernel of a train step exactly
-    as often as two steps launch it, none outside. Returns the run's
-    launches."""
+    trace under ``exp_dir/trace/`` with two ``train_step`` ranges (host
+    ranges: the port's spans are ``cpu_op`` ranges, ``utils/debug.py``), and
+    each kernel of a train step exactly as often as two steps launch it,
+    every one launched inside those ranges (its launch call, the CUDA API
+    event of its correlation id, within one). Returns the run's launches."""
     exp_root = os.path.join(WORK, "trace_exp")
     shutil.rmtree(exp_root, ignore_errors=True)
     reset_counters()
@@ -3456,31 +3615,33 @@ def _check_trace_window(corpus) -> dict:
                                            profile_steps=2))
     torch.cuda.synchronize()
     counts = read_counters()
-    require(counts == train_launches(trainer.state.step, 0),
+    require(counts == train_launches(trainer.state.step, 0, masks=FLAGSHIP_MASKS),
             f"trace run launches {counts}")
     trace_dir = os.path.join(trainer.exp_dir, "trace")
     files = os.listdir(trace_dir)
     require(len(files) == 1, f"want one trace, found {files}")
     with open(os.path.join(trace_dir, files[0])) as f:
         events = [e for e in json.load(f)["traceEvents"] if e.get("ph") == "X"]
-    host = [e for e in events if e["name"] == "train_step"
-            and e.get("cat") == "user_annotation"]
-    gpu = [e for e in events if e["name"] == "train_step"
-           and e.get("cat") == "gpu_user_annotation"]
+    host = [e for e in events if e["name"] == "train_step" and e.get("cat") == "cpu_op"]
+    launched_at = {e["args"]["correlation"]: e["ts"] for e in events
+                   if e.get("cat") in ("cuda_runtime", "cuda_driver")
+                   and "correlation" in e.get("args", {})}
     kernels = [e for e in events if e.get("cat") == "kernel"]
+
+    def in_step(kernel) -> bool:
+        ts = launched_at.get(kernel.get("args", {}).get("correlation"))
+        return ts is not None and any(h["ts"] <= ts <= h["ts"] + h["dur"] for h in host)
+
     # the trace is the window: the profiler records from just before the
     # first of its steps to just after the last
     found = {label: sum(label.split()[1] in k["name"] for k in kernels)
              for label in TRACE_KERNELS}
-    inside = {label: sum(label.split()[1] in k["name"] for k in kernels
-                         if any(g["ts"] <= k["ts"] <= g["ts"] + g["dur"] for g in gpu))
+    inside = {label: sum(label.split()[1] in k["name"] for k in kernels if in_step(k))
               for label in TRACE_KERNELS}
-    print(f"trace window: {files[0]}, {len(host)} host and {len(gpu)} card train_step "
-          f"ranges, {len(kernels)} kernels; the kernels of a train step: {found}; of "
-          f"them inside the card's ranges: {inside}")
-    require(len(host) == len(gpu) == 2,
-            f"want two train_step ranges, found {len(host)} host and {len(gpu)} card")
-    # each kernel two steps' worth, all inside the card's train_step ranges
+    print(f"trace window: {files[0]}, {len(host)} train_step ranges, {len(kernels)} kernels; "
+          f"the kernels of a train step: {found}; of them launched inside the ranges: {inside}")
+    require(len(host) == 2, f"want two train_step ranges, found {len(host)}")
+    # each kernel two steps' worth, all launched inside the train_step ranges
     want = {label: 2 * per_step for label, per_step in TRACE_KERNELS.items()}
     require(found == inside == want, f"trace: kernels {found}, inside {inside}, want {want}")
     return counts
@@ -3708,7 +3869,7 @@ def run_parallel(serve_corpus, dev) -> dict:
                   f"one process; launches per step {got['launches']}")
             require(gaps["rel"] <= bound and g_gap <= g_bound and w_gap <= w_bound,
                     f"parallel {dtype}: rank {rank} disagrees with one process")
-            want = flagship_step_launches()
+            want = flagship_step_launches(masks=PARALLEL_MASKS)
             require(got["launches"] == want,
                     f"parallel {dtype}: rank {rank} launches {got['launches']} != {want}")
     for rank, r in enumerate(ranks):
@@ -3757,12 +3918,13 @@ def counted_class_steps(cls, method):
 def run_benches() -> dict:
     """Phase 17: each measuring program at flagship width, short:
     ``bench.via_trainer_main`` on 4 batches of 64 x 8 s (per step the
-    flagship's launches), ``scripts/bench_decode_torch.py::main`` once per
-    mode with 1 timed search (per batch K5 1 and K1 6 for the encode, K8
-    once a decode step in ``joint`` and never in the others; ``lazy`` and
-    ``gather`` in f32 give the same best hypotheses and scores within 1e-5,
-    in bf16 their agreement is printed), ``scripts/bench_stream_torch.py`` at
-    bucket 8 s with 2 timed calls, one component pass of
+    flagship's launches but K10's: rng dropout),
+    ``scripts/bench_decode_torch.py::main`` once per mode with 1 timed
+    search (per batch K5 1 and K1 6 for the encode, K8 once a decode step
+    in ``joint`` and never in the others; ``lazy`` and ``gather`` in f32
+    give the same best hypotheses and scores within 1e-5, in bf16 their
+    agreement is printed), ``scripts/bench_stream_torch.py`` at bucket 8 s
+    with 2 timed calls, one component pass of
     ``scripts/profile_torch_decode.py`` and ``bench.scaling_main`` at count
     1 (one NCCL rank); every number finite and positive. Returns the
     launches per bench-decode batch by mode and the launches counted."""
@@ -3776,7 +3938,10 @@ def run_benches() -> dict:
     reset_counters()
     r = bench.via_trainer_main(n_batches=4, corpus_dir=os.path.join(WORK, "bench_corpus"))
     per_step = {k: v / 8 for k, v in take(read_counters()).items()}
-    require(per_step == flagship_step_launches(), f"via_trainer_main launches {per_step}")
+    # the trainer bench builds ``default_config()``, whose dropout takes the
+    # rng route: no K10
+    require(per_step == flagship_step_launches(masks=0),
+            f"via_trainer_main launches {per_step}")
     require_positive("via_trainer_main", r, ("value", "steps_per_s", "mfu"))
 
     per_batch, tokens = {}, {}
@@ -3866,6 +4031,7 @@ def main() -> None:
     attn_bwd = phase(5, check_attention_bwd, dev)
     banded_fwd, banded_bwd = phase(6, check_banded, dev)
     ctc_alpha, ctc_beta = phase(7, check_ctc, dev)
+    k10 = phase("7b", check_hash_dropout, dev)
     serve, serve_batches, serve_corpus, serve_exp = phase(8, run_serving_path, dev)
     decoded, joint_batches, joint = phase("8b", run_decoding_modes, serve_exp, serve_corpus,
                                           dev)
@@ -3909,6 +4075,8 @@ def main() -> None:
         "ctc_prefix_beam": ("ctc_prefix_beam.cu",
                             "none (lax.scan): asr_chinese_e2e_tpu/decode/ctc_prefix_device.py:214",
                             joint["k9"]),
+        "hash_dropout": ("hash_dropout.cu",
+                         "none (XLA fuses it): asr_chinese_e2e_tpu/models/layers.py:70", k10),
     }
     rescore_counts, rescore_batches = joint["rescore"]
     kernels = [
@@ -3932,7 +4100,7 @@ def main() -> None:
          }, **measured}
         for name, (src, rep, measured) in sources.items()
     ]
-    kernels[-2]["launches_per_step"]["joint_decode_step"] = (
+    kernels[list(sources).index("ctc_prefix")]["launches_per_step"]["joint_decode_step"] = (
         decoded["ctc_prefix"] / joint["steps_run"])
     print(json.dumps({"kernels": kernels}))
     print(f"card: {card}")

@@ -11,12 +11,9 @@ rng dropout 0.1, its CTC weight), 3 warm-up steps, then ``--steps`` steps
 under ``torch.profiler``. Prints the card, the wall and device time per
 step, the device time of a few groups of operators (the depthwise and
 conv2d convolutions, GLU, swish, LayerNorm, the LSTMs, each forward and
-backward), that of
-the hash dropout masks (``hash_keep_mask``'s calls in the profiled
-steps, counted by shape and made again alone under the profiler), the
-operators with the
-most device time (self time, per step) and the kernels with the most
-device time.
+backward), that of the hash dropout kernel (K10, forward and backward),
+the operators with the most device time (self time, per step) and the
+kernels with the most device time.
 
     python3 scripts/profile_torch_train.py [--recipe flagship|conformer|bilstm_ctc|las]
         [--steps 3] [--top 25]
@@ -27,7 +24,6 @@ The kernels are built from the checkout at first use, as in
 """
 
 import argparse
-import collections
 import os
 import sys
 import time
@@ -39,7 +35,6 @@ from torch.profiler import ProfilerActivity, profile
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 import chip_smoke  # noqa: E402
-from asr_chinese_e2e_tpu_torch.models import layers  # noqa: E402
 
 # operator groups by name (self device time of the ops whose name holds one
 # of the words; each kernel is counted once, under the op that launched it)
@@ -53,35 +48,6 @@ GROUPS = {
     "LSTM": ("cudnn_rnn", "lstm"),
 }
 RNN_RECIPES = {"bilstm_ctc": "BiLSTMCTC", "las": "LAS"}
-
-
-def _counted_hash_masks():
-    """Count the hash dropout's mask calls by (shape, rate, dtype). The mask
-    is made in the forward only (the backward multiplies by the saved
-    mask), so its calls are its whole cost. Returns (counter, the unwrapped
-    function)."""
-    calls = collections.Counter()
-    inner = layers.hash_keep_mask
-
-    def counted(seed, shape, rate, dtype, device):
-        calls[tuple(shape), rate, dtype] += 1
-        return inner(seed, shape, rate, dtype, device)
-
-    layers.hash_keep_mask = counted
-    return calls, inner
-
-
-def _hash_masks_ms(calls, make_mask, steps, dev) -> float:
-    """Device ms a step of the counted masks: the same calls made again
-    outside the step under the profiler, their kernels' device time
-    summed."""
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for (shape, rate, dtype), n in calls.items():
-            for _ in range(n):
-                make_mask(1234, shape, rate, dtype, dev)
-        torch.cuda.synchronize()
-    kernels = [e for e in prof.key_averages() if e.device_type != DeviceType.CPU]
-    return sum(_device_us(e) for e in kernels) / 1e3 / steps
 
 
 def _device_us(event) -> float:
@@ -123,11 +89,9 @@ def main() -> None:
         train_step, state, batch = chip_smoke.streaming_train_setup(dev)
     print(f"recipe {args.recipe}, "
           f"ASR_BANDED_WINDOW={os.environ.get('ASR_BANDED_WINDOW', 'unset')}")
-    calls, make_mask = _counted_hash_masks()
     for _ in range(3):
         state, _ = train_step(state, *batch, 0)
     torch.cuda.synchronize()
-    calls.clear()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         for _ in range(args.steps):
@@ -150,10 +114,10 @@ def main() -> None:
         ms = sum(_device_us(e) for e in ops if any(w in e.key for w in words))
         ms = ms / 1e3 / args.steps
         print(f"{ms:14.3f} {ms / total_ms * 100:5.1f}%  {name}: ops holding {words}")
-    ms = _hash_masks_ms(calls, make_mask, args.steps, dev)
-    print(f"{ms:14.3f} {ms / total_ms * 100:5.1f}%  hash dropout masks: "
-          f"{sum(calls.values()) / args.steps:.0f} a step in {len(calls)} shapes, made "
-          f"again alone")
+    k10 = [e for e in kernels if "hash_dropout_kernel" in e.key]
+    ms = sum(_device_us(e) for e in k10) / 1e3 / args.steps
+    print(f"{ms:14.3f} {ms / total_ms * 100:5.1f}%  hash dropout (K10): "
+          f"{sum(e.count for e in k10) / args.steps:.0f} launches a step")
     _print_rows("operator", ops, args.steps, total_ms, args.top)
     _print_rows("kernel", kernels, args.steps, total_ms, args.top)
 
