@@ -51,6 +51,7 @@ from ..ops.fused_attention import (
     _mul32,
     fused_attention_general,
     fused_attention_sharded_general,
+    relpos_attention,
 )
 from ..ops.hash_dropout import hash_dropout
 from ..ops.ring_attention import ring_attention
@@ -259,6 +260,19 @@ def sinusoid_table(max_len: int, d_model: int) -> np.ndarray:
 def pe_table(d_model: int, device: torch.device) -> torch.Tensor:
     """(PE_MAX_LEN, d_model) float32 table on ``device``, built once."""
     return torch.from_numpy(sinusoid_table(PE_MAX_LEN, d_model)).to(device)
+
+
+def relpos_table(t: int, d_model: int, device) -> torch.Tensor:
+    """(2T - 1, d) float32 relative-position table of ESPnet's
+    ``RelPositionalEncoding`` (``latest``): row r holds the sinusoid of
+    position T - 1 - r, sin on even dims and cos on odd dims; rows T - 1 -
+    ... - (T - 1) are ``sinusoid_table``'s rows T - 1 ... 0 with the sin
+    dims of the negative positions negated."""
+    pos = np.arange(t - 1, -t, -1)[:, None].astype(np.float64)
+    i = np.arange(d_model)[None, :]
+    angle = pos / np.power(10000.0, 2 * (i // 2) / d_model)
+    table = np.where(i % 2 == 0, np.sin(angle), np.cos(angle)).astype(np.float32)
+    return torch.from_numpy(table).to(device)
 
 
 class PositionalEncoding(nn.Module):
@@ -486,20 +500,64 @@ class MultiHeadAttention(nn.Module):
         }
 
 
+class RelPositionMultiHeadAttention(MultiHeadAttention):
+    """ESPnet's relative-position self-attention (``RelPositionMulti
+    HeadedAttention``, ``rel_pos_type: latest``): the scores add (q + v_h)
+    . p_{i-j} to (q + u_h) . k_j, with p the relative table projected by
+    ``linear_pos`` (no bias) and u, v learned per head (``pos_bias_u``,
+    ``pos_bias_v``, (H, d)). Through ``ops/fused_attention.py::
+    relpos_attention`` (K11/K12 on the card). No attention-weight dropout
+    (ESPnet's ``attention_dropout_rate`` 0); the output dropout stays.
+    Heads split over ``model`` are refused (``linear_pos``, u and v are
+    not sharded)."""
+
+    def __init__(
+        self, num_heads: int, d_model: int, head_dim: int,
+        dropout_rate: float = 0.0, dropout_impl: str = "rng", dtype=torch.float32,
+    ):
+        super().__init__(num_heads, d_model, head_dim, dropout_rate, weight_dropout=False,
+                         dropout_impl=dropout_impl, dtype=dtype)
+        self.linear_pos = Dense(d_model, num_heads * head_dim, dtype, bias=False)
+        self.pos_bias_u = nn.Parameter(torch.empty(num_heads, head_dim))
+        self.pos_bias_v = nn.Parameter(torch.empty(num_heads, head_dim))
+
+    def relpos(self, x, pos, lengths, rng=None):
+        """Self-attention of ``x`` (B, T, d) with ``pos`` (2T - 1, H d), the
+        relative table dropped out and projected by ``linear_pos`` (the
+        encoder projects every block's at once), keys masked by
+        ``lengths``. Whatever ``attn_impl`` says, through
+        ``relpos_attention``: K11/K12 on CUDA tensors (bf16 only; another
+        dtype raises ValueError), the plain versions on the CPU."""
+        if self.q_proj.tp is not None:
+            raise ValueError("relative-position attention does not split its heads over "
+                             "'model': linear_pos, pos_bias_u and pos_bias_v are not sharded")
+        q = self._split(self.q_proj(x))
+        k, v = self.kv(x)
+        dt = q.dtype
+        out = relpos_attention(q, k, v, self._split(pos), self.pos_bias_u.to(dt),
+                               self.pos_bias_v.to(dt), lengths, self.scale)
+        return self.out_drop(self._merge_out(out), rng)
+
+
 class PositionwiseFFN(nn.Module):
-    """d_model -> d_ff -> d_model with ReLU, then dropout."""
+    """d_model -> d_ff -> d_model with ReLU (``activation`` "relu") or
+    swish ("swish", the conformer's macaron FFNs in ESPnet), then
+    dropout."""
 
     def __init__(
         self, d_model: int, d_ff: int, dropout_rate: float = 0.0,
-        dropout_impl: str = "rng", dtype=torch.float32,
+        dropout_impl: str = "rng", dtype=torch.float32, activation: str = "relu",
     ):
         super().__init__()
+        if activation not in ("relu", "swish"):
+            raise ValueError(f"unknown ffn activation {activation!r}")
         self.w1 = Dense(d_model, d_ff, dtype)
         self.w2 = Dense(d_ff, d_model, dtype)
         self.drop = ConfigurableDropout(dropout_rate, dropout_impl)
+        self.act = torch.relu if activation == "relu" else F.silu
 
     def forward(self, x, rng=None):
-        return self.drop(self.w2(torch.relu(self.w1(x))), rng)
+        return self.drop(self.w2(self.act(self.w1(x))), rng)
 
 
 class SubLayer(nn.Module):
@@ -603,36 +661,51 @@ class ConvModule(nn.Module):
 
 
 class ConvSubsampler(nn.Module):
-    """Conv2d frontend: two 3x3 stride-2 convolutions to d/8 channels, each
-    followed by ReLU, over the (T, F) feature image, then a projection of
-    the (f, c) features of each frame to d: 4x fewer frames. ``n_features``
-    is F, which fixes the projection's width ceil(ceil(F/2)/2) * d/8 (flax
-    infers it from the data)."""
+    """Conv2d frontend: two 3x3 stride-2 convolutions to ``channels``
+    channels (0: d/8), each followed by ReLU, over the (T, F) feature
+    image, then a projection of the (f, c) features of each frame to d: 4x
+    fewer frames. ``padding`` "same" is flax's SAME (ceil(n/2) rows a
+    convolution); "valid" is ESPnet's ``Conv2dSubsampling`` ((n - 1) // 2
+    rows, no padding), whose frames count as valid where all their inputs
+    are. ``n_features`` is F, which fixes the projection's width f * c
+    (flax infers it from the data)."""
 
-    def __init__(self, d_model: int, n_features: int, dtype=torch.float32):
+    def __init__(self, d_model: int, n_features: int, dtype=torch.float32,
+                 channels: int = 0, padding: str = "same"):
         super().__init__()
-        c = d_model // 8
+        if padding not in ("same", "valid"):
+            raise ValueError(f"unknown frontend padding {padding!r}")
+        c = channels or d_model // 8
         self.compute_dtype = dtype
+        self.padding = padding
         self.conv0 = nn.Conv2d(1, c, 3, stride=2)
         self.conv1 = nn.Conv2d(c, c, 3, stride=2)
-        f = _ceil_div(_ceil_div(n_features, 2), 2)
-        self.proj = Dense(f * c, d_model, dtype)
+        self.proj = Dense(self.out_rows(n_features) * c, d_model, dtype)
+
+    def out_rows(self, n: int) -> int:
+        """Rows left of ``n`` after both convolutions (frames or features)."""
+        if self.padding == "valid":
+            return ((n - 1) // 2 - 1) // 2
+        return _ceil_div(_ceil_div(n, 2), 2)
 
     def forward(self, x, lengths):
-        """x: (B, T, F) -> ((B, ceil(ceil(T/2)/2), d), lengths (l+1)//2
-        twice)."""
+        """x: (B, T, F) -> ((B, T', d), lengths): T' = ceil(ceil(T/2)/2)
+        and lengths (l+1)//2 twice (SAME), or ((T-1)//2 - 1)//2 and
+        (l-1)//2 twice (valid)."""
         dt = self.compute_dtype
         keep_cudnn_f32(x)
         y = _cast(x, dt)[:, None]  # (B, 1, T, F)
         for conv in (self.conv0, self.conv1):
-            t_lo, t_hi = same_padding(y.shape[2], 3, 2)
-            f_lo, f_hi = same_padding(y.shape[3], 3, 2)
-            y = F.pad(y, (f_lo, f_hi, t_lo, t_hi))
+            if self.padding == "same":
+                t_lo, t_hi = same_padding(y.shape[2], 3, 2)
+                f_lo, f_hi = same_padding(y.shape[3], 3, 2)
+                y = F.pad(y, (f_lo, f_hi, t_lo, t_hi))
             y = torch.relu(F.conv2d(y, _cast(conv.weight, dt), _cast(conv.bias, dt),
                                     stride=2))
         b, c, t, f = y.shape
         # flax flattens (B, t, f, c): the channel varies fastest
         y = self.proj(y.permute(0, 2, 3, 1).reshape(b, t, f * c))
+        shift = 1 if self.padding == "same" else -1
         for _ in range(2):
-            lengths = (lengths + 1) // 2
+            lengths = (lengths + shift) // 2
         return y, lengths

@@ -16,9 +16,23 @@ the plain masked path without one) are ported.
 Weights are created from an explicit ``torch.Generator`` (the JAX
 package draws them from a PRNG key), or converted from flax with
 ``models/convert.py``.
+
+ESPnet's conformer (``egs2/aishell/asr1/conf/tuning/
+train_asr_conformer.yaml``), beyond the JAX package's block, by four keys,
+each off by default (the JAX package has none of them):
+``pos_enc_type`` "rel" (conformer only: relative-position self-attention,
+``layers.py::RelPositionMultiHeadAttention``, the input scaled by sqrt(d)
+with no absolute sinusoid, the (2T - 1)-row relative table with its own
+dropout, and ESPnet's ``after_norm`` after the last block);
+``ffn_activation`` "swish" (the encoder's FFNs: the macaron FFNs); ``frontend_channels`` (the
+conv2d frontend's channels, 0 for d/8) and ``frontend_padding`` "valid"
+(ESPnet's ``Conv2dSubsampling``).
 """
 
 from __future__ import annotations
+
+import functools
+import math
 
 import numpy as np
 import torch
@@ -27,6 +41,7 @@ from torch.utils.checkpoint import checkpoint
 
 from ..core.config import Config
 from ..data.vocab import BOS_ID, EOS_ID, PAD_ID
+from ..utils.debug import annotate
 from ..ops.masks import (
     NEG_INF,
     banded_bias,
@@ -45,8 +60,10 @@ from .layers import (
     MultiHeadAttention,
     PositionalEncoding,
     PositionwiseFFN,
+    RelPositionMultiHeadAttention,
     SubLayer,
     pe_table,
+    relpos_table,
 )
 
 
@@ -104,6 +121,19 @@ def check_supported(cfg) -> None:
         raise ValueError(f"unknown encoder_type {cfg.encoder_type!r}")
     if cfg.get("frontend", "linear") not in ("linear", "conv2d"):
         raise ValueError(f"unknown frontend {cfg.frontend!r}")
+    if cfg.get("pos_enc_type", "abs") not in ("abs", "rel"):
+        raise ValueError(f"unknown pos_enc_type {cfg.pos_enc_type!r}")
+    if is_relpos(cfg):
+        if not is_conformer(cfg):
+            raise ValueError("pos_enc_type 'rel' needs encoder_type 'conformer'")
+        if cfg.get("attn_impl", "xla") == "ring":
+            raise ValueError("relative-position attention has no ring route (attn_impl 'ring')")
+        if cfg.get("attention_band", 0) or cfg.get("causal_encoder", False):
+            raise ValueError("relative-position attention takes no band or causal pattern")
+
+
+def is_relpos(cfg) -> bool:
+    return cfg.get("pos_enc_type", "abs") == "rel"
 
 
 def is_conformer(cfg) -> bool:
@@ -122,10 +152,13 @@ def _attention(cfg) -> MultiHeadAttention:
     )
 
 
-def _ffn(cfg) -> PositionwiseFFN:
+def _ffn(cfg, encoder: bool = False) -> PositionwiseFFN:
+    """An FFN; ``ffn_activation`` is the encoder's (ESPnet's decoder keeps
+    ReLU)."""
     return PositionwiseFFN(
         cfg.d_model, cfg.d_ff, cfg.dropout_rate,
         dropout_impl=cfg.get("dropout_impl", "rng"), dtype=compute_dtype_of(cfg),
+        activation=cfg.get("ffn_activation", "relu") if encoder else "relu",
     )
 
 
@@ -185,7 +218,7 @@ class EncoderLayer(nn.Module):
         (alpha, _), _ = deepnorm_coeffs(cfg)
         dt = compute_dtype_of(cfg)
         self.attn = _attention(cfg)
-        self.ffn = _ffn(cfg)
+        self.ffn = _ffn(cfg, encoder=True)
         self.sub1 = SubLayer(cfg.norm_type, cfg.d_model, alpha=alpha, dtype=dt)
         self.sub2 = SubLayer(cfg.norm_type, cfg.d_model, alpha=alpha, dtype=dt)
 
@@ -225,9 +258,15 @@ class ConformerBlock(nn.Module):
         super().__init__()
         self.cfg = cfg
         dt = compute_dtype_of(cfg)
-        self.ffn1 = _ffn(cfg)
-        self.ffn2 = _ffn(cfg)
-        self.attn = _attention(cfg)
+        self.ffn1 = _ffn(cfg, encoder=True)
+        self.ffn2 = _ffn(cfg, encoder=True)
+        if is_relpos(cfg):
+            self.attn = RelPositionMultiHeadAttention(
+                cfg.num_heads, cfg.d_model, cfg.head_dim, cfg.dropout_rate,
+                dropout_impl=cfg.get("dropout_impl", "rng"), dtype=dt,
+            )
+        else:
+            self.attn = _attention(cfg)
         self.conv = ConvModule(
             cfg.d_model, cfg.get("conv_kernel_size", 15), cfg.dropout_rate,
             causal=cfg.get("causal_encoder", False),
@@ -239,12 +278,17 @@ class ConformerBlock(nn.Module):
         self.ln_ffn2 = LayerNorm(cfg.d_model, dt)
         self.ln_final = LayerNorm(cfg.d_model, dt)
 
-    def forward(self, x, bias, lengths=None, rng=None):
+    def forward(self, x, bias, lengths=None, rng=None, pos=None):
+        """``pos``: this block's relative table, projected and dropped out
+        (``Encoder.forward``), with ``pos_enc_type`` "rel"."""
         # dropout draws in the JAX block's order: ffn1, attn, conv, ffn2
         x = x + 0.5 * self.ffn1(self.ln_ffn1(x), rng)
-        x = x + _encoder_self_attention(
-            self.cfg, self.attn, self.ln_attn(x), bias, lengths, rng
-        )
+        if pos is not None:
+            x = x + self.attn.relpos(self.ln_attn(x), pos, lengths, rng)
+        else:
+            x = x + _encoder_self_attention(
+                self.cfg, self.attn, self.ln_attn(x), bias, lengths, rng
+            )
         x = x + self.conv(self.ln_conv(x), lengths, rng)
         x = x + 0.5 * self.ffn2(self.ln_ffn2(x), rng)
         return self.ln_final(x)
@@ -304,7 +348,10 @@ class Encoder(nn.Module):
         dt = compute_dtype_of(cfg)
         if cfg.get("frontend", "linear") == "conv2d":
             # input_dim is the feature width F here (see main.train)
-            self.frontend_mod = ConvSubsampler(cfg.d_model, cfg.input_dim, dt)
+            self.frontend_mod = ConvSubsampler(
+                cfg.d_model, cfg.input_dim, dt, channels=cfg.get("frontend_channels", 0),
+                padding=cfg.get("frontend_padding", "same"),
+            )
         else:
             self.input_proj = Dense(cfg.input_dim, cfg.d_model, dt)
             self.input_norm = LayerNorm(cfg.d_model, dt)
@@ -313,10 +360,11 @@ class Encoder(nn.Module):
         layer_cls = ConformerBlock if is_conformer(cfg) else EncoderLayer
         self.layers = nn.ModuleList(layer_cls(cfg) for _ in range(cfg.num_encoder_layers))
         # a conformer block ends in its own LayerNorm: the extra pre-LN
-        # output norm is the transformer stack's only
+        # output norm is the transformer stack's only, and ESPnet's
+        # conformer's (its after_norm)
         self.final_norm = (
             LayerNorm(cfg.d_model, dt)
-            if cfg.norm_type == "pre" and not is_conformer(cfg) else None
+            if (cfg.norm_type == "pre" and not is_conformer(cfg)) or is_relpos(cfg) else None
         )
 
     def _frontend(self, feats, feat_lengths):
@@ -330,7 +378,10 @@ class Encoder(nn.Module):
         """Returns (enc_out (B, T', d), its lengths): T' and the lengths
         are the frontend's (subsampled by the conv2d frontend)."""
         c = self.cfg
-        x, feat_lengths = self._frontend(feats, feat_lengths)
+        with annotate("encoder.frontend"):
+            x, feat_lengths = self._frontend(feats, feat_lengths)
+        if is_relpos(c):
+            return self._forward_relpos(x, feat_lengths, rng)
         x = self.dropout(self.pe(x), rng)
         t, dev = x.shape[1], x.device
         bias = padding_bias(feat_lengths, t)
@@ -348,6 +399,22 @@ class Encoder(nn.Module):
             x = self.final_norm(x)
         return x, feat_lengths
 
+    def _forward_relpos(self, x, lengths, rng):
+        """ESPnet's ``RelPositionalEncoding`` and blocks: x sqrt(d) and the
+        (2T - 1)-row relative table, each dropped out (x first), the table
+        projected by every block's ``linear_pos``, the blocks, the final
+        norm. T is the padded length: the table's rows depend on the shape
+        alone, so it costs no host sync."""
+        d = self.cfg.d_model
+        x = self.dropout(x * math.sqrt(d), rng)
+        with annotate("encoder.relpos"):
+            table = self.dropout(_relpos_table(x.shape[1], d, x.device).to(x.dtype), rng)
+            tables = [layer.attn.linear_pos(table) for layer in self.layers]
+        remat = self.cfg.get("remat", False)
+        for layer, pos in zip(self.layers, tables):
+            x = run_layer(functools.partial(layer, pos=pos), remat, rng, x, None, lengths)
+        return self.final_norm(x), lengths
+
     # -- streaming: exact chunked incremental encoding ----------------------
     def init_chunk_tails(self, batch: int):
         """Zero left-context carries (see ``init_chunk_state``)."""
@@ -364,6 +431,8 @@ class Encoder(nn.Module):
         d), new_tails). All F frames are treated as real; causality keeps a
         padded final chunk's padding out of its valid rows."""
         c = self.cfg
+        if is_relpos(c):
+            raise ValueError("encode_chunk: relative-position attention does not stream")
         if not (c.get("causal_encoder", False) and c.get("attention_band", 0)):
             raise ValueError("encode_chunk requires causal_encoder=True and attention_band>0")
         if c.get("frontend", "linear") != "linear":
@@ -396,6 +465,13 @@ class Encoder(nn.Module):
         if self.final_norm is not None:
             x = self.final_norm(x)
         return x, new_tails
+
+
+@functools.lru_cache(maxsize=32)
+def _relpos_table(t: int, d_model: int, device: torch.device) -> torch.Tensor:
+    """``relpos_table`` on ``device``, built once per length (a train or
+    decode batch's padded T takes a few values)."""
+    return relpos_table(t, d_model, device)
 
 
 class DecoderLayer(nn.Module):
@@ -721,3 +797,11 @@ def init_weights(model: SpeechTransformer, generator: torch.Generator) -> None:
     normal_(model.decoder.embed.weight, 1.0 / np.sqrt(model.cfg.d_model))
     if model.ctc_head is not None:
         lecun_(model.ctc_head)
+    # relative positions (drawn last: the other models' draws are unchanged):
+    # lecun-normal linear_pos, xavier-normal u and v as ESPnet's xavier init
+    for mha in model.encoder.modules():
+        if isinstance(mha, RelPositionMultiHeadAttention):
+            normal_(mha.linear_pos.weight, 1.0 / np.sqrt(mha.linear_pos.in_features))
+            std = np.sqrt(2.0 / sum(mha.pos_bias_u.shape))
+            normal_(mha.pos_bias_u, std)
+            normal_(mha.pos_bias_v, std)

@@ -8,6 +8,12 @@ The library lands in ``build/kernels/<hash>/`` at the repository root,
 keyed by a hash of the sources and flags, so a fresh checkout builds it at
 first use and an edited source rebuilds it. Nothing here runs at import
 time, and nothing falls back: a missing ``nvcc`` or a failed build raises.
+
+A variant is a second library built the same way from the sources of
+``csrc/<variant>/`` alone (which may include the shared sources), into
+``build/kernels/<hash>-<variant>/``, and loaded by ``load_library(variant)``
+on its first use: ``relpos`` holds the relative-position attention kernels
+K11/K12, which only a model with relative positions compiles and loads.
 """
 
 from __future__ import annotations
@@ -60,10 +66,19 @@ SIGNATURES = {
     "asr_ctc_prefix_beam": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
     "asr_hash_dropout": [_P, _P, _L, _I, _L, _U, _U, _U, _U, _F, _P],
 }
+# the entry points of each variant library
+VARIANT_SIGNATURES = {
+    "relpos": {
+        "asr_relpos_attention_fwd": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _P],
+        "asr_relpos_attention_bwd": [
+            _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _P,
+        ],
+    },
+}
 
 
-def _sources() -> list[Path]:
-    return sorted(CSRC.glob("*.cu"))
+def _sources(variant: str = "") -> list[Path]:
+    return sorted((CSRC / variant if variant else CSRC).glob("*.cu"))
 
 
 def _headers() -> list[Path]:
@@ -77,12 +92,21 @@ def _nvcc() -> str:
     raise RuntimeError("nvcc not found: the CUDA kernels cannot be built")
 
 
-def library_path() -> Path:
+def _lib_name(variant: str) -> str:
+    return f"libasr_{variant}_kernels.so" if variant else LIB_NAME
+
+
+def library_path(variant: str = "") -> Path:
+    """Where the library (or the ``variant`` library) of these sources
+    lives; a variant is keyed by the shared sources too, which it
+    includes."""
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in _sources() + _headers():
+    own = _sources(variant) if variant else []
+    for src in _sources() + _headers() + own:
         h.update(src.name.encode())
         h.update(src.read_bytes())
-    return BUILD_ROOT / h.hexdigest()[:16] / LIB_NAME
+    key = h.hexdigest()[:16] + (f"-{variant}" if variant else "")
+    return BUILD_ROOT / key / _lib_name(variant)
 
 
 def _run(cmds: list[list[str]]) -> None:
@@ -104,32 +128,35 @@ def _run(cmds: list[list[str]]) -> None:
             )
 
 
-def build() -> Path:
-    """Compile the library if it is not on disk yet; returns its path."""
-    path = library_path()
+def build(variant: str = "") -> Path:
+    """Compile the library (or the ``variant`` library) if it is not on
+    disk yet; returns its path."""
+    path = library_path(variant)
     if path.exists():
         return path
     path.parent.mkdir(parents=True, exist_ok=True)
     nvcc = _nvcc()
+    sources = _sources(variant)
     # objects and the library go to temp names, and the library is renamed
     # into place, so a concurrent build never loads a half-written file
     with tempfile.TemporaryDirectory(dir=path.parent) as tmpdir:
-        objs = [str(Path(tmpdir) / (src.stem + ".o")) for src in _sources()]
+        objs = [str(Path(tmpdir) / (src.stem + ".o")) for src in sources]
         _run([
             [nvcc, *NVCC_FLAGS, "-c", str(src), "-o", obj]
-            for src, obj in zip(_sources(), objs)
+            for src, obj in zip(sources, objs)
         ])
-        lib = str(Path(tmpdir) / LIB_NAME)
+        lib = str(Path(tmpdir) / _lib_name(variant))
         _run([[nvcc, *NVCC_FLAGS, "-shared", "-o", lib, *objs]])
         os.replace(lib, path)
     return path
 
 
-@functools.lru_cache(maxsize=1)
-def load_library() -> ctypes.CDLL:
-    """Build (if needed) and load the kernel library, with argtypes set."""
-    lib = ctypes.CDLL(str(build()))
-    for name, argtypes in SIGNATURES.items():
+@functools.lru_cache(maxsize=None)
+def load_library(variant: str = "") -> ctypes.CDLL:
+    """Build (if needed) and load the kernel library (or the ``variant``
+    library), with argtypes set."""
+    lib = ctypes.CDLL(str(build(variant)))
+    for name, argtypes in (VARIANT_SIGNATURES[variant] if variant else SIGNATURES).items():
         fn = getattr(lib, name)
         fn.argtypes = argtypes
         fn.restype = ctypes.c_int

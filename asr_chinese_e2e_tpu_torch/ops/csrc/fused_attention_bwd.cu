@@ -76,6 +76,17 @@
 // f32 FMAs: 256 threads per 64 owned rows, four threads sharing a row, the
 // other side in 32-row f32 tiles, partial dot products combined by two warp
 // shuffles (the templates are instantiated for float only).
+//
+// Relative positions (K12, the RELPOS instantiation of both tensor-core
+// passes, built into a library of its own from relpos/): the score carries
+// the positional term pos[h, b, i, T - 1 - i + j] of K11
+// (fused_attention_fwd.cu), which seeds the score accumulators in both
+// passes as it does in the forward. The dQ pass, which holds dS_ij in
+// registers, also writes its gradient, dS_ij scale, to dpos[h, b, i, T - 1
+// - i + j] in bf16 (the caller zeroes dpos; tiles a block skips have dS =
+// 0): the GEMMs of (q + v_bias) p^T take it from there. dpos is (H, B, T,
+// 2T - 1), heads first, so that the gradient of p, a sum over the batch and
+// the rows, is one batched GEMM over (B T) per head.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -362,11 +373,12 @@ __device__ __forceinline__ void query_tile_range(int j0, int qn, int kn,
   hi = (last + asr::ATT_TILE - 1) / asr::ATT_TILE;
 }
 
-template <int D, bool DROPOUT>
+template <int D, bool DROPOUT, bool RELPOS>
 __global__ void __launch_bounds__(MMA_THREADS)
 attention_bwd_dkdv_mma_kernel(const __nv_bfloat16* __restrict__ q,
                               const __nv_bfloat16* __restrict__ k,
                               const __nv_bfloat16* __restrict__ v,
+                              const __nv_bfloat16* __restrict__ pos,
                               const __nv_bfloat16* __restrict__ dout,
                               const float2* __restrict__ stats,
                               const float* __restrict__ delta,
@@ -426,6 +438,10 @@ attention_bwd_dkdv_mma_kernel(const __nv_bfloat16* __restrict__ q,
 
   int t_lo, t_hi;
   query_tile_range(j0, qn, kn, p, t_lo, t_hi);
+  // RELPOS: the term of (query i, key j) is pbase[i (2 Tk - 2) + j]
+  const __nv_bfloat16* pbase = nullptr;
+  if constexpr (RELPOS)
+    pbase = pos + ((size_t)h * gridDim.z + b) * p.Tq * (2 * (size_t)p.Tk - 1) + (p.Tk - 1);
 
   // Q and dO rows at or past qn are zero-filled, with their statistics and D
   auto load_tile = [&](int st, int t) {
@@ -451,11 +467,20 @@ attention_bwd_dkdv_mma_kernel(const __nv_bfloat16* __restrict__ q,
     if (warp_on) {
       const int i0 = t * ATT_TILE;
       // S^T = K Q^T and dP^T = V dO^T: 16 keys x 64 queries per warp
+      // (RELPOS: S^T on top of the positional terms, as in the forward)
       float sT[NT][4], dpT[NT][4];
 #pragma unroll
       for (int nt = 0; nt < NT; ++nt)
 #pragma unroll
-        for (int e = 0; e < 4; ++e) sT[nt][e] = dpT[nt][e] = 0.0f;
+        for (int e = 0; e < 4; ++e) {
+          sT[nt][e] = dpT[nt][e] = 0.0f;
+          if constexpr (RELPOS) {
+            const int i = i0 + nt * 8 + 2 * t4 + (e & 1);
+            const int j = jrow[e >> 1];
+            if (i < p.Tq && j < p.Tk)
+              sT[nt][e] = __bfloat162float(pbase[(size_t)i * (2 * p.Tk - 2) + j]);
+          }
+        }
 #pragma unroll
       for (int ks = 0; ks < KS; ++ks) {
 #pragma unroll
@@ -511,11 +536,13 @@ attention_bwd_dkdv_mma_kernel(const __nv_bfloat16* __restrict__ q,
   store_rows<D>(dva, 1.0f, Gs[0] + warp * 16 * LD, dv + bh * p.Tk * D, jw, p.Tk, lane);
 }
 
-template <int D, bool DROPOUT>
+template <int D, bool DROPOUT, bool RELPOS>
 __global__ void __launch_bounds__(MMA_THREADS)
 attention_bwd_dq_mma_kernel(const __nv_bfloat16* __restrict__ q,
                             const __nv_bfloat16* __restrict__ k,
                             const __nv_bfloat16* __restrict__ v,
+                            const __nv_bfloat16* __restrict__ pos,
+                            __nv_bfloat16* __restrict__ dpos,
                             const __nv_bfloat16* __restrict__ out,
                             const __nv_bfloat16* __restrict__ out_lo,
                             const __nv_bfloat16* __restrict__ dout,
@@ -595,6 +622,20 @@ attention_bwd_dq_mma_kernel(const __nv_bfloat16* __restrict__ q,
 #pragma unroll
     for (int e = 0; e < 4; ++e) acc[dn][e] = 0.0f;
 
+  // RELPOS: row r's positional terms and their gradient at [j]
+  const __nv_bfloat16* prow[2] = {nullptr, nullptr};
+  __nv_bfloat16* dprow[2] = {nullptr, nullptr};
+  if constexpr (RELPOS) {
+    const size_t R = 2 * (size_t)p.Tk - 1;
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int i = min(irow[r], p.Tq - 1);
+      const size_t at = ((size_t)h * gridDim.z + b) * p.Tq * R + (size_t)i * R + (p.Tk - 1 - i);
+      prow[r] = pos + at;
+      dprow[r] = dpos + at;
+    }
+  }
+
   int t_lo = 0, t_hi = 0;  // a block of padded rows visits no tile
   if (i0 < qn)
     key_tile_range(i0, min(i0 + ATT_TILE, qn) - 1, p.Tk, kn, p.causal, p.band, t_lo, t_hi);
@@ -616,11 +657,18 @@ attention_bwd_dq_mma_kernel(const __nv_bfloat16* __restrict__ q,
     if (warp_on) {
       const int j0 = t * ATT_TILE;
       // S = Q K^T and dP = dO V^T: 16 queries x 64 keys per warp
+      // (RELPOS: S on top of the positional terms, as in the forward)
       float s[NT][4], dp[NT][4];
 #pragma unroll
       for (int nt = 0; nt < NT; ++nt)
 #pragma unroll
-        for (int e = 0; e < 4; ++e) s[nt][e] = dp[nt][e] = 0.0f;
+        for (int e = 0; e < 4; ++e) {
+          s[nt][e] = dp[nt][e] = 0.0f;
+          if constexpr (RELPOS) {
+            const int j = j0 + nt * 8 + 2 * t4 + (e & 1);
+            if (j < p.Tk && irow[e >> 1] < p.Tq) s[nt][e] = __bfloat162float(prow[e >> 1][j]);
+          }
+        }
 #pragma unroll
       for (int ks = 0; ks < KS; ++ks) {
 #pragma unroll
@@ -653,6 +701,9 @@ attention_bwd_dq_mma_kernel(const __nv_bfloat16* __restrict__ q,
             keep = keep_hash((uint32_t)i, (uint32_t)j, p.seed, cell) >= p.threshold
                        ? p.inv_keep : 0.0f;
           dp[nt][e] = w * (dp[nt][e] * keep - di[e >> 1]);
+          if constexpr (RELPOS) {
+            if (j < p.Tk && i < p.Tq) dprow[e >> 1][j] = __float2bfloat16(dp[nt][e] * p.scale);
+          }
         }
       }
       // dQ += dS K, dS as hi + lo
@@ -670,27 +721,29 @@ attention_bwd_dq_mma_kernel(const __nv_bfloat16* __restrict__ q,
   store_rows<D>(acc, p.scale, Ks[0] + warp * 16 * LD, dq + bh * p.Tq * D, iw, p.Tq, lane);
 }
 
-template <int D, bool DROPOUT>
+template <int D, bool DROPOUT, bool RELPOS = false>
 int launch_mma(const void* q, const void* k, const void* v, const void* out,
                const void* out_lo, const void* dout, const float2* stats, const int* q_len,
                const int* k_len, float* delta, void* dq, void* dk, void* dv,
-               int B, const Params& p, cudaStream_t stream) {
+               int B, const Params& p, cudaStream_t stream, const void* pos = nullptr,
+               void* dpos = nullptr) {
   using T = __nv_bfloat16;
   dim3 qgrid((p.Tq + asr::ATT_TILE - 1) / asr::ATT_TILE, p.H, B);
-  attention_bwd_dq_mma_kernel<D, DROPOUT><<<qgrid, MMA_THREADS, 0, stream>>>(
-      (const T*)q, (const T*)k, (const T*)v, (const T*)out, (const T*)out_lo,
-      (const T*)dout, stats, delta, q_len, k_len, (T*)dq, p);
+  attention_bwd_dq_mma_kernel<D, DROPOUT, RELPOS><<<qgrid, MMA_THREADS, 0, stream>>>(
+      (const T*)q, (const T*)k, (const T*)v, (const T*)pos, (T*)dpos, (const T*)out,
+      (const T*)out_lo, (const T*)dout, stats, delta, q_len, k_len, (T*)dq, p);
   const cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   dim3 kgrid((p.Tk + asr::ATT_TILE - 1) / asr::ATT_TILE, p.H, B);
-  attention_bwd_dkdv_mma_kernel<D, DROPOUT><<<kgrid, MMA_THREADS, 0, stream>>>(
-      (const T*)q, (const T*)k, (const T*)v, (const T*)dout, stats, delta, q_len,
-      k_len, (T*)dk, (T*)dv, p);
+  attention_bwd_dkdv_mma_kernel<D, DROPOUT, RELPOS><<<kgrid, MMA_THREADS, 0, stream>>>(
+      (const T*)q, (const T*)k, (const T*)v, (const T*)pos, (const T*)dout, stats, delta,
+      q_len, k_len, (T*)dk, (T*)dv, p);
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
+#ifndef ASR_RELPOS_ENTRY
 // q, out, dout, dq: (B, H, Tq, D); k, v, dk, dv: (B, H, Tk, D); all
 // contiguous, bf16 (is_bf16=1) or f32. out_lo: (B, H, Tq, D) bf16 from the
 // forward kernel (what the rounding of a bf16 ``out`` took away), or null,
@@ -739,3 +792,28 @@ extern "C" int asr_attention_bwd(const void* q, const void* k, const void* v,
 #undef ASR_ATTN_BWD_MMA_ARGS
 #undef ASR_ATTN_BWD_ARGS
 #undef ASR_ATTN_BWD_PARAMS
+#else
+// K12: q, k, v, out, out_lo, dout, dq, dk, dv: (B, H, T, D) bf16, contiguous;
+// pos: (H, B, T, 2T - 1) bf16, K11's positional terms; dpos: like pos, zeroed
+// by the caller, receives their gradient; stats, delta, q_len/k_len as
+// asr_attention_bwd takes them (no causal mask, no band, no weight dropout).
+// Returns the first launch error, cudaErrorInvalidValue for a head dim
+// without an instantiation, or 0.
+extern "C" int asr_relpos_attention_bwd(const void* q, const void* k, const void* v,
+                                        const void* pos, const void* out,
+                                        const void* out_lo, const void* dout,
+                                        const float* stats, const int* q_len,
+                                        const int* k_len, float* delta, void* dq,
+                                        void* dk, void* dv, void* dpos, int B, int H,
+                                        int T, int D, float scale, void* stream) {
+  const Params p{H, T, T, scale, 0u, 0u, 1.0f, 0, 0, 0};
+  const float2* st = (const float2*)stats;
+  if (D == 64)
+    return launch_mma<64, false, true>(q, k, v, out, out_lo, dout, st, q_len, k_len, delta, dq,
+                                       dk, dv, B, p, (cudaStream_t)stream, pos, dpos);
+  if (D == 32)
+    return launch_mma<32, false, true>(q, k, v, out, out_lo, dout, st, q_len, k_len, delta, dq,
+                                       dk, dv, B, p, (cudaStream_t)stream, pos, dpos);
+  return (int)cudaErrorInvalidValue;
+}
+#endif

@@ -68,6 +68,19 @@
 // shared memory (the template is instantiated for float only).
 // Masked keys get -1e9 added (not -inf), as the TPU kernel does, so a row
 // whose keys are all masked averages over Tk.
+//
+// Relative positions (K11, the RELPOS instantiation of the tensor-core
+// kernel, built into a library of its own from relpos/): square self-
+// attention whose score adds a positional term, s_ij = (q_i . k_j +
+// pos[h, b, i, T - 1 - i + j]) * scale, where pos (H, B, T, 2T - 1) bf16 is
+// the product (q + v_bias) p^T that the caller forms with one batched GEMM
+// (ops/fused_attention.py::relpos_attention). Row T - 1 - i + j of the
+// relative table is position i - j, so the kernel reads the term by that
+// diagonal index; the term seeds the score accumulators before Q K^T is
+// added to them, so it costs no register. No (T, T) score and no shifted
+// copy of pos is made. RELPOS is a template parameter: the instantiation
+// that K1 runs has none of it. K11 takes no weight dropout (ESPnet's rel-pos
+// attention has none), so only DROPOUT = false is instantiated with it.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -220,12 +233,13 @@ void launch(const void* q, const void* k, const void* v, const int* q_len,
 
 constexpr int MMA_THREADS = 128;  // 4 warps x 16 query rows
 
-template <int D, bool DROPOUT>
+template <int D, bool DROPOUT, bool RELPOS>
 __global__ void __launch_bounds__(MMA_THREADS)
 attention_fwd_mma_kernel(const __nv_bfloat16* __restrict__ q,
                          const __nv_bfloat16* __restrict__ k,
                          const __nv_bfloat16* __restrict__ v,
                          const int* __restrict__ q_len, const int* __restrict__ k_len,
+                         const __nv_bfloat16* __restrict__ pos,
                          __nv_bfloat16* __restrict__ out,
                          __nv_bfloat16* __restrict__ out_lo, float* __restrict__ stats,
                          int H, int Tq, int Tk, float scale, uint32_t seed,
@@ -271,6 +285,16 @@ attention_fwd_mma_kernel(const __nv_bfloat16* __restrict__ q,
 
   int t_lo, t_hi;
   key_tile_range(i0, min(i0 + ATT_TILE, Tq) - 1, Tk, kn, causal, band, t_lo, t_hi);
+  // RELPOS: row r's positional terms, prow[r][j] = pos[h, b, i, Tk - 1 - i + j]
+  const __nv_bfloat16* prow[2] = {nullptr, nullptr};
+  if constexpr (RELPOS) {
+    const size_t R = 2 * (size_t)Tk - 1;
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int i = min(irow[r], Tq - 1);
+      prow[r] = pos + ((size_t)h * gridDim.z + b) * Tq * R + (size_t)i * R + (Tk - 1 - i);
+    }
+  }
 
   load_tile_async<D, MMA_THREADS>(Qs, qb, i0, Tq, tid);
   load_tile_async<D, MMA_THREADS>(Ks[0], kb, t_lo * ATT_TILE, Tk, tid);
@@ -304,12 +328,20 @@ attention_fwd_mma_kernel(const __nv_bfloat16* __restrict__ q,
       }
       const int j0 = t * ATT_TILE;
 
-      // S = Q K^T: 16 rows x 64 keys per warp
+      // S = Q K^T: 16 rows x 64 keys per warp (RELPOS: on top of the
+      // positional terms; none past the key axis or the last row)
       float s[NT][4];
 #pragma unroll
       for (int nt = 0; nt < NT; ++nt)
 #pragma unroll
-        for (int e = 0; e < 4; ++e) s[nt][e] = 0.0f;
+        for (int e = 0; e < 4; ++e) {
+          if constexpr (RELPOS) {
+            const int j = j0 + nt * 8 + 2 * t4 + (e & 1);
+            s[nt][e] = (j < Tk && irow[e >> 1] < Tq) ? __bfloat162float(prow[e >> 1][j]) : 0.0f;
+          } else {
+            s[nt][e] = 0.0f;
+          }
+        }
 #pragma unroll
       for (int ks = 0; ks < KS; ++ks) {
 #pragma unroll
@@ -418,20 +450,23 @@ attention_fwd_mma_kernel(const __nv_bfloat16* __restrict__ q,
   store_rows<D>(o, 1.0f, stage, out_lo + bh * Tq * D, i0 + warp * 16, Tq, lane);
 }
 
-template <int D, bool DROPOUT>
+template <int D, bool DROPOUT, bool RELPOS = false>
 void launch_mma(const void* q, const void* k, const void* v, const int* q_len,
                 const int* k_len, void* out, void* out_lo, float* stats, int B, int H,
                 int Tq, int Tk, float scale, uint32_t seed, uint32_t threshold,
-                float keep_prob, int causal, int band, cudaStream_t stream) {
+                float keep_prob, int causal, int band, cudaStream_t stream,
+                const void* pos = nullptr) {
   dim3 grid((Tq + asr::ATT_TILE - 1) / asr::ATT_TILE, H, B);
-  attention_fwd_mma_kernel<D, DROPOUT><<<grid, MMA_THREADS, 0, stream>>>(
+  attention_fwd_mma_kernel<D, DROPOUT, RELPOS><<<grid, MMA_THREADS, 0, stream>>>(
       (const __nv_bfloat16*)q, (const __nv_bfloat16*)k, (const __nv_bfloat16*)v,
-      q_len, k_len, (__nv_bfloat16*)out, (__nv_bfloat16*)out_lo, stats, H, Tq, Tk, scale,
-      seed, threshold, keep_prob, causal, band);
+      q_len, k_len, (const __nv_bfloat16*)pos, (__nv_bfloat16*)out,
+      (__nv_bfloat16*)out_lo, stats, H, Tq, Tk, scale, seed, threshold, keep_prob, causal,
+      band);
 }
 
 }  // namespace
 
+#ifndef ASR_RELPOS_ENTRY
 // q: (B, H, Tq, D), k/v: (B, H, Tk, D), out: (B, H, Tq, D), all contiguous,
 // bf16 (is_bf16=1) or f32; q_len/k_len: (B,) int32 on the device; stats:
 // (B, H, Tq, 2) f32 output of each row's (max, log-sum) in the kernel's
@@ -475,3 +510,27 @@ extern "C" int asr_attention_fwd(const void* q, const void* k, const void* v,
 
 #undef ASR_ATTN_MMA
 #undef ASR_ATTN_ARGS
+#else
+// K11: q, k, v, out, out_lo: (B, H, T, D) bf16, contiguous; pos: (H, B, T,
+// 2T - 1) bf16, the positional terms before scaling; q_len/k_len, stats and
+// out_lo as asr_attention_fwd takes them (no causal mask, no band, no weight
+// dropout: ESPnet's rel-pos attention has none). Returns cudaGetLastError()
+// after the launch, or cudaErrorInvalidValue for a head dim without an
+// instantiation.
+extern "C" int asr_relpos_attention_fwd(const void* q, const void* k, const void* v,
+                                        const int* q_len, const int* k_len,
+                                        const void* pos, void* out, void* out_lo,
+                                        float* stats, int B, int H, int T, int D,
+                                        float scale, void* stream) {
+  if (D == 64) {
+    launch_mma<64, false, true>(q, k, v, q_len, k_len, out, out_lo, stats, B, H, T, T, scale,
+                                0u, 0u, 1.0f, 0, 0, (cudaStream_t)stream, pos);
+  } else if (D == 32) {
+    launch_mma<32, false, true>(q, k, v, q_len, k_len, out, out_lo, stats, B, H, T, T, scale,
+                                0u, 0u, 1.0f, 0, 0, (cudaStream_t)stream, pos);
+  } else {
+    return (int)cudaErrorInvalidValue;
+  }
+  return (int)cudaGetLastError();
+}
+#endif

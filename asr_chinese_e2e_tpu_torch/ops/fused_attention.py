@@ -18,6 +18,18 @@ versions: ``attention_reference`` (the counterpart of the JAX package's
 ``banded_attention_backward_reference`` (the (BQ, 2 BQ) window tiles of
 ``_banded_tile`` and the formula of ``_banded_bwd_kernel`` with its dK/dV
 shift-add); on CUDA tensors it launches the kernels or raises.
+
+Relative positions (``pos``, the rel-pos self-attention of ESPnet's
+conformer, ``relpos_attention``): the score of query i and key j gains a
+positional term, s_ij = (q_i . k_j + pos[h, b, i, T - 1 - i + j]) * scale,
+read by that diagonal index from the (H, B, T, 2T - 1) product that
+``relpos_attention`` forms with one batched GEMM; the backward returns its
+gradient in the same layout. On bf16 CUDA tensors K11 and K12 (the RELPOS
+instantiations of K1's and K2's tensor-core kernels, ``csrc/relpos/``, a
+library of their own) compute it with no (T, T) tensor, and CUDA tensors
+of another dtype raise ValueError; on the CPU the plain versions,
+``attention_reference`` and ``attention_backward_reference`` with
+``pos``.
 """
 
 from __future__ import annotations
@@ -82,11 +94,27 @@ def _compute_dtype(dtype: torch.dtype) -> torch.dtype:
     return torch.promote_types(dtype, torch.float32)
 
 
-def attention_weights(q, k, q_lengths, k_lengths, scale, causal, band=0):
+def relpos_diagonal(pos: torch.Tensor, tk: int) -> torch.Tensor:
+    """The (B, H, Tq, Tk) view of ``pos`` (H, B, Tq, 2 Tk - 1), contiguous,
+    at [h, b, i, Tk - 1 - i + j]: the term of query i and key j, whose
+    relative position i - j is row Tk - 1 - i + j of the table. A view, no
+    copy: writing it writes ``pos``."""
+    h, b, tq, r = pos.shape
+    view = pos.as_strided((h, b, tq, tk), (b * tq * r, tq * r, r - 1, 1),
+                          pos.storage_offset() + tk - 1)
+    return view.transpose(0, 1)
+
+
+def attention_weights(q, k, q_lengths, k_lengths, scale, causal, band=0, pos=None):
     """The kernel's weights W: f32 scores with -1e9 on masked keys, row
-    softmax, padded query rows zeroed. (B, H, Tq, Tk)."""
+    softmax, padded query rows zeroed. (B, H, Tq, Tk). ``pos``: the
+    positional terms (``relpos_diagonal``), added before the scale."""
     ct = _compute_dtype(q.dtype)
-    s = torch.einsum("bhqd,bhkd->bhqk", q.to(ct), k.to(ct)) * scale
+    s = torch.einsum("bhqd,bhkd->bhqk", q.to(ct), k.to(ct))
+    if pos is None:
+        s = s * scale
+    else:
+        s = (s + relpos_diagonal(pos, k.shape[2]).to(ct)) * scale
     tq, tk = q.shape[2], k.shape[2]
     dev = q.device
     kpos = torch.arange(tk, device=dev)[None, None, None, :]
@@ -105,11 +133,11 @@ def attention_weights(q, k, q_lengths, k_lengths, scale, causal, band=0):
 
 
 def attention_reference(
-    q, k, v, q_lengths, k_lengths, seed, scale, rate, causal, band=0
+    q, k, v, q_lengths, k_lengths, seed, scale, rate, causal, band=0, pos=None
 ):
     """Plain torch version of the forward kernel: ``attention_weights``,
     hash keep mask, (W o M) V with W cast to the value dtype."""
-    w = attention_weights(q, k, q_lengths, k_lengths, scale, causal, band)
+    w = attention_weights(q, k, q_lengths, k_lengths, scale, causal, band, pos)
     if rate > 0.0:
         bsz, heads, tq, tk = w.shape
         w = w * keep_mask_reference(seed, bsz, heads, tq, tk, rate, q.device).to(w.dtype)
@@ -117,14 +145,15 @@ def attention_reference(
 
 
 def attention_backward_reference(
-    q, k, v, q_lengths, k_lengths, seed, scale, rate, causal, band, dout
+    q, k, v, q_lengths, k_lengths, seed, scale, rate, causal, band, dout, pos=None
 ):
     """Plain torch version of the backward kernel, the explicit formula of
     the TPU kernel ``_bwd_kernel``: recompute W and M, then dV = (W o M)^T
     dO, dW = (dO V^T) o M, dS = W o (dW - rowsum(dW o W)), dQ = dS K scale,
     dK = dS^T Q scale. Arithmetic in f32 (f64 for f64 inputs); returns
-    (dq, dk, dv) in the inputs' dtypes."""
-    w = attention_weights(q, k, q_lengths, k_lengths, scale, causal, band)
+    (dq, dk, dv) in the inputs' dtypes, and with ``pos`` also its gradient
+    dS scale at the diagonal indices (zero elsewhere), in pos's dtype."""
+    w = attention_weights(q, k, q_lengths, k_lengths, scale, causal, band, pos)
     ct = w.dtype
     g = dout.to(ct)
     keep = None
@@ -139,7 +168,11 @@ def attention_backward_reference(
     ds = w * (dw - (dw * w).sum(-1, keepdim=True))
     dq = torch.einsum("bhqk,bhkd->bhqd", ds, k.to(ct)) * scale
     dk = torch.einsum("bhqk,bhqd->bhkd", ds, q.to(ct)) * scale
-    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+    if pos is None:
+        return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+    dpos = torch.zeros_like(pos)
+    relpos_diagonal(dpos, k.shape[2]).copy_(ds * scale)
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype), dpos
 
 
 # -- the windowed causal-band route (K6 / K7) ----------------------------------
@@ -436,6 +469,61 @@ def attention_backward_kernel(
     )
 
 
+def _check_pos(q, k, pos):
+    """pos is (H, B, T, 2T - 1) bf16, contiguous, beside a square bf16 call."""
+    bsz, heads, t, _ = q.shape
+    if k.shape[2] != t:
+        raise ValueError("relpos attention kernel: positional terms need Tq == Tk")
+    want = (heads, bsz, t, 2 * t - 1)
+    if tuple(pos.shape) != want or pos.dtype != torch.bfloat16 or not pos.is_contiguous():
+        raise ValueError(f"relpos attention kernel: pos must be {want} bf16, contiguous")
+    if q.dtype != torch.bfloat16:
+        raise ValueError("relpos attention kernel: bf16 only")
+
+
+def relpos_attention_kernel(q, k, v, pos, q_len, k_len, scale, stats=None, out_lo=None):
+    """K11, the forward with positional terms and no weight dropout, on
+    tensors checked by ``_check_kernel_inputs`` and ``_check_pos`` (pos (H,
+    B, T, 2T - 1)); ``stats`` and ``out_lo`` as ``_launch`` takes them.
+    Returns the new output."""
+    bsz, heads, t, d = q.shape
+    out = torch.empty_like(q)
+    lib = load_library("relpos")
+    with torch.cuda.device(q.device):
+        err = lib.asr_relpos_attention_fwd(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), q_len.data_ptr(), k_len.data_ptr(),
+            pos.data_ptr(), out.data_ptr(), _residual_ptr(q, out_lo),
+            None if stats is None else stats.data_ptr(), bsz, heads, t, d, float(scale),
+            torch.cuda.current_stream().cuda_stream,
+        )
+    check(err, "asr_relpos_attention_fwd")
+    relpos_attention_kernel.launches += 1
+    return out
+
+
+def relpos_attention_backward_kernel(q, k, v, pos, out, stats, q_len, k_len, scale, dout,
+                                     out_lo=None):
+    """K12 on tensors checked by the forward, from K11's output, row
+    statistics and rounding residual: (dq, dk, dv, dpos), dpos like pos."""
+    bsz, heads, t, d = q.shape
+    dout = _check_backward_tensors(q, stats, dout, out, per_row=2)
+    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+    dpos = torch.zeros_like(pos)
+    delta = torch.empty((bsz, heads, t), dtype=torch.float32, device=q.device)
+    lib = load_library("relpos")
+    with torch.cuda.device(q.device):
+        err = lib.asr_relpos_attention_bwd(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), pos.data_ptr(), out.data_ptr(),
+            _residual_ptr(q, out_lo), dout.data_ptr(), stats.data_ptr(), q_len.data_ptr(),
+            k_len.data_ptr(), delta.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+            dpos.data_ptr(), bsz, heads, t, d, float(scale),
+            torch.cuda.current_stream().cuda_stream,
+        )
+    check(err, "asr_relpos_attention_bwd")
+    relpos_attention_backward_kernel.launches += 1
+    return dq, dk, dv, dpos
+
+
 def banded_attention_kernel(q, k, v, n, seed, scale, rate, band, lse=None):
     """K6: the windowed causal-band forward on tensors that
     ``_check_kernel_inputs`` has checked (``n``: (B,) int32 lengths on the
@@ -492,15 +580,25 @@ def banded_attention_backward_kernel(q, k, v, lse, lengths, seed, scale, rate, b
 
 
 def _forward_kernels(
-    q, k, v, q_lengths, k_lengths, seed, scale, rate, causal, band, banded, needs_grad
+    q, k, v, q_lengths, k_lengths, seed, scale, rate, causal, band, banded, needs_grad,
+    pos=None,
 ):
-    """K1, or K6 on the windowed route, after the call's one validation and
-    host sync; returns (out, what the backward needs or None), and the
-    backward launches on these lengths unchecked. What the backward needs
-    of each row: K6's log-sum-exp (B, H, T), or K1's row max and log-sum
-    apart (B, H, Tq, 2), which serve a row that sees no key too."""
+    """K1, or K6 on the windowed route, or K11 with ``pos``, after the
+    call's one validation and host sync; returns (out, what the backward
+    needs or None), and the backward launches on these lengths unchecked.
+    What the backward needs of each row: K6's log-sum-exp (B, H, T), or
+    K1's (K11's) row max and log-sum apart (B, H, Tq, 2), which serve a row
+    that sees no key too."""
     q_len, k_len = _check_kernel_inputs(q, k, v, q_lengths, k_lengths)
     rows = out_lo = None
+    if pos is not None:
+        _check_pos(q, k, pos)
+        if needs_grad:
+            rows, out_lo = row_stats_like(q), torch.empty_like(q)
+        out = relpos_attention_kernel(q, k, v, pos, q_len, k_len, scale, rows, out_lo)
+        if not needs_grad:
+            return out, None
+        return out, (q, k, v, q_len, k_len, out, rows, out_lo, pos)
     if banded:
         if needs_grad:
             rows = torch.empty(q.shape[:3], dtype=torch.float32, device=q.device)
@@ -528,7 +626,11 @@ class _FusedAttention(torch.autograd.Function):
     passes ``k_lengths`` as its one length, as the JAX package does."""
 
     @staticmethod
-    def forward(ctx, q, k, v, q_lengths, k_lengths, seed, scale, rate, causal, band):
+    def forward(ctx, q, k, v, q_lengths, k_lengths, seed, scale, rate, causal, band,
+                pos=None):
+        if pos is not None:
+            return _FusedAttention._forward_relpos(
+                ctx, q, k, v, q_lengths, k_lengths, seed, scale, rate, pos)
         windowed = _use_banded_window(q, k, causal, band)
         banded = windowed and _window_fits(q, band)
         if windowed and not banded:
@@ -559,9 +661,40 @@ class _FusedAttention(torch.autograd.Function):
         return out
 
     @staticmethod
+    def _forward_relpos(ctx, q, k, v, q_lengths, k_lengths, seed, scale, rate, pos):
+        """K11 on CUDA tensors (bf16, checked by ``relpos_on_kernels``), the
+        plain version on the CPU."""
+        ctx.args = (seed, scale, rate, False, 0, False)
+        ctx.relpos = True
+        needs_grad = any(ctx.needs_input_grad[:3]) or ctx.needs_input_grad[10]
+        if not relpos_on_kernels(q.device.type, q.dtype, pos.dtype):
+            ctx.plain = True
+            if needs_grad:
+                ctx.save_for_backward(q, k, v, q_lengths, k_lengths, pos)
+            return attention_reference(
+                q, k, v, q_lengths, k_lengths, seed, scale, rate, False, 0, pos)
+        ctx.plain = False
+        out, saved = _forward_kernels(
+            q, k, v, q_lengths, k_lengths, seed, scale, rate, False, 0, False, needs_grad,
+            pos)
+        if saved is not None:
+            ctx.save_for_backward(*saved)
+        return out
+
+    @staticmethod
     def backward(ctx, dout):
         seed, scale, rate, causal, band, banded = ctx.args
         saved = ctx.saved_tensors
+        if getattr(ctx, "relpos", False):
+            if ctx.plain:
+                q, k, v, q_lengths, k_lengths, pos = saved
+                grads = attention_backward_reference(
+                    q, k, v, q_lengths, k_lengths, seed, scale, rate, False, 0, dout, pos)
+            else:
+                q, k, v, q_len, k_len, out, rows, out_lo, pos = saved
+                grads = relpos_attention_backward_kernel(
+                    q, k, v, pos, out, rows, q_len, k_len, scale, dout, out_lo)
+            return (*grads[:3], None, None, None, None, None, None, None, grads[3])
         if saved[0].device.type == "cpu":
             q, k, v, q_lengths, k_lengths = saved
             if banded:
@@ -584,12 +717,24 @@ class _FusedAttention(torch.autograd.Function):
                     q, k, v, out, rows, q_len, k_len, seed, scale, rate, causal, band,
                     dout, out_lo,
                 )
-        return (*grads, None, None, None, None, None, None, None)
+        return (*grads, None, None, None, None, None, None, None, None)
+
+
+def relpos_on_kernels(device_type: str, *dtypes) -> bool:
+    """Whether a call with positional terms on ``device_type`` tensors of
+    ``dtypes`` takes K11/K12: on CUDA it does, and only bf16 is taken (no
+    f32 kernel has the positional term, and the plain version would put
+    (B, H, T, T) scores on the card); on the CPU the plain versions."""
+    if device_type != "cuda":
+        return False
+    if any(dt != torch.bfloat16 for dt in dtypes):
+        raise ValueError(f"relative positions on CUDA: K11/K12 take bf16 only, got {dtypes}")
+    return True
 
 
 def fused_attention_general(
     q, k, v, q_lengths, k_lengths, seed,
-    scale: float, dropout_rate: float, causal: bool, band: int = 0,
+    scale: float, dropout_rate: float, causal: bool, band: int = 0, pos=None,
 ):
     """q: (B, H, Tq, D); k/v: (B, H, Tk, D); q_lengths/k_lengths: (B,)
     valid query/key counts; seed: int (dropout stream). Returns (B, H, Tq,
@@ -602,13 +747,40 @@ def fused_attention_general(
     windowed route (K6/K7), where ``k_lengths`` masks keys and zeroes
     query rows; a bf16 window wider than K6/K7 hold (``_window_fits``)
     takes K1/K2 with ``k_lengths`` as both lengths, which computes the
-    same function."""
+    same function. ``pos`` (H, B, T, 2T - 1): positional terms of a square,
+    unmasked call (no causal mask, no band, no weight dropout),
+    differentiable too (see the module's note; K11/K12 on CUDA tensors,
+    which must be bf16)."""
     if q.device.type not in ("cpu", "cuda"):
         raise ValueError(f"attention kernel: unsupported device {q.device}")
+    if pos is not None and (causal or band or dropout_rate or q.shape[2] != k.shape[2]):
+        raise ValueError("relative positions need square attention with no causal mask, "
+                         "band or weight dropout")
+    if pos is not None:
+        relpos_on_kernels(q.device.type, q.dtype, k.dtype, v.dtype, pos.dtype)
     return _FusedAttention.apply(
         q, k, v, q_lengths, k_lengths, int(seed), float(scale),
-        float(dropout_rate), bool(causal), int(band),
+        float(dropout_rate), bool(causal), int(band), pos,
     )
+
+
+def relpos_attention(q, k, v, p, bias_u, bias_v, lengths, scale: float):
+    """ESPnet's relative-position self-attention (``rel_pos_type: latest``)
+    on (B, T, H, D) q, k, v in heads-last layout and p (2T - 1, H, D), the
+    projected relative table whose row r is position T - 1 - r:
+    s_ij = ((q_i + u) . k_j + (q_i + v) . p_{T-1-i+j}) scale, keys j >=
+    length masked, no weight dropout, (B, T, H, D) out. The positional
+    terms (q + v) p^T come
+    from one batched GEMM per head over (B T) rows, into (H, B, T, 2T - 1),
+    which ``fused_attention_general`` reads by diagonal index; autograd
+    takes the gradients of q + v and p from it through the GEMM."""
+    b, t, h, d = q.shape
+    qu = (q + bias_u).transpose(1, 2).contiguous()
+    kt, vt = k.transpose(1, 2).contiguous(), v.transpose(1, 2).contiguous()
+    qv = (q + bias_v).permute(2, 0, 1, 3).reshape(h, b * t, d)
+    pos = torch.matmul(qv, p.permute(1, 2, 0)).view(h, b, t, 2 * t - 1)
+    out = fused_attention_general(qu, kt, vt, lengths, lengths, 0, scale, 0.0, False, 0, pos)
+    return out.transpose(1, 2)
 
 
 def fused_attention(q, k, v, lengths, seed, scale: float, dropout_rate: float):
@@ -671,5 +843,7 @@ def fused_attention_sharded(
 # kernel launches so far (the CPU path does not count)
 fused_attention_general.launches = 0
 attention_backward_kernel.launches = 0
+relpos_attention_kernel.launches = 0
+relpos_attention_backward_kernel.launches = 0
 banded_attention_kernel.launches = 0
 banded_attention_backward_kernel.launches = 0

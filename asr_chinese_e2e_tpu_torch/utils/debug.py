@@ -33,7 +33,13 @@ The port's spans: ``train_step`` with ``train.features``,
 ``recognize.drain`` and ``recognize.consume`` (``recognize.py``);
 ``beam.step`` (``decode/beam.py``); ``rescore.ctc_log_probs``,
 ``rescore.prefix_beam``, ``rescore.nbest_to_host`` and
-``rescore.forward``. A host read of a card tensor, or a wait for the
+``rescore.forward``; ``encoder.frontend`` around the encoder's frontend and,
+with relative positions, ``encoder.relpos`` around the relative table,
+its dropout and every block's projection of it
+(``models/transformer.py``). The kernels count their own launches
+(``ops/fused_attention.py``: ``fused_attention_general.launches`` for K1,
+``relpos_attention_kernel.launches`` and
+``relpos_attention_backward_kernel.launches`` for the rel-pos K11/K12). A host read of a card tensor, or a wait for the
 card, is a span ``sync.<site>`` around the reading call itself, so a
 sync's count and its wait are read from the same records.
 """

@@ -19,8 +19,8 @@ Run from the repository root:
     python3 chip_smoke.py
 
 Phases (any failure raises, so the exit code is non-zero; phases 3-17, 7b,
-8b, 9b, 14b, 15b and 15c each print the seconds they took; 7b runs after
-7, 8b after 8, 9b after 9, 14b after 14, 15b and 15c after 15):
+7c, 8b, 9b, 14b, 15b and 15c each print the seconds they took; 7b and 7c
+run after 7, 8b after 8, 9b after 9, 14b after 14, 15b and 15c after 15):
 
 1. require CUDA; print the card (``nvidia-smi``); TF32 off for matmuls
    (cuDNN's stays at PyTorch's default: the port's cuDNN layers turn it off);
@@ -113,6 +113,20 @@ Phases (any failure raises, so the exit code is non-zero; phases 3-17, 7b,
    through K10 and equal to its CPU route; at the encoder shape the times
    in turns with the plain chain and the device time under the profiler,
    which must reach ``K10_MIN_SHARE`` (60 %) of the byte bound;
+7c. K11/K12, the rel-pos attention (``fused_attention_general`` with
+   ``pos``), at the card test's (64, 4, 250, 64) and the fill batches'
+   (409, 4, 249, 64) and (1024, 4, 99, 64) in bf16 against
+   ``attention_reference`` / ``attention_backward_reference`` in f32 on
+   the same inputs, ragged lengths: out (valid rows), dq, dk, dv and dpos
+   each within a relative norm gap of ``RELPOS_GAP`` (1e-2), whole and per
+   utterance, and a dpos 3 % off must read above it; one K11 and one K12
+   a call; f32 CUDA tensors refused with no launch; device ms of K11 and
+   K12 (and K1/K2 on the same tensors) under the profiler beside their
+   bounds, and the whole ``relpos_attention`` of a block forward and
+   backward (its GEMMs, copies and adds besides); then ESPnet's AISHELL-1
+   conformer (``ESPNET_CONFORMER``, 45,109,385 parameters) through
+   ``make_step_fns`` on 16 x 8 s, per step K5 1, K11 12, K12 12, K3 1, K4
+   1, K10 137 and nothing else, and its encoder in evaluation, K11 12;
 8. the serving path: a 512-wide, 6+6-layer, bf16 SpeechTransformer with a
    4233-token vocabulary decodes 16 synthetic utterances of 2-8 s (beam
    10, batches of 8); every utterance needs a finite-scored hypothesis,
@@ -321,16 +335,19 @@ Phases (any failure raises, so the exit code is non-zero; phases 3-17, 7b,
     1 (one NCCL rank in its own process): every number finite and
     positive;
 18. print the kernels' JSON line (per kernel: route, source, the TPU
-    kernel it replaces, launches on the main paths (the conformer's and the
-    RNN family's and phase 15c's included) and per flagship train step,
-    streaming train step, conformer train step, BiLSTMCTC and LAS train
+    kernel it replaces, launches on the main paths (the conformer's, phase
+    7c's ESPnet conformer's, the RNN family's and phase 15c's included) and
+    per flagship train step, streaming train step, conformer train step,
+    ESPnet conformer train step, BiLSTMCTC and LAS train
     step, flash train step, cached-feature train step, beam, joint and rescore serving
     batch, LAS joint decode step, bench-decode batch of 64 per mode (K8 also per
     joint decode step), and at the
     training shape ``shape``, ``max_abs_err``, ``ms``, ``plain_ms``,
     ``bound_ms``, ``bound_by``, ``library_ms``, ``device_ms`` (20 launches
     back to back: of the C entry point for the attention kernels, of the
-    wrapper for K3-K5, K8 and K9; for K10 a launch under the profiler),
+    wrapper for K3-K5, K8 and K9; for K10 a launch under the profiler;
+    for K11 and K12 a launch under the profiler at the fill batch's 10 s
+    bucket, with ``max_norm_gap`` and ``outside_k11_k12_ms``),
     for K2 and K7 ``checked_ms``, for K8 and K9 ``profiler_ms`` (the
     kernels alone: K8 at the serving shape, K9 at the serving batch, its
     row pass and recursion apart);
@@ -458,6 +475,8 @@ COUNTERS = {
     "ctc_prefix": k8.ctc_selected_registers_kernel,
     "ctc_prefix_beam": k9.ctc_prefix_beam_kernel,
     "hash_dropout": hd.hash_dropout_kernel,
+    "relpos_attention_fwd": fa.relpos_attention_kernel,
+    "relpos_attention_bwd": fa.relpos_attention_backward_kernel,
 }
 
 
@@ -1765,6 +1784,286 @@ def check_hash_dropout(dev) -> dict:
             "dtype": str(dtype).replace("torch.", "")}
 
 
+# -- phase 7c: K11 / K12, the rel-pos attention ---------------------------------
+
+# (what, (B, H, T, D)) of K11/K12's checks: the card test's shape, then the
+# fill batches (4096 padded seconds) at ESPnet's AISHELL-1 conformer widths,
+# 4 heads of 64, where the valid conv2d frontend leaves 249 rows of a 10 s
+# clip's 1001 frames and 99 of a 4 s clip's 401
+RELPOS_SHAPES = (
+    ("card test", (64, 4, 250, 64)),
+    ("fill, 10 s bucket", (409, 4, 249, 64)),
+    ("fill, 4 s bucket", (1024, 4, 99, 64)),
+)
+# K11/K12 against the f32 plain version on the same bf16 inputs: each
+# tensor's relative norm gap (out on the valid rows; dq, dk, dv, dpos
+# whole), and each utterance's, at most this. Writing bf16 alone reads
+# 1.66e-3 of a norm (2^-9 rounding), and on an H100 the kernels read 1.65-1.82e-3
+# at every shape here; a dpos off by 3 % reads 3.0e-2, so must fail
+RELPOS_GAP, RELPOS_CONTROL = 1e-2, 1.03
+# the kernels' names in a trace: the RELPOS instantiations (K1/K2 run
+# <64, *, false>)
+RELPOS_KERNELS = {
+    "K11": "attention_fwd_mma_kernel<64, false, true>",
+    "K12 dq": "attention_bwd_dq_mma_kernel<64, false, true>",
+    "K12 dkdv": "attention_bwd_dkdv_mma_kernel<64, false, true>",
+}
+ATTENTION_KERNELS = {
+    "K1": "attention_fwd_mma_kernel<64, false, false>",
+    "K2 dq": "attention_bwd_dq_mma_kernel<64, false, false>",
+    "K2 dkdv": "attention_bwd_dkdv_mma_kernel<64, false, false>",
+}
+# ESPnet's AISHELL-1 conformer (egs2/aishell/asr1/conf/tuning/
+# train_asr_conformer.yaml) at its published widths, on the flagship's
+# recipe (bf16, hash dropout 0.1, CTC 0.3 through K3/K4) with 80 mels and
+# no frame stacking; its hash dropout masks a train step: the input, the
+# relative table, 4 a block (two FFNs, attention output, conv module) and
+# the decoder's 19 (input, and each layer's self- and cross-attention
+# outputs and FFN; no attention-weight dropout). The table needs no
+# gradient, so its mask launches K10 in the forward only
+ESPNET_CONFORMER = dict(
+    encoder_type="conformer", norm_type="pre", pos_enc_type="rel", ffn_activation="swish",
+    frontend="conv2d", frontend_channels=256, frontend_padding="valid", input_dim=80,
+    d_model=256, num_heads=4, head_dim=64, d_ff=2048, num_encoder_layers=12,
+    num_decoder_layers=6, conv_kernel_size=15, attn_weight_dropout=False, label_smoothing=0.1,
+)
+ESPNET_MASKS = 2 + 4 * 12 + 19
+
+
+def relpos_fwd_bound(b, h, t, d) -> dict:
+    """K11: K1's bytes and products (``attention_fwd_bound``) and the T
+    positional terms a row reads of pos (bf16)."""
+    k1 = attention_fwd_bound(b, h, t, t, d)
+    return bound(k1["bytes"] + 2.0 * b * h * t * t, k1["flops"], H100_SXM_BF16_PEAK)
+
+
+def relpos_bwd_bound(b, h, t, d) -> dict:
+    """K12: K2's bytes and products (``attention_bwd_bound``), the T terms a
+    row reads of pos and the T it writes of dpos."""
+    k2 = attention_bwd_bound(b, h, t, t, d)
+    return bound(k2["bytes"] + 4.0 * b * h * t * t, k2["flops"], H100_SXM_BF16_PEAK)
+
+
+def _relpos_kernel_inputs(shape, dev, seed):
+    """bf16 q, k, v (B, H, T, D) and pos (H, B, T, 2T - 1) of normal values
+    (pos three times wider, as (q + v) p^T is against q k^T), lengths from
+    T / 3 to T, the first T."""
+    b, h, t, d = shape
+    g = torch.Generator(device=dev).manual_seed(seed)
+    mk = lambda *s, w=1.0: (torch.randn(*s, generator=g, device=dev) * w).to(torch.bfloat16)
+    q, k, v = mk(b, h, t, d), mk(b, h, t, d), mk(b, h, t, d)
+    pos = mk(h, b, t, 2 * t - 1, w=3.0)
+    lengths = torch.randint(t // 3, t + 1, (b,), generator=g, device=dev)
+    lengths[0] = t
+    return q, k, v, pos, lengths
+
+
+def _norm_gaps(got, want, batch_dim=0) -> tuple:
+    """(relative norm gap of the tensor, the largest of its utterances')."""
+    diff = (got.detach().float() - want.float()).transpose(0, batch_dim).flatten(1)
+    ref = want.float().transpose(0, batch_dim).flatten(1)
+    whole = float(diff.norm() / ref.norm())
+    each = diff.norm(dim=1) / ref.norm(dim=1).clamp(min=1e-30)
+    return whole, float(each.max())
+
+
+def _check_relpos_case(what, shape, dev) -> float:
+    """K11 and K12 through ``fused_attention_general`` against
+    ``attention_reference`` / ``attention_backward_reference`` in f32 on
+    the same inputs: one launch each, every tensor and every utterance
+    within ``RELPOS_GAP``. Returns the largest gap."""
+    q, k, v, pos, lengths = _relpos_kernel_inputs(shape, dev, seed=shape[0])
+    scale = shape[3] ** -0.5
+    leaves = [x.clone().requires_grad_(True) for x in (q, k, v, pos)]
+    before = read_counters()
+    out = fa.fused_attention_general(leaves[0], leaves[1], leaves[2], lengths, lengths, 0,
+                                     scale, 0.0, False, 0, leaves[3])
+    dout = torch.randn(out.shape, generator=torch.Generator(device=dev).manual_seed(1),
+                       device=dev).to(torch.bfloat16)
+    out.backward(dout)
+    torch.cuda.synchronize()
+    after = read_counters()
+    launched = {c: after[c] - before[c] for c in after if after[c] != before[c]}
+    require(launched == {"relpos_attention_fwd": 1, "relpos_attention_bwd": 1},
+            f"K11/K12 {what}: launches {launched}")
+    f32 = [x.float() for x in (q, k, v)]
+    rows = (torch.arange(shape[2], device=dev)[None, :] < lengths[:, None])[:, None, :, None]
+    want_out = fa.attention_reference(*f32, lengths, lengths, 0, scale, 0.0, False, 0,
+                                      pos.float())
+    gaps = {"out": _norm_gaps(out * rows, want_out * rows)}
+    del want_out
+    want = fa.attention_backward_reference(*f32, lengths, lengths, 0, scale, 0.0, False, 0,
+                                           dout.float(), pos.float())
+    for name, leaf, w in zip(("dq", "dk", "dv", "dpos"), leaves, want):
+        gaps[name] = _norm_gaps(leaf.grad, w, batch_dim=1 if name == "dpos" else 0)
+    control = _norm_gaps(leaves[3].grad.float() * RELPOS_CONTROL, want[3], batch_dim=1)
+    print(f"K11/K12 {what} {shape} bf16: relative norm gaps to the f32 plain version "
+          + ", ".join(f"{n} {a:.3e} (worst utterance {u:.3e})" for n, (a, u) in gaps.items())
+          + f"; dpos x {RELPOS_CONTROL} reads {control[0]:.3e}; launches 1 / 1")
+    for name, (whole, utt) in gaps.items():
+        require(whole <= RELPOS_GAP and utt <= RELPOS_GAP,
+                f"K11/K12 {what}: {name} gap {whole:.3e}, worst utterance {utt:.3e}")
+    require(control[0] > RELPOS_GAP, f"K11/K12 {what}: the bar passes a dpos 3 % off")
+    return max(g for pair in gaps.values() for g in pair)
+
+
+def _relpos_device_times(what, shape, dev) -> dict:
+    """Device ms at ``shape``: K11 and K12 launched through their wrappers
+    beside K1 and K2 on the same tensors, under the profiler; and the whole
+    rel-pos attention of a block (``relpos_attention``: the positional GEMM,
+    the bias adds and layout copies, K11, and in the backward K12, the
+    GEMMs of (q + v) and p's gradients and dpos's zeroing) forward and
+    backward, every device event summed. Printed beside the bounds."""
+    b, h, t, d = shape
+    q, k, v, pos, lengths = _relpos_kernel_inputs(shape, dev, seed=7)
+    q_len, k_len = fa._check_kernel_inputs(q, k, v, lengths, lengths)
+    scale = d ** -0.5
+    stats, out_lo = fa.row_stats_like(q), torch.empty_like(q)
+    out = fa.relpos_attention_kernel(q, k, v, pos, q_len, k_len, scale, stats, out_lo)
+    dout = torch.randn_like(q)
+    times = _launch_device_ms(
+        lambda: (fa.relpos_attention_kernel(q, k, v, pos, q_len, k_len, scale, stats, out_lo),
+                 fa.relpos_attention_backward_kernel(q, k, v, pos, out, stats, q_len, k_len,
+                                                     scale, dout, out_lo)),
+        RELPOS_KERNELS)
+    times.update(_launch_device_ms(
+        lambda: fa.fused_attention_general(*(x.requires_grad_(True) for x in (q, k, v)),
+                                           lengths, lengths, 0, scale, 0.0, False).backward(dout),
+        ATTENTION_KERNELS))
+    for x in (q, k, v):
+        x.requires_grad_(False).grad = None
+    heads_last = [x.transpose(1, 2).contiguous().requires_grad_(True) for x in (q, k, v)]
+    table = torch.randn(2 * t - 1, h, d, device=dev, dtype=torch.bfloat16).requires_grad_(True)
+    bias_u, bias_v = (torch.randn(h, d, device=dev, dtype=torch.bfloat16).requires_grad_(True)
+                      for _ in range(2))
+    g = dout.transpose(1, 2)
+
+    def block():
+        for x in (*heads_last, table, bias_u, bias_v):
+            x.grad = None
+        fa.relpos_attention(*heads_last, table, bias_u, bias_v, lengths, scale).backward(g)
+
+    times["relpos_attention"] = _all_device_ms(block)
+    fwd, bwd = relpos_fwd_bound(b, h, t, d), relpos_bwd_bound(b, h, t, d)
+    k12 = times["K12 dq"] + times["K12 dkdv"]
+    share = (fwd["bound_ms"] + bwd["bound_ms"]) / (times["K11"] + k12)
+    rest = times["relpos_attention"] - times["K11"] - k12
+    print(f"K11/K12 {what} {shape}, device ms a launch under the profiler ({DEVICE_REPS} "
+          f"calls): K11 {times['K11']:.4f} (bound {fwd['bound_ms']:.4f}, "
+          f"{fwd['bound_ms'] / times['K11'] * 100:.1f} %), K12 {k12:.4f} = dq "
+          f"{times['K12 dq']:.4f} + dk/dv {times['K12 dkdv']:.4f} (bound {bwd['bound_ms']:.4f}, "
+          f"{bwd['bound_ms'] / k12 * 100:.1f} %), together {share * 100:.1f} % of the bound; "
+          f"K1 {times['K1']:.4f}, K2 {times['K2 dq'] + times['K2 dkdv']:.4f} on the same "
+          f"tensors; relpos_attention forward + backward {times['relpos_attention']:.4f}, of "
+          f"which outside K11/K12 {rest:.4f}")
+    require(0.0 < share <= 1.0, f"K11/K12 {what}: {share * 100:.1f} % of the bound")
+    return {**times, "K12": k12, "outside_k11_k12": rest, "bound_share": share,
+            "fwd_bound_ms": fwd["bound_ms"], "bwd_bound_ms": bwd["bound_ms"]}
+
+
+def _all_device_ms(fn, n=5, warmup=2) -> float:
+    """Device ms a call of ``fn`` under the profiler, after ``warmup``
+    calls: every kernel, copy and set it ran, summed, the spin kernels
+    that open the trace left out; a host operator's device time is that of
+    the kernels it launched."""
+    from torch.autograd import DeviceType
+
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    with _traced() as prof:
+        for _ in range(n):
+            fn()
+    return sum(e.self_device_time_total for e in prof.key_averages()
+               if e.device_type != DeviceType.CPU and WARMUP_KERNEL not in e.key) / n / 1e3
+
+
+def _check_relpos_refusals(dev) -> None:
+    """A rel-pos call on f32 CUDA tensors raises (no plain fallback on the
+    card) and launches nothing."""
+    q, k, v, pos, lengths = (x.float() if x.is_floating_point() else x
+                             for x in _relpos_kernel_inputs((2, 4, 16, 64), dev, 0))
+    before = read_counters()
+    try:
+        fa.fused_attention_general(q, k, v, lengths, lengths, 0, 0.125, 0.0, False, 0, pos)
+    except ValueError as e:
+        print(f"rel-pos attention on f32 CUDA tensors refused: {e}")
+    else:
+        raise AssertionError("rel-pos attention ran on f32 CUDA tensors")
+    require(read_counters() == before, "a refused rel-pos call launched a kernel")
+
+
+def _relpos_main_path(dev) -> dict:
+    """ESPnet's conformer (``ESPNET_CONFORMER``) through ``make_step_fns``
+    on 16 x 8 s: per step K5 1, K11 12, K12 12, K3 1, K4 1, K10 twice per
+    mask but the table's once, and nothing else (no K1/K2: the decoder's attention is plain);
+    the loss finite; then the encoder in evaluation, K11 12 and nothing of
+    K12. Returns the launch counts of both, and those a train step."""
+    cfg, tcfg, feat = _recipe("bfloat16", **ESPNET_CONFORMER)
+    feat = dataclasses.replace(feat, lfr_m=1, lfr_n=1)
+    require(feat.feature_dim == cfg.input_dim, f"feature dim {feat.feature_dim}")
+    tcfg.build(spec_augment=True)
+    model = build_model(cfg, dev)
+    n_params = sum(p.numel() for p in model.parameters())
+    opt = make_optimizer(model.parameters(), tcfg, model_width(cfg))
+    init_fn, train_step, _ = make_step_fns(model, opt, feat, tcfg)
+    batch = fixed_batch(dev, 16)
+    state = init_fn()
+    for _ in range(2):
+        state, m = train_step(state, *batch, 0)
+    steps = 3
+    reset_counters()
+    for _ in range(steps):
+        state, m = train_step(state, *batch, 0)
+    torch.cuda.synchronize()
+    trained = read_counters()
+    want = {k: 0 for k in COUNTERS}
+    want.update(fbank=steps, relpos_attention_fwd=12 * steps, relpos_attention_bwd=12 * steps,
+                ctc_alpha=steps, ctc_beta=steps, hash_dropout=(2 * ESPNET_MASKS - 1) * steps)
+    require(np.isfinite(float(m["loss"])), "ESPnet conformer: loss not finite")
+    require(trained == want, f"ESPnet conformer step launches {trained} != {want}")
+    model.eval()
+    with torch.inference_mode():
+        feats, feat_lens = parse_batch(batch[0], batch[1], feat)
+        torch.cuda.synchronize()
+        reset_counters()
+        enc, enc_lens = model.encode(feats, feat_lens)
+    torch.cuda.synchronize()
+    encoded = read_counters()
+    t_enc = ((feats.shape[1] - 1) // 2 - 1) // 2
+    require(encoded == {**{k: 0 for k in COUNTERS}, "relpos_attention_fwd": 12}
+            and enc.shape[1] == t_enc and bool(torch.isfinite(enc).all()),
+            f"ESPnet conformer encode: launches {encoded}, {tuple(enc.shape)}")
+    print(f"ESPnet conformer ({n_params} parameters), bf16, 16 x 8 s: {feats.shape[1]} frames "
+          f"-> {t_enc} encoder frames; {steps} train steps through make_step_fns, loss "
+          f"{float(m['loss']):.4f}, launches a step "
+          f"{ {k: v / steps for k, v in trained.items() if v} }; the encoder in evaluation "
+          f"launches {encoded['relpos_attention_fwd']} K11 and no K12")
+    return {"launches": {k: trained[k] + encoded[k] for k in COUNTERS},
+            "per_step": {k: v / steps for k, v in trained.items()}}
+
+
+def check_relpos_attention(dev) -> dict:
+    """Phase 7c: K11/K12 at the card test's shape and the fill batches'
+    against their plain version, their device times beside K1/K2's and the
+    bounds, the f32 refusal, and ESPnet's conformer trained and encoded on
+    its main path. Returns the kernels' entries, the main path's launches
+    and its launches a train step."""
+    cases = {what: _check_relpos_case(what, shape, dev) for what, shape in RELPOS_SHAPES}
+    _check_relpos_refusals(dev)
+    times = {what: _relpos_device_times(what, shape, dev) for what, shape in RELPOS_SHAPES}
+    main_path = _relpos_main_path(dev)
+    entries = {}
+    for name, part, bound_key in (("relpos_attention_fwd", "K11", "fwd_bound_ms"),
+                                  ("relpos_attention_bwd", "K12", "bwd_bound_ms")):
+        shapes = [{"shape": list(shape), "max_norm_gap": cases[what],
+                   "device_ms": times[what][part], "bound_ms": times[what][bound_key],
+                   "outside_k11_k12_ms": times[what]["outside_k11_k12"]}
+                  for what, shape in RELPOS_SHAPES]
+        entries[name] = {**shapes[1], "other_shapes": shapes[:1] + shapes[2:]}
+    return {"entries": entries, **main_path}
+
+
 # -- phase 8: the serving path -------------------------------------------------
 
 
@@ -2800,16 +3099,14 @@ def flagship_train_setup(dev, dtype="bfloat16", feat_overrides=None, **overrides
 
 
 def _step_device_ms(train_step, state, batch, n=3) -> float:
-    """Device ms per step over ``n`` steps under ``torch.profiler``: the
-    self device time of the device's own events (kernels, copies), summed;
-    a host operator's device time is that of the kernels it launched."""
-    from torch.autograd import DeviceType
+    """Device ms per step over ``n`` steps under ``torch.profiler``
+    (``_all_device_ms``, no warm-up)."""
+    carry = [state]
 
-    with _traced() as prof:
-        for _ in range(n):
-            state, _ = train_step(state, *batch, 0)
-    return sum(e.self_device_time_total for e in prof.key_averages()
-               if e.device_type != DeviceType.CPU and WARMUP_KERNEL not in e.key) / n / 1e3
+    def step():
+        carry[0] = train_step(carry[0], *batch, 0)[0]
+
+    return _all_device_ms(step, n, warmup=0)
 
 
 def measure_training_throughput(dev, n_warmup=3, n_timed=20, label="flagship",
@@ -4032,6 +4329,7 @@ def main() -> None:
     banded_fwd, banded_bwd = phase(6, check_banded, dev)
     ctc_alpha, ctc_beta = phase(7, check_ctc, dev)
     k10 = phase("7b", check_hash_dropout, dev)
+    relpos = phase("7c", check_relpos_attention, dev)
     serve, serve_batches, serve_corpus, serve_exp = phase(8, run_serving_path, dev)
     decoded, joint_batches, joint = phase("8b", run_decoding_modes, serve_exp, serve_corpus,
                                           dev)
@@ -4053,7 +4351,7 @@ def main() -> None:
     launches = {
         k: serve[k] + decoded[k] + trained[k] + stream_trained[k] + stream_served[k]
         + conformer["launches"][k] + rnn["launches"][k] + cache["launches"][k]
-        + benches["launches"][k] + joint["rescore"][0][k]
+        + benches["launches"][k] + joint["rescore"][0][k] + relpos["launches"][k]
         for k in COUNTERS
     }
     require(all(n > 0 for n in launches.values()), f"a kernel never launched: {launches}")
@@ -4077,6 +4375,12 @@ def main() -> None:
                             joint["k9"]),
         "hash_dropout": ("hash_dropout.cu",
                          "none (XLA fuses it): asr_chinese_e2e_tpu/models/layers.py:70", k10),
+        "relpos_attention_fwd": ("relpos/relpos_attention_fwd.cu",
+                                 "none (the JAX package has no relative positions)",
+                                 relpos["entries"]["relpos_attention_fwd"]),
+        "relpos_attention_bwd": ("relpos/relpos_attention_bwd.cu",
+                                 "none (the JAX package has no relative positions)",
+                                 relpos["entries"]["relpos_attention_bwd"]),
     }
     rescore_counts, rescore_batches = joint["rescore"]
     kernels = [
@@ -4087,6 +4391,7 @@ def main() -> None:
              "flagship_train_step": flagship_step[name],
              "streaming_train_step": streaming_step[name],
              "conformer_train_step": conformer["per_step"][name],
+             "espnet_conformer_train_step": relpos["per_step"][name],
              "bilstm_ctc_train_step": rnn["per_step"]["BiLSTMCTC"][name],
              "las_train_step": rnn["per_step"]["LAS"][name],
              "flash_train_step": flash_step[name],
